@@ -1,6 +1,6 @@
 """RADS / R-Meef distributed subgraph enumeration: planner, engine,
-adjacency cache, scheduler and driver (dense storage, raw wire, ``sim``
-exchange in this slice of the port)."""
+adjacency cache, scheduler and driver (dense or bucketed storage, raw or
+varint wire, the ``sim`` exchange)."""
 from repro_torch.core.query import Pattern
 from repro_torch.core.plan import (Plan, Unit, best_plan, enumerate_plans,
                                    minimum_cds, bfs_fallback_plan,

@@ -72,9 +72,10 @@ def rads_enumerate(pg: PartitionedGraph, pattern: Pattern,
 
     ``device=None`` runs on the card (``cuda``) and raises if there is
     none; ``device="cpu"`` runs the plain PyTorch versions of the kernels.
-    This slice ports ``mode="sim"`` with dense storage and the raw wire;
-    other configurations raise ``NotImplementedError`` naming their
-    ROADMAP item.
+    ``mode="sim"`` runs with both storage formats (``dense``,
+    ``bucketed``) and both wire formats (``raw``, ``varint``); the other
+    exchange modes raise ``NotImplementedError`` naming their ROADMAP
+    item.
 
     ``tracer``: optional :class:`repro_torch.obs.trace.TraceRecorder` —
     wave / stage / scheduler spans land in it for Chrome-trace export."""

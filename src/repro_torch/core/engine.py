@@ -1,7 +1,7 @@
 """R-Meef: region-grouped multi-round expand, verify & filter (§3, App. B).
 
-The port of the reference engine's dense storage / raw wire path.  One
-vectorized, static-shape engine serves two roles:
+The port of the reference engine (``sim`` exchange, every storage and
+wire format).  One vectorized, static-shape engine serves two roles:
 
 * **SM-E** (``local_only=True``): the single-machine pass over seeds whose
   border distance >= span(u_start) (Prop. 1) — no exchanges at all;
@@ -23,10 +23,24 @@ The round is split into three stages over a :class:`WaveState` —
 scheduler can keep several waves in flight; :func:`run_rounds` is their
 synchronous composition.
 
-Membership tests (the dense back-edge filter in ``_leaf_step`` and the
-owner-side ``verifyE`` answer) go through
-:func:`repro_torch.kernels.membership.ops.membership`: the hand-written
-CUDA kernel on the card, its plain PyTorch version on the CPU.
+The engine reads adjacency only through the
+:class:`~repro_torch.graph.storage.DeviceGraph` interface, so ``dense``
+and ``bucketed`` storage give byte-identical results.  With the
+``varint`` wire both exchanges encode their payloads into ``uint8``
+streams (:mod:`repro_torch.core.wire`) and decode them on the receiving
+side; ``bytes_wire_*`` count the stream lengths, ``bytes_fetch``/
+``bytes_verify`` keep the raw-equivalent accounting.
+
+Kernels (the hand-written CUDA kernel on the card, its plain PyTorch
+version on the CPU):
+
+* membership — the dense back-edge filter in ``_leaf_step`` and the
+  owner-side ``verifyE`` answer
+  (:func:`repro_torch.kernels.membership.ops.membership`);
+* intersect — the back-edge filter on the bucketed layout
+  (:func:`repro_torch.kernels.intersect.ops.intersect`);
+* delta_vlen — the sizing pass of the varint fetchV id encoder
+  (:func:`repro_torch.kernels.varint.ops.delta_vlen`).
 """
 from __future__ import annotations
 
@@ -36,11 +50,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.rads import EngineConfig
+from repro_torch.core import wire as wire_codec
 from repro_torch.core.cache import AdjCache, probe_lines
 from repro_torch.core.exchange import (SimExchange, compact_index, masked,
                                        unique_ids, unique_pairs)
 from repro_torch.core.plan import Plan
 from repro_torch.graph.storage import DeviceGraph
+from repro_torch.kernels.intersect.ops import intersect
 from repro_torch.kernels.membership.ops import membership
 
 
@@ -63,6 +79,19 @@ def _dev_ids(t0: int, t1: int, device, ndim: int) -> torch.Tensor:
     broadcast against a stacked tensor of ``ndim`` dims."""
     return torch.arange(t0, t1, dtype=torch.int32, device=device).view(
         (t1 - t0,) + (1,) * (ndim - 1))
+
+
+def _backedge_mask(g: DeviceGraph, w_row: torch.Tensor,
+                   cand: torch.Tensor) -> torch.Tensor:
+    """Candidate-generation back-edge filter: is ``cand[r, j]`` in
+    ``w_row[r]``?  Formats with ``intersect_backedge`` (the bucketed
+    layout) route the sorted-window intersection ``C(u) ∩ adj(f(u'))``
+    through the intersect kernel, the rest through membership.  The two
+    differ only where ``cand`` is the sentinel, which the caller has
+    already invalidated, so the final masks are identical."""
+    if g.intersect_backedge:
+        return intersect(cand, w_row, g.n)[0]
+    return membership(w_row, cand)
 
 
 def _to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -186,7 +215,13 @@ def fetch_exchange(g: DeviceGraph, exch: SimExchange, pivots, need,
     per peer — hits included, fetched_adj (ndev, ndev, fcap, max_degree)
     with cached rows merged in, overflow, fstats, cache')``.  ``fstats``
     counts only what crossed the wire in ``bytes_fetch``; the hit-masked
-    remainder is ``bytes_saved_cache``."""
+    remainder is ``bytes_saved_cache``.
+
+    With ``exch.wire_format == "varint"`` the hole-masked request lanes go
+    out delta+varint coded, the owners answer with degree+delta coded row
+    streams, and the requesters decode them and scatter the compacted rows
+    back onto their hole positions: the rows are bit-identical to the raw
+    path's, and only ``bytes_wire_fetch`` (the stream lengths) changes."""
     ndev, stride, n, D = g.ndev, g.stride, g.n, g.max_degree
     use_cache = cache is not None
     t2 = _dev_ids(0, ndev, pivots.device, 2)
@@ -213,15 +248,49 @@ def fetch_exchange(g: DeviceGraph, exch: SimExchange, pivots, need,
     # max_degree).  It is built once, in the requesters' layout: owners
     # answer in device chunks whose exchange lands in its slice, and the
     # cached rows of hits are merged in place, chunk by chunk.
-    recv = exch.a2a(wire)                               # (ndev, src, fcap)
     fetched = torch.empty(reqs.shape + (D,), dtype=torch.int32,
                           device=reqs.device)           # (ndev, peer, fcap, D)
-    for p0, p1 in _device_chunks(ndev, ndev * fcap * D):
-        t3 = _dev_ids(p0, p1, recv.device, 3)
-        rc = recv[p0:p1]
-        ok = (rc // stride == t3) & (rc < n)
-        resp = g.rows_at((rc - t3 * stride).clamp(0, stride - 1), p0)
-        fetched[:, p0:p1] = exch.a2a(resp.masked_fill_(~ok[..., None], n))
+    chunks = _device_chunks(ndev, ndev * fcap * D)
+    wire_stream_bytes = model_ids = None
+    wire_ov = torch.zeros((), dtype=torch.bool, device=reqs.device)
+    if exch.wire_format == "varint":
+        # coded path: compacted varint id streams out, degree+delta coded
+        # row streams back, decoded and scattered onto the requesters' hole
+        # positions one responder chunk at a time
+        req_cap, degs_cap, rows_cap = wire_codec.fetch_stream_caps(fcap, D)
+        req_s, req_len, req_raw, e_ov, model_ids = \
+            wire_codec.encode_ids_lanes(wire, n, req_cap)
+        recv_s, recv_len, recv_raw = exch.a2a_tree((req_s, req_len, req_raw))
+        dec_ids, dec_mask = wire_codec.decode_ids_lanes(
+            recv_s, recv_len, recv_raw, fcap, n)        # (ndev, src, fcap)
+        del req_s, recv_s
+        resp_len = torch.empty_like(req_len)    # row stream bytes, [p, t]
+        for p0, p1 in chunks:
+            resp = _fetch_answer(g, dec_ids[p0:p1], p0)
+            dg_s, dg_len, ri_s, ri_len, resp_raw, r_ov = \
+                wire_codec.encode_rows_lanes(resp, dec_mask[p0:p1], n,
+                                             degs_cap, rows_cap)
+            del resp
+            rows_c = wire_codec.decode_rows_lanes(
+                *exch.a2a_tree((dg_s, dg_len, ri_s, ri_len, resp_raw)),
+                fcap, D, n)                             # (ndev, d, fcap, D)
+            del dg_s, ri_s
+            fetched[:, p0:p1] = wire_codec.scatter_compacted_lanes(
+                rows_c, wire[:, p0:p1] < n, n)
+            del rows_c
+            resp_len[p0:p1] = dg_len + ri_len
+            wire_ov = wire_ov | r_ov
+        wire_ov = wire_ov | e_ov
+        wire_stream_bytes = (exch.off_device_payload_bytes(req_len)
+                             + exch.off_device_payload_bytes(resp_len))
+        # requesters send the id streams, responders the row streams: the
+        # row sums recover wire_stream_bytes exactly
+        wire_dev = (exch.per_dev_sent_bytes(req_len)
+                    + exch.per_dev_sent_bytes(resp_len))
+    else:
+        recv = exch.a2a(wire)                           # (ndev, src, fcap)
+        for p0, p1 in chunks:
+            fetched[:, p0:p1] = exch.a2a(_fetch_answer(g, recv[p0:p1], p0))
     if use_cache:
         for t0, t1 in _device_chunks(ndev, ndev * fcap * D):
             f = fetched[t0:t1]
@@ -238,23 +307,40 @@ def fetch_exchange(g: DeviceGraph, exch: SimExchange, pivots, need,
     eff = counts - counts_hit                    # entries that cross the wire
     full_bytes = exch.off_device_bytes(counts, elem)
     wire_bytes = exch.off_device_bytes(eff, elem)
-    # requester t sends 4B ids (eff[t, p]), responder p sends 4*D-byte rows
-    # back (eff.T); the two row sums add up to wire_bytes exactly
-    wire_dev = (exch.per_dev_sent_bytes(eff * 4.0)
-                + exch.per_dev_sent_bytes(eff.T * (4.0 * D)))
-    comp_bytes = (exch.off_device_payload_bytes(_varint_id_bytes(wire, n))
+    if wire_stream_bytes is None:
+        # requester t sends 4B ids (eff[t, p]), responder p sends 4*D-byte
+        # rows back (eff.T); the two row sums add up to wire_bytes exactly
+        wire_dev = (exch.per_dev_sent_bytes(eff * 4.0)
+                    + exch.per_dev_sent_bytes(eff.T * (4.0 * D)))
+        wire_stream_bytes = wire_bytes
+    # the modeled column reuses the codec's sizing pass when it already ran
+    if model_ids is None:
+        model_ids = _varint_id_bytes(wire, n)
+    comp_bytes = (exch.off_device_payload_bytes(model_ids)
                   + exch.off_device_bytes(eff, 4.0 * D))
     zero = torch.zeros((), dtype=torch.float32, device=pivots.device)
     fstats = dict(
         bytes_fetch=wire_bytes,
         bytes_fetch_compressed=comp_bytes,
-        bytes_wire_fetch=wire_bytes,
+        # stream lengths under 'varint', the raw accounting under 'raw'
+        bytes_wire_fetch=wire_stream_bytes,
         bytes_wire_fetch_dev=wire_dev,
         bytes_saved_cache=full_bytes - wire_bytes,
         # probe/hit counters exist only when there is a cache to probe
         cache_hits=counts_hit.sum().to(torch.float32) if use_cache else zero,
         cache_probes=counts.sum().to(torch.float32) if use_cache else zero)
-    return reqs, fetched, ovs, fstats, cache
+    return reqs, fetched, ovs | wire_ov, fstats, cache
+
+
+def _fetch_answer(g: DeviceGraph, rc, p0: int):
+    """Owner-side fetchV answer of devices ``p0..``: the local adjacency
+    row of each requested id ``rc (d, src, fcap)``, sentinel rows where the
+    id is not local."""
+    stride, n = g.stride, g.n
+    t3 = _dev_ids(p0, p0 + rc.shape[0], rc.device, 3)
+    ok = (rc // stride == t3) & (rc < n)
+    resp = g.rows_at((rc - t3 * stride).clamp(0, stride - 1), p0)
+    return resp.masked_fill_(~ok[..., None], n)
 
 
 def verify_exchange(g: DeviceGraph, exch: SimExchange, pa, pb, pmask,
@@ -262,9 +348,12 @@ def verify_exchange(g: DeviceGraph, exch: SimExchange, pa, pb, pmask,
     """Batched verifyE over the EVI (§3.2).  pa/pb/pmask: (ndev, R, K).
     Pairs are routed to owner(pa).  Returns ``(ok (ndev, R, K) — True
     where the edge exists or the slot is inactive, overflow, off_bytes,
-    wire_bytes, wire_dev)``; with the raw wire ``wire_bytes == off_bytes``
-    (8 B per pair + 1 B per answer) and ``wire_dev`` attributes it to the
-    sending devices."""
+    wire_bytes, wire_dev)``.  ``off_bytes`` is the raw-equivalent
+    accounting (8 B per pair + 1 B per answer); ``wire_bytes`` is what
+    crossed: equal to it on the raw wire, the coded stream lengths on the
+    varint wire (Elias-Fano ``a``, run-delta varint ``b``, bit-packed
+    answers).  ``wire_dev`` attributes ``wire_bytes`` to the sending
+    devices."""
     ndev, stride, n = g.ndev, g.stride, g.n
     R, K = pa.shape[1], pa.shape[2]
     fa, fb, fm = (x.reshape(ndev, R * K) for x in (pa, pb, pmask))
@@ -278,11 +367,32 @@ def verify_exchange(g: DeviceGraph, exch: SimExchange, pa, pb, pmask,
     start = torch.searchsorted(owners, owners)
     slots = torch.arange(owners.shape[1], device=owners.device) - start
 
-    recv_a, recv_b = exch.a2a_tree((reqs_a, reqs_b))
-    ans = torch.cat([
-        _verify_answer(g, recv_a[t0:t1], recv_b[t0:t1], t0)
-        for t0, t1 in _device_chunks(ndev, ndev * vcap * g.max_degree)])
-    back = exch.a2a(ans)                                # (ndev, peer, vcap)
+    def answer(ra, rb):
+        return torch.cat([
+            _verify_answer(g, ra[t0:t1], rb[t0:t1], t0)
+            for t0, t1 in _device_chunks(ndev, ndev * vcap * g.max_degree)])
+
+    if exch.wire_format == "varint":
+        # coded path: EF(a) + run-delta varint(b) out, bit-packed bools back
+        a_cap, b_cap, ans_cap = wire_codec.verify_stream_caps(vcap)
+        a_s, a_len, b_s, b_len, p_raw, p_ov = wire_codec.encode_pairs_lanes(
+            reqs_a, reqs_b, n, a_cap, b_cap)
+        ra_s, ra_len, rb_s, rb_len, r_raw, r_counts = exch.a2a_tree(
+            (a_s, a_len, b_s, b_len, p_raw, counts))
+        dec_a, dec_b, _ = wire_codec.decode_pairs_lanes(
+            ra_s, ra_len, rb_s, rb_len, r_raw, r_counts, vcap, n, n)
+        ans_s, ans_len = wire_codec.pack_bools_lanes(answer(dec_a, dec_b),
+                                                     r_counts, ans_cap)
+        back = wire_codec.unpack_bools_lanes(exch.a2a(ans_s), counts, vcap)
+        wire_bytes = (exch.off_device_payload_bytes(a_len + b_len)
+                      + exch.off_device_payload_bytes(ans_len))
+        wire_dev = (exch.per_dev_sent_bytes(a_len + b_len)
+                    + exch.per_dev_sent_bytes(ans_len))
+        ov = ov | p_ov
+    else:
+        recv_a, recv_b = exch.a2a_tree((reqs_a, reqs_b))
+        back = exch.a2a(answer(recv_a, recv_b))         # (ndev, peer, vcap)
+        wire_bytes = wire_dev = None
 
     t2 = torch.arange(ndev, device=owners.device)[:, None]
     sl_c = slots.clamp(0, vcap - 1)
@@ -290,11 +400,13 @@ def verify_exchange(g: DeviceGraph, exch: SimExchange, pa, pb, pmask,
     ok_flat = ok_unique.gather(1, rank.long().clamp_(0, R * K - 1))
     ok = ok_flat.view(ndev, R, K) | ~pmask
     off_bytes = exch.off_device_bytes(counts, 8 + 1)
-    # requester t sends 8B pairs (counts[t, p]); owner p sends 1B answers
-    # back (counts.T) — row sums add up to off_bytes exactly
-    wire_dev = (exch.per_dev_sent_bytes(counts * 8.0)
-                + exch.per_dev_sent_bytes(counts.T * 1.0))
-    return ok, ov, off_bytes, off_bytes, wire_dev
+    if wire_bytes is None:
+        wire_bytes = off_bytes
+        # requester t sends 8B pairs (counts[t, p]); owner p sends 1B
+        # answers back (counts.T) — row sums add up to off_bytes exactly
+        wire_dev = (exch.per_dev_sent_bytes(counts * 8.0)
+                    + exch.per_dev_sent_bytes(counts.T * 1.0))
+    return ok, ov, off_bytes, wire_bytes, wire_dev
 
 
 def _verify_answer(g: DeviceGraph, ra, rb, t0: int):
@@ -388,7 +500,8 @@ def _leaf_devs(g: DeviceGraph, cfg: EngineConfig, spec: StepSpec,
         wv = rows[:, :, c]
         w_loc = (wv // stride == t2) & (wv < n)
         w_row = g.rows_at((wv - t2 * stride).clamp(0, stride - 1), t0)
-        memb = membership(w_row.view(-1, D), cand.view(-1, D)).view(cand.shape)
+        memb = _backedge_mask(g, w_row.view(-1, D), cand.view(-1, D)
+                              ).view(cand.shape)
         del w_row
         valid &= ~w_loc[..., None] | memb
         del memb
@@ -610,9 +723,6 @@ def run_rounds(g: DeviceGraph, pd: PlanData, cfg: EngineConfig,
     """All units, all leaves, exchanges per round: ``fetch→expand→verify``
     per unit, with the (optional) adjacency cache threaded through the
     fetches and discarded at the end.  Returns ``finalize_wave``'s tuple."""
-    if exch.wire_format != "raw":
-        raise NotImplementedError(
-            "wire_format='varint' is not ported yet (ROADMAP queue A item 7)")
     state = init_wave(g, seeds, seed_mask)
     for ui in range(len(pd.unit_steps)):
         state, bufs, cache = fetch_stage(g, pd, cfg, exch, ui, state,

@@ -7,9 +7,9 @@ on one device, where the all-to-all ``out[t, s] = x[s, t]`` is an axis
 swap.  The byte accounting is the reference's: ``sim`` reports the bytes
 a real transport would put on the wire, the diagonal (self-traffic) free.
 
-Only ``sim`` with the ``raw`` wire format is ported in this slice; the
-other backends (ROADMAP queue A item 8) and the ``varint`` codecs (item 7)
-raise ``NotImplementedError``.
+Only the ``sim`` backend is ported, with both wire formats (``raw`` and
+the ``varint`` codecs of :mod:`repro_torch.core.wire`); the other
+backends (ROADMAP queue A item 8) raise ``NotImplementedError``.
 
 Every primitive works on any leading batch shape (the reference vmaps a
 per-device function), keeps every shape static, and never synchronises
@@ -80,17 +80,14 @@ class SimExchange:
 
 def Exchange(mode: str = "sim", wire_format: str = "raw",
              comm_chunks: int = 1) -> SimExchange:
-    """The exchange backend for ``mode`` (``sim`` only in this slice)."""
+    """The exchange backend for ``mode`` (``sim`` only so far)."""
     if mode in ("gather", "spmd", "dist"):
         raise NotImplementedError(
             f"exchange mode {mode!r} is not ported yet (ROADMAP queue A "
             f"item 8); use mode='sim'")
     if mode != "sim":
         raise ValueError(f"unknown exchange mode {mode!r}")
-    if wire_format == "varint":
-        raise NotImplementedError(
-            "wire_format='varint' is not ported yet (ROADMAP queue A item 7)")
-    if wire_format != "raw":
+    if wire_format not in ("raw", "varint"):
         raise ValueError(f"unknown wire format {wire_format!r}")
     if not isinstance(comm_chunks, int) or comm_chunks < 1:
         raise ValueError(
@@ -102,13 +99,15 @@ def Exchange(mode: str = "sim", wire_format: str = "raw",
 # Static-shape primitives (leading batch dims allowed; no host syncs)
 # --------------------------------------------------------------------------- #
 def row_cumsum(mask: torch.Tensor) -> torch.Tensor:
-    """Inclusive int32 running count of ``mask`` along its last axis.
+    """Inclusive int32 running count (or sum, for an integer ``mask``)
+    along the last axis; a row's sum wraps mod 2^32 as an int32 scan does.
 
     Computed as one flat scan minus each row's starting offset: on the
     card, PyTorch scans the last axis of a few long rows with one thread
-    block per row, while a 1-D scan uses the whole device."""
+    block per row, while a 1-D scan uses the whole device.  The flat scan
+    may wrap too; the difference is still exact mod 2^32."""
     if mask.numel() >= 1 << 31:
-        raise ValueError("row_cumsum counts in int32: too many elements")
+        raise ValueError("row_cumsum scans in int32: too many elements")
     flat = torch.cumsum(mask.reshape(-1), dim=0, dtype=torch.int32)
     flat = flat.view(mask.shape)
     ends = flat[..., -1].reshape(-1)

@@ -25,7 +25,12 @@ The robustness mechanisms are the reference's:
 * **per-seed cost calibration**: a running mean of trie-node counts over
   every completed wave;
 * **adaptive pipeline depth** (``pipeline_depth="auto"``): the achieved
-  concurrency ``Σ wave latency / wall`` steers the in-flight limit;
+  concurrency ``Σ wave latency / wall`` steers the in-flight limit.  It
+  is steered from wall time, as in the reference, so which waves are in
+  flight when an escalation retires depends on the run: the schedule
+  stats (``overflow_retries``, ``n_waves``, the per-device wire arrays,
+  ``comm_skew``) of an auto-depth run may differ between runs and from
+  the reference's, while counts and embeddings do not;
 * **wave-level tracing** through :mod:`repro_torch.obs`, every record
   site guarded by ``tracer.enabled``.
 

@@ -11,8 +11,9 @@ On the card the engine reads adjacency only through :class:`DeviceGraph`:
 sentinel ``n``-padded rows of width ``max_degree``.  The ``ndev`` virtual
 machines share one card, so every accessor takes per-device local indices
 with a leading ``ndev`` axis — the batch dimension that replaces the
-reference's ``jax.vmap`` over devices.  This slice ports the ``dense``
-format; ``bucketed`` raises until its slice lands.
+reference's ``jax.vmap`` over devices.  Two formats: ``dense`` (the padded
+reference layout) and ``bucketed`` (degree-bucketed slabs, whose windows
+are byte-identical to the dense ones).
 """
 from __future__ import annotations
 
@@ -220,6 +221,10 @@ class DeviceGraph:
     """
 
     format: ClassVar[str] = "abstract"
+    # back-edge candidate refinement: False routes through the membership
+    # kernel, True through the sorted-window intersect kernel (Alg. 1
+    # line 6), as the reference's formats choose
+    intersect_backedge: ClassVar[bool] = False
 
     ndev: int
     stride: int
@@ -287,14 +292,136 @@ class DenseDeviceGraph(DeviceGraph):
         return self.deg[_dev_index(li, t0), li]
 
 
+@dataclass(frozen=True)
+class BucketedDeviceGraph(DeviceGraph):
+    """Degree-bucketed padded CSR slabs (the reference's ``bucketed``
+    format, ``src/repro/graph/storage.py``).
+
+    Vertices with ``deg > 0`` are grouped into power-of-two degree buckets
+    (cap 1, 2, 4, ... — the top cap clamped to ``max_degree``); bucket
+    ``b`` holds one slab ``(ndev, n_b_max, cap_b)`` padded only to its own
+    cap, plus the per-vertex ``bucket_of``/``slot_of`` maps.  Adjacency
+    memory is ~O(Σ_b n_b · cap_b) instead of the dense O(n · d_max).
+
+    The slabs lie end to end in one flat buffer per device, in ascending
+    cap order (:attr:`slabs` gives the per-bucket views).  A window is then
+    one gather of ``max_degree`` ids starting at ``base[b] + slot · cap[b]``
+    — through an overlapping strided view of the buffer, so no per-element
+    index is built — masked by ``col < deg``.  The reference reassembles a
+    window with one full-width select per bucket instead; both give the
+    dense format's windows byte for byte.  Ids past a row's own cap belong
+    to the next rows and are masked; the buffer carries ``max(0,
+    max_degree - top cap)`` ids of tail per device so that the last window
+    stays inside it (none unless ``max_degree`` was padded above the real
+    maximum).  ``base``/``caps`` are the device copy of the static bucket
+    table and, like the reference's ``bucket_caps``, are not counted in
+    :attr:`adj_bytes`."""
+
+    format: ClassVar[str] = "bucketed"
+    intersect_backedge: ClassVar[bool] = True
+
+    bucket_caps: tuple       # padded row width per bucket, ascending
+    bucket_rows: tuple       # n_b_max: slab rows per bucket
+    deg: torch.Tensor        # (ndev, stride) int32
+    bucket_of: torch.Tensor  # (ndev, stride) int32 (0 where deg == 0)
+    slot_of: torch.Tensor    # (ndev, stride) int32 (0 where deg == 0)
+    flat: torch.Tensor       # (ndev, Σ_b n_b_max·cap_b + tail) int32
+    base: torch.Tensor       # (n_buckets,) int32 offset of each slab
+    caps: torch.Tensor       # (n_buckets,) int32 == bucket_caps
+
+    @classmethod
+    def from_partitioned(cls, pg: PartitionedGraph,
+                         device=None) -> "BucketedDeviceGraph":
+        device = resolve_device(device)
+        ndev, stride, n, D = pg.ndev, pg.stride, pg.n, pg.max_degree
+        deg = np.asarray(pg.deg, dtype=np.int32)
+        real_max = int(deg.max()) if deg.size else 0
+        caps: list[int] = []
+        c = 1
+        while c < max(real_max, 1):
+            caps.append(c)
+            c *= 2
+        caps.append(min(c, D) if real_max else 1)
+        caps_arr = np.asarray(caps, dtype=np.int32)
+
+        bucket_of = np.zeros((ndev, stride), dtype=np.int32)
+        slot_of = np.zeros((ndev, stride), dtype=np.int32)
+        has_row = deg > 0
+        bucket_of[has_row] = np.searchsorted(caps_arr, deg[has_row])
+        members = [[np.flatnonzero(has_row[t] & (bucket_of[t] == b))
+                    for b in range(len(caps))] for t in range(ndev)]
+        for t in range(ndev):
+            for b in range(len(caps)):
+                slot_of[t, members[t][b]] = np.arange(len(members[t][b]),
+                                                      dtype=np.int32)
+        rows = [max(max(len(members[t][b]) for t in range(ndev)), 1)
+                for b in range(len(caps))]
+        sizes = [r * cap for r, cap in zip(rows, caps)]
+        base = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
+        flat = np.full((ndev, sum(sizes) + max(0, D - caps[-1])), n,
+                       dtype=np.int32)
+        for t in range(ndev):
+            for b, cap in enumerate(caps):
+                m = members[t][b]
+                if len(m):
+                    flat[t, base[b]:base[b] + len(m) * cap] = \
+                        pg.adj[t, m, :cap].reshape(-1)
+        as_t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+        return cls(ndev=ndev, stride=stride, n=n, max_degree=D,
+                   bucket_caps=tuple(caps), bucket_rows=tuple(rows),
+                   deg=as_t(deg), bucket_of=as_t(bucket_of),
+                   slot_of=as_t(slot_of), flat=as_t(flat), base=as_t(base),
+                   caps=as_t(caps_arr))
+
+    @property
+    def device(self) -> torch.device:
+        return self.flat.device
+
+    @property
+    def adj_bytes(self) -> int:
+        """Resident device adjacency footprint: the slabs and the three
+        per-vertex maps."""
+        return int(sum(x.numel() * x.element_size()
+                       for x in (self.deg, self.bucket_of, self.slot_of,
+                                 self.flat)))
+
+    @property
+    def slabs(self) -> tuple:
+        """Per bucket, the ``(ndev, n_b_max, cap_b)`` view of its slab."""
+        out = []
+        for b0, r, cap in zip(self.base.tolist(), self.bucket_rows,
+                              self.bucket_caps):
+            out.append(self.flat[:, b0:b0 + r * cap].view(self.ndev, r, cap))
+        return tuple(out)
+
+    def rows_at(self, li, t0=0):
+        li = li.contiguous()
+        dv = _dev_index(li, t0)
+        b = self.bucket_of[dv, li]
+        start = self.base[b] + self.slot_of[dv, li] * self.caps[b]
+        D = self.max_degree
+        # windows[t, s] = flat[t, s:s + D], overlapping, never written
+        windows = self.flat.as_strided(
+            (self.ndev, self.flat.shape[1] - D + 1, D),
+            (self.flat.shape[1], 1, 1))
+        out = windows[dv, start]
+        col = torch.arange(D, dtype=torch.int32, device=li.device)
+        return out.masked_fill_(col >= self.deg[dv, li][..., None], self.n)
+
+    def deg_at(self, li, t0=0):
+        li = li.contiguous()
+        return self.deg[_dev_index(li, t0), li]
+
+
+FORMATS = {"dense": DenseDeviceGraph, "bucketed": BucketedDeviceGraph}
+
+
 def device_graph(pg: PartitionedGraph, fmt: str = "dense",
                  device=None) -> DeviceGraph:
-    """Export ``pg`` in the on-device format ``fmt`` (``dense`` only in
-    this slice of the port)."""
-    if fmt == "bucketed":
-        raise NotImplementedError(
-            "storage_format='bucketed' is not ported yet "
-            "(ROADMAP queue A item 6)")
-    if fmt != "dense":
-        raise ValueError(f"unknown storage format {fmt!r}; expected 'dense'")
-    return DenseDeviceGraph.from_partitioned(pg, device)
+    """Export ``pg`` in the on-device format ``fmt``."""
+    try:
+        cls = FORMATS[fmt]
+    except KeyError:
+        raise ValueError(f"unknown storage format {fmt!r}; expected one of "
+                         f"{sorted(FORMATS)}") from None
+    return cls.from_partitioned(pg, device)

@@ -1,10 +1,12 @@
 """Enumeration launcher of the port (the paper's workload):
 ``python -m repro_torch.launch.enumerate --dataset dblp_synth --query q3``
 
-The flags are the reference launcher's for what this slice supports, plus
-``--device`` (default ``cuda``).  Flags for parts not ported yet
-(``--mode gather|spmd``, ``--storage bucketed``, ``--wire varint``)
-raise ``NotImplementedError`` naming their ROADMAP item; the reference's
+The flags are the reference launcher's for what the port supports, plus
+``--device`` (default ``cuda``).  Both storage formats (``--storage dense
+| bucketed``) and every wire format (``--wire raw | varint | auto``) run,
+e.g. ``--storage bucketed --wire varint --device cuda``.  The exchange
+backends not ported yet (``--mode gather|spmd``) raise
+``NotImplementedError`` naming their ROADMAP item; the reference's
 compile-cache and pre-warm flags have no counterpart in an eager port.
 """
 from __future__ import annotations
@@ -31,7 +33,8 @@ def main(argv=None):
     ap.add_argument("--no-steal", action="store_true")
     ap.add_argument("--mode", default="sim", choices=["sim", "gather", "spmd"])
     ap.add_argument("--storage", default="dense",
-                    help="on-device adjacency format (dense | bucketed)")
+                    choices=["dense", "bucketed"],
+                    help="on-device adjacency format")
     ap.add_argument("--pipeline-depth", default="2",
                     help="max in-flight waves (1 = synchronous driver, "
                          "'auto' = adapt from per-wave timing)")

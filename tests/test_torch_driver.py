@@ -1,8 +1,8 @@
 """End-to-end parity of the PyTorch port's ``rads_enumerate`` against the
 JAX reference on one partition with the adjacency cache on (the default
 main path): counts, embeddings and every non-timing stat; pipeline depth
-1 and 2; the default device; configurations not ported yet; and the
-port's import isolation from JAX."""
+1 and 2; the default device; the exchange backends not ported yet; and
+the port's import isolation from JAX."""
 import os
 import subprocess
 import sys
@@ -54,21 +54,25 @@ def test_default_device_is_cuda(setup):
     assert got.embeddings == port_run(tpg, "q1").embeddings
 
 
-@pytest.mark.parametrize("kw,item", [(dict(storage_format="bucketed"), "6"),
-                                     (dict(wire_format="varint"), "7")])
-def test_unported_configurations_raise(setup, kw, item):
+@pytest.mark.parametrize("mode,wire", [("gather", "raw"),
+                                       ("dist", "varint")])
+def test_unported_configurations_raise(setup, mode, wire):
     tpg, _ = setup
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        port_run(tpg, "q1", **kw)
+    pat = Pattern.from_edges(QUERIES["q1"])
     with pytest.raises(NotImplementedError, match="item 8"):
-        rads_enumerate(tpg, Pattern.from_edges(QUERIES["q1"]),
-                       EngineConfig(**CAPS), mode="spmd", device="cpu")
+        rads_enumerate(tpg, pat, EngineConfig(**CAPS, wire_format=wire),
+                       mode=mode, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        rads_enumerate(tpg, pat, EngineConfig(**CAPS), mode="spmd",
+                       device="cpu")
 
 
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys; import repro_torch.core, repro_torch.convert, "
             "repro_torch.launch.enumerate, "
-            "repro_torch.kernels.membership.kernel; "
+            "repro_torch.kernels.membership.kernel, "
+            "repro_torch.kernels.intersect.kernel, "
+            "repro_torch.kernels.varint.kernel, repro_torch.core.wire; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
