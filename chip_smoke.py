@@ -22,7 +22,19 @@ every phase holds:
               kernel's launch count read around the run: the main path
               (``sim``, default ``EngineConfig``: dense, raw wire, cache
               on, depth 2), then bucketed storage with the varint wire,
-              whose raw-equivalent byte counts must equal the first run's.
+              whose raw-equivalent byte counts must equal the first run's;
+6. lm_kernels — flash_attn and moe_gemm against their plain versions on
+              the card in float32 and bfloat16, at the test sweep shapes
+              and the serving shapes, timed beside their bounds, the plain
+              versions and a library yardstick;
+7. lm_parity — OLMoE-1B-7B at full width and 2 layers in float32: the
+              kernel path against the plain path (the same model run with
+              the kernels' plain versions) through prefill and 4 decode
+              steps;
+8. lm_serve — OLMoE-1B-7B at full depth and width in bfloat16 with seeded
+              random weights: 4 prompts of 4,096 tokens, prefill and 64
+              greedy decode steps, twice (the tokens must agree); then one
+              prompt of 32,768 tokens (``prefill_32k`` cut to batch 1).
 
 Each phase prints one JSON line.  Then come the kernels line, the
 ``nvidia-smi`` name/power line, and last
@@ -33,6 +45,8 @@ repository's ``src/`` is not beside this file.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -45,6 +59,23 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM published HBM3 rate
 ALU_OPS_PER_S = 67e12         # H100 SXM published non-tensor 32-bit rate
+BF16_FLOPS_PER_S = 989e12     # H100 SXM published dense bf16 tensor rate
+# LM serving (phases 6-8): OLMoE-1B-7B; LM_SHAPES' prefill_32k is cut from
+# batch 32 to 1 and decode_32k from batch 128 at 32k context to batch 4 at
+# 4,160, to stay inside the script's time with the first-version kernels
+LM_ARCH = "olmoe-1b-7b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 4, 4096, 64
+SERVE_MAX_LEN = 4160
+LONG_PROMPT = 32768
+PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_DECODE = 2, 2, 300, 4
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
+MOE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+# moe_gemm in float32 at C = 1 (decode) is held per output row, not
+# elementwise: there the plain version's einsum runs as a GEMV whose sum
+# order differs from the kernel's, and outputs near 0 (sums of 1,024 terms
+# of about 4) miss 1e-5 absolute; the phase prints both ratios.  bf16 there
+# and every other shape are held elementwise
+MOE_ROW_CHECK = ("float32", 1)
 SMALL_CAPS = dict(frontier_cap=1 << 12, fetch_cap=256, verify_cap=1024,
                   region_group_budget=1 << 11)
 FULL_N = 317_080              # com-DBLP's vertex count
@@ -117,10 +148,13 @@ def phase_device():
 # --------------------------------------------------------------------------- #
 def phase_build():
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attn import kernel as flash_kernel
     from repro_torch.kernels.intersect import kernel as inter_kernel
     from repro_torch.kernels.membership import kernel as memb_kernel
+    from repro_torch.kernels.moe_gemm import kernel as moe_kernel
     from repro_torch.kernels.varint import kernel as varint_kernel
-    sources = [memb_kernel.SOURCE, inter_kernel.SOURCE, varint_kernel.SOURCE]
+    sources = [memb_kernel.SOURCE, inter_kernel.SOURCE, varint_kernel.SOURCE,
+               flash_kernel.SOURCE, moe_kernel.SOURCE]
     t0 = time.perf_counter()
     took = build.build(sources)
     wall = time.perf_counter() - t0
@@ -599,6 +633,438 @@ def phase_full(g, pg, expect: int, setup_s: float, storage: str,
     return launches, st
 
 
+# --------------------------------------------------------------------------- #
+# phase 6: LM kernels vs plain versions
+# --------------------------------------------------------------------------- #
+def _compare(got, want, tol: float, per_row: bool = False):
+    """``(ok, max_abs_err, elem_ratio, row_ratio)``.  ``elem_ratio`` is the
+    largest ``|got - want| / (tol + tol * |want|)``: the elementwise check
+    of ``tests/test_kernels.py`` holds iff it is at most 1.  ``row_ratio``
+    is the largest error of an output row over ``tol`` times that row's
+    largest ``|want|``.  The check is elementwise, or by rows where
+    ``per_row`` is set (see ``MOE_ROW_CHECK``)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    elem = float((diff / (tol + tol * w.abs())).max())
+    row = float((diff.amax(-1) / (tol * w.abs().amax(-1)).clamp_min(1e-30))
+                .max())
+    return (row if per_row else elem) <= 1, float(diff.max()), elem, row
+
+
+def _bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    """The larger of the byte time at the HBM rate and the operation time
+    at the type's peak (bf16 tensor cores; f32 outside them)."""
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else ALU_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _flash_bound_ms(B, Sq, Skv, H, Hk, D, causal, dtype):
+    """q and o, k and v once each; 4·D flops per (query, key) pair kept,
+    half the square when causal."""
+    esize = 2 if dtype == "bfloat16" else 4
+    nbytes = esize * (2 * B * Sq * H * D + 2 * B * Skv * Hk * D)
+    pairs = B * H * Sq * Skv / (2 if causal else 1)
+    return _bound(nbytes, 4 * pairs * D, dtype)
+
+
+def _moe_bound_ms(E, C, d, f, dtype):
+    """x and out once, the three weight stacks once; 6·E·C·d·f flops."""
+    esize = 2 if dtype == "bfloat16" else 4
+    nbytes = esize * (2 * E * C * d + 3 * E * d * f)
+    return _bound(nbytes, 6 * E * C * d * f, dtype)
+
+
+def phase_lm_kernels():
+    """flash_attn and moe_gemm against their plain versions in float32 and
+    bfloat16: the test sweep shapes, then the serving shapes, timed beside
+    the bound, the plain version and the library yardstick
+    (``scaled_dot_product_attention``; three ``bmm`` and ``silu``).
+    Returns the timed rows; the kernels line takes the bfloat16 ones."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.kernels.moe_gemm import ops as moe
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    from repro_torch.models.layers import _flash_attention_chunked
+    dev = torch.device(DEVICE)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    rows = {}
+    plains = {
+        "naive": lambda q, k, v, causal: flash.flash_attention_plain(
+            q, k, v, causal=causal),
+        # the model's O(S) chunked online softmax: the naive version's
+        # (16, 32,768, 32,768) f32 scores would take 68.7 GB at 32k
+        "chunked": lambda q, k, v, causal: _flash_attention_chunked(
+            q, k, v, causal, 1024, 1024, 0)}
+
+    def held(row, got, want, tol, per_row=False):
+        ok, err, elem, rowr = _compare(got, want, tol, per_row)
+        row.update(max_abs_err=err, elem_ratio=elem, row_ratio=rowr, tol=tol,
+                   check="row" if per_row else "elementwise")
+        check(ok, f"{row['kernel']} {row['shape']} {row['dtype']} disagrees: "
+                  f"max abs err {err}, elementwise ratio {elem}, row ratio "
+                  f"{rowr}, tol {tol}, check {row['check']}")
+
+    def flash_case(name, B, Sq, Skv, H, Hk, D, dtype, causal=True,
+                   plain="naive", timed=False, iters=5):
+        dt = dts[dtype]
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Skv, Hk, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Skv, Hk, D), generator=gen, device=dev).to(dt)
+        row = dict(kernel="flash_attn", shape=name, dtype=dtype, B=B, Sq=Sq,
+                   Skv=Skv, H=H, Hk=Hk, D=D, causal=causal, plain=plain)
+        ref = plains[plain]
+        got = flash.flash_attention_k(q, k, v, causal=causal)
+        want = ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"flash {name} not finite")
+        held(row, got, want, FLASH_TOL[dtype])
+        del got, want
+        if timed:
+            row["kernel_ms"] = cuda_ms(lambda: flash.flash_attention_k(
+                q, k, v, causal=causal), warmup=1, iters=iters)
+            row["plain_ms"] = cuda_ms(lambda: ref(q, k, v, causal), warmup=1,
+                                      iters=2)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            row["library_ms"] = (cuda_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=causal),
+                warmup=1, iters=iters) if H == Hk else None)
+            del qt, kt, vt
+            row["bound_ms"], row["bound_by"] = _flash_bound_ms(
+                B, Sq, Skv, H, Hk, D, causal, dtype)
+        emit(phase="lm_kernels", **row)
+        del q, k, v
+        torch.cuda.empty_cache()
+        return row
+
+    def moe_case(name, E, C, d, f, dtype, w_scale, timed=False, iters=5):
+        dt = dts[dtype]
+        x = torch.randn((E, C, d), generator=gen, device=dev).to(dt)
+        wg, wu = ((torch.randn((E, d, f), generator=gen, device=dev)
+                   * w_scale).to(dt) for _ in range(2))
+        wd = (torch.randn((E, f, d), generator=gen, device=dev)
+              * w_scale).to(dt)
+        row = dict(kernel="moe_gemm", shape=name, dtype=dtype, E=E, C=C, d=d,
+                   f=f)
+        got = moe.moe_gemm(x, wg, wu, wd)
+        want = moe_gemm_ref(x, wg, wu, wd)
+        torch.cuda.synchronize()
+        held(row, got, want, MOE_TOL[dtype],
+             per_row=(dtype, C) == MOE_ROW_CHECK)
+        del got, want
+        if timed:
+            row["kernel_ms"] = cuda_ms(lambda: moe.moe_gemm(x, wg, wu, wd),
+                                       warmup=1, iters=iters)
+            row["plain_ms"] = cuda_ms(lambda: moe_gemm_ref(x, wg, wu, wd),
+                                      warmup=1, iters=3)
+            row["library_ms"] = cuda_ms(lambda: torch.bmm(
+                F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd),
+                warmup=1, iters=iters)
+            row["bound_ms"], row["bound_by"] = _moe_bound_ms(E, C, d, f,
+                                                             dtype)
+        emit(phase="lm_kernels", **row)
+        del x, wg, wu, wd
+        torch.cuda.empty_cache()
+        return row
+
+    for dtype in ("float32", "bfloat16"):
+        for S, H, Hk, D in [(64, 4, 2, 32), (128, 2, 2, 16)]:   # the sweep
+            flash_case(f"sweep_{S}x{H}x{Hk}x{D}", 2, S, S, H, Hk, D, dtype)
+        flash_case("ragged_100_non_causal", 1, 100, 150, 4, 1, 64, dtype,
+                   causal=False)
+        for E, C, d, f in [(4, 64, 32, 64), (2, 128, 16, 128)]:  # the sweep
+            moe_case(f"sweep_{E}x{C}x{d}x{f}", E, C, d, f, dtype, 0.1)
+        moe_case("ragged_5x37x48x40", 5, 37, 48, 40, dtype, 0.1)
+    # the serving shapes: OLMoE's prefill (B*H = 64, S = 4,096, D = 128),
+    # a qwen3-4b-like GQA 32/8, and the 32k prefill; the expert FFN at the
+    # 4 x 4,096 prefill (C = 2,560), at decode (C = 1) and at the 32k
+    # prefill (C = 5,120), weights at the model's init scale 1/sqrt(E)
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH).model
+    H, D, mo = cfg.n_heads, cfg.head_dim, cfg.moe
+    E, d, f = mo.n_experts, cfg.d_model, mo.d_expert
+
+    def capacity(T):
+        return max(int(T * mo.top_k / E * mo.capacity_factor), 1)
+
+    for dtype in ("float32", "bfloat16"):
+        rows["flash_attn", dtype] = flash_case(
+            "serve_prefill", SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, H, H, D,
+            dtype, timed=True)
+        flash_case("gqa_32_8", 2, SERVE_PROMPT, SERVE_PROMPT, 32, 8, 128,
+                   dtype)
+        rows["moe_gemm", dtype] = moe_case(
+            "serve_prefill", E, capacity(SERVE_BATCH * SERVE_PROMPT), d, f,
+            dtype, E ** -0.5, timed=True, iters=3)
+        rows["moe_gemm_decode", dtype] = moe_case(
+            "serve_decode", E, capacity(SERVE_BATCH), d, f, dtype, E ** -0.5,
+            timed=True, iters=20)
+    rows["flash_attn_32k"] = flash_case(
+        "prefill_32k", 1, LONG_PROMPT, LONG_PROMPT, H, H, D, "bfloat16",
+        plain="chunked", timed=True, iters=2)
+    rows["moe_gemm_32k"] = moe_case(
+        "prefill_32k", E, capacity(LONG_PROMPT), d, f, "bfloat16", E ** -0.5,
+        timed=True, iters=2)
+    return rows
+
+
+# --------------------------------------------------------------------------- #
+# phases 7-8: the LM serving path
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def _plain_kernels(active: bool):
+    """While active, the two kernel wrappers are swapped for their plain
+    versions, so the model runs the port's plain path on the card.  Only
+    the parity check of phase 7 turns it on."""
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.kernels.moe_gemm import ops as moe
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    if not active:
+        yield
+        return
+    saved = flash.flash_attention_k, moe.moe_gemm
+    flash.flash_attention_k = flash.flash_attention_plain
+    moe.moe_gemm = moe_gemm_ref
+    try:
+        yield
+    finally:
+        flash.flash_attention_k, moe.moe_gemm = saved
+
+
+def _lm_launches() -> dict:
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.kernels.moe_gemm import ops as moe
+    return {"flash_attn": flash.launches, "moe_gemm": moe.launches}
+
+
+def _zero_lm_launches() -> None:
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.kernels.moe_gemm import ops as moe
+    flash.launches = 0
+    moe.launches = 0
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def phase_lm_parity():
+    """OLMoE-1B-7B at full width and PARITY_LAYERS layers in float32: the
+    kernel path against the plain path, same weights and prompt, through
+    prefill (logits and cache) and PARITY_DECODE decode steps fed the same
+    tokens, each held to a relative 1e-3."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_lm_params, prefill
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(get_config(LM_ARCH).model, dtype="float32",
+                              n_layers=PARITY_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    model = init_lm_params(gen, cfg, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT
+                                          + PARITY_DECODE),
+                           generator=gen, device=dev)
+    prompt, feed = tokens[:, :PARITY_PROMPT], tokens[:, PARITY_PROMPT:]
+    max_len = PARITY_PROMPT + PARITY_DECODE
+    out = {}
+    for plain in (False, True):
+        with _plain_kernels(plain):
+            _zero_lm_launches()
+            logits, cache = prefill(model, prompt, max_len=max_len)
+            steps = []
+            for i in range(PARITY_DECODE):
+                lg, cache = decode_step(model, cache, feed[:, i],
+                                        PARITY_PROMPT + i)
+                steps.append(lg)
+            torch.cuda.synchronize()
+            out[plain] = (logits, cache, steps, _lm_launches())
+    (lk, ck, sk, nk), (lp, cp, sp, npl) = out[False], out[True]
+    check(nk == {"flash_attn": PARITY_LAYERS,
+                 "moe_gemm": PARITY_LAYERS * (1 + PARITY_DECODE)},
+          f"lm_parity kernel path launches {nk}")
+    check(npl == {"flash_attn": 0, "moe_gemm": 0},
+          f"lm_parity plain path launched kernels: {npl}")
+    rel = {"prefill_logits": _rel(lk, lp), "cache_k": _rel(ck["k"], cp["k"]),
+           "cache_v": _rel(ck["v"], cp["v"])}
+    for i, (a, b) in enumerate(zip(sk, sp)):
+        rel[f"decode_{i}"] = _rel(a, b)
+    for key, val in rel.items():
+        check(val <= 1e-3, f"lm_parity {key}: kernel vs plain rel {val}")
+    emit(phase="lm_parity", arch=LM_ARCH, n_layers=PARITY_LAYERS,
+         dtype="float32", batch=PARITY_BATCH, prompt=PARITY_PROMPT,
+         decode_steps=PARITY_DECODE, rel_err=rel, tol=1e-3,
+         kernel_launches=nk)
+    del model, out
+    torch.cuda.empty_cache()
+
+
+def _serve_once(model, prompts):
+    """Prefill with SERVE_MAX_LEN, then SERVE_DECODE greedy decode steps,
+    each timed on the host clock to a synchronise."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, prompts, max_len=SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+    nxt = logits[:, -1].argmax(-1)
+    del logits
+    toks, step_ms = [nxt], []
+    for i in range(SERVE_DECODE):
+        t0 = time.perf_counter()
+        lg, cache = decode_step(model, cache, nxt, SERVE_PROMPT + i)
+        nxt = lg.argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        finite &= torch.isfinite(lg).all()
+        toks.append(nxt)
+    launches = _lm_launches()
+    return dict(tokens=torch.stack(toks, 1).cpu(), prefill_s=prefill_s,
+                step_ms=step_ms, finite=bool(finite), launches=launches,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def _kernel_times(prof, wall_ms: float, top: int = 8) -> dict:
+    """Device time by kernel from a ``torch.profiler`` run: the card's
+    busy time (the sum of kernel times; one stream, so they do not
+    overlap), its idle share of the wall time, and the top kernels."""
+    from torch.autograd import DeviceType
+    kern = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        kern.append((e.key[:80], us / 1e3, e.count))
+    kern.sort(key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in kern)
+    return dict(wall_ms=wall_ms, busy_ms=busy if kern else None,
+                idle_share=1 - busy / wall_ms if kern else None,
+                top=[dict(kernel=k, ms=ms, count=n)
+                     for k, ms, n in kern[:top]])
+
+
+def _profile_serve(model, prompts, steps: int = 3):
+    """One prefill and ``steps`` decode steps under ``torch.profiler``:
+    where the card's time goes, and how long it idles."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step, prefill
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, prompts, max_len=SERVE_MAX_LEN)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    pre = _kernel_times(prof, wall)
+    nxt = logits[:, -1].argmax(-1)
+    del logits
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            lg, cache = decode_step(model, cache, nxt, SERVE_PROMPT + i)
+            nxt = lg.argmax(-1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dec = _kernel_times(prof, wall)
+    emit(phase="lm_profile", batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+         prefill=pre, decode=dict(steps=steps, **dec))
+    del cache
+
+
+def phase_lm_serve():
+    """OLMoE-1B-7B, full depth and width, bf16, seeded random weights on
+    the card: (a) SERVE_BATCH prompts of SERVE_PROMPT tokens, prefill and
+    SERVE_DECODE greedy decode steps, twice; (b) one prompt of LONG_PROMPT
+    tokens, prefill with ``last_only``.  Returns run (a)'s launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm_params, prefill
+    dev = torch.device(DEVICE)
+    cfg = get_config(LM_ARCH).model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_lm_params(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    runs = [_serve_once(model, prompts) for _ in range(2)]
+    L = cfg.n_layers
+    want = {"flash_attn": L, "moe_gemm": L * (1 + SERVE_DECODE)}
+    for r in runs:
+        check(r["finite"], "lm_serve (a): logits not finite")
+        check(r["launches"] == want,
+              f"lm_serve (a) launches {r['launches']} != {want}")
+    check(torch.equal(runs[0]["tokens"], runs[1]["tokens"]),
+          "lm_serve (a): two runs gave different tokens")
+    _profile_serve(model, prompts)
+    del prompts
+    torch.cuda.empty_cache()
+
+    long_prompt = torch.randint(0, cfg.vocab, (1, LONG_PROMPT), generator=gen,
+                                device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, long_prompt, last_only=True)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    long_launches = _lm_launches()
+    check(logits.shape == (1, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          "lm_serve (b): logits not finite or misshapen")
+    check(long_launches == {"flash_attn": L, "moe_gemm": L},
+          f"lm_serve (b) launches {long_launches}")
+    long_peak = torch.cuda.max_memory_allocated()
+    del logits, cache, long_prompt, model
+    torch.cuda.empty_cache()
+
+    def pct(xs, p):
+        return float(np.percentile(np.asarray(xs), p))
+
+    emit(phase="lm_serve", arch=LM_ARCH, n_layers=L, dtype=cfg.dtype,
+         n_params=n_params, weight_bytes=weight_bytes, init_s=init_s,
+         serve=[dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+                     max_len=SERVE_MAX_LEN, decode_steps=SERVE_DECODE,
+                     prefill_s=r["prefill_s"],
+                     prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT
+                     / r["prefill_s"],
+                     decode_ms_p50=pct(r["step_ms"], 50),
+                     decode_ms_p90=pct(r["step_ms"], 90),
+                     decode_ms_first=r["step_ms"][0],
+                     peak_bytes=r["peak"], launches=r["launches"],
+                     finite=r["finite"]) for r in runs],
+         tokens_equal=True,
+         prefill_32k=dict(batch=1, prompt=LONG_PROMPT, last_only=True,
+                          prefill_s=long_s,
+                          prefill_tokens_per_s=LONG_PROMPT / long_s,
+                          peak_bytes=long_peak, launches=long_launches),
+         cuts={"prefill_32k": "global batch 32 -> 1",
+               "decode_32k": "batch 128 at 32,768 context -> batch 4 at "
+                             "4,160"})
+    return runs[0]["launches"]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--full-n", type=int, default=SMOKE_N,
@@ -662,6 +1128,14 @@ def main():
         bytes_wire_fetch={"raw": dense["bytes_wire_fetch"],
                           "varint": coded["bytes_wire_fetch"]})
 
+    # the LM serving path: its own kernels, each launch count read around
+    # the serving run (a)
+    del g, pg
+    torch.cuda.empty_cache()
+    lm_rows = phase_lm_kernels()
+    phase_lm_parity()
+    lm_launches = phase_lm_serve()
+
     t, ti, td = timing["backedge"], inter["backedge_padded"], dvl[fcaps[-1]]
     rows = [
         ("membership", "src/repro_torch/kernels/membership/csrc/membership.cu",
@@ -672,7 +1146,13 @@ def main():
          new_launches["intersect"], ti),
         ("delta_vlen", "src/repro_torch/kernels/varint/csrc/delta_vlen.cu",
          "src/repro/kernels/varint/kernel.py:67",
-         new_launches["delta_vlen"], td)]
+         new_launches["delta_vlen"], td),
+        ("flash_attn", "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+         "src/repro/kernels/flash_attn/kernel.py:62",
+         lm_launches["flash_attn"], lm_rows["flash_attn", "bfloat16"]),
+        ("moe_gemm", "src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
+         "src/repro/kernels/moe_gemm/kernel.py:44",
+         lm_launches["moe_gemm"], lm_rows["moe_gemm", "bfloat16"])]
     emit(kernels=[dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],

@@ -1,1 +1,57 @@
-"""Configuration of the port (the RADS engine config only)."""
+"""Configuration of the port: the RADS engine config (:mod:`.rads`) and
+the registry of the LM architectures whose modules the port has,
+``get_config(arch_id)`` / ``get_reduced(arch_id)``, with the same ids
+and configs as the reference's registry.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (ArchConfig, LM_SHAPES, MLAConfig,
+                                      MoEConfig, ShapeSpec, TransformerConfig,
+                                      scaled_transformer)
+
+_ARCH_MODULES: dict[str, str] = {
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "qwen3-4b": "repro_torch.configs.qwen3_4b",
+}
+# architectures of the reference's registry whose modules are not ported
+# yet, each with the ROADMAP.md item that ports them
+_NOT_PORTED: dict[str, str] = {
+    "deepseek-v3-671b": "queue A item 11 (MLA and MTP)",
+    "graphcast": "queue A item 8 (GNN forward with segment_spmm)",
+    "schnet": "queue A item 8 (GNN forward with segment_spmm)",
+    "pna": "queue A item 8 (GNN forward with segment_spmm)",
+    "gat-cora": "queue A item 8 (GNN forward with segment_spmm)",
+    "din": "queue A item 12 (DIN serving)",
+}
+
+ARCH_IDS: tuple[str, ...] = tuple(_ARCH_MODULES)
+
+
+def _module(arch_id: str):
+    if arch_id in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch_id!r} is not ported yet: ROADMAP.md "
+            f"{_NOT_PORTED[arch_id]}")
+    if arch_id not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; available: "
+                       f"{list(_ARCH_MODULES)}")
+    return importlib.import_module(_ARCH_MODULES[arch_id])
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_reduced(arch_id: str) -> TransformerConfig:
+    return _module(arch_id).reduced()
+
+
+__all__ = [
+    "ArchConfig", "TransformerConfig", "MoEConfig", "MLAConfig", "ShapeSpec",
+    "LM_SHAPES", "ARCH_IDS", "get_config", "get_reduced",
+    "scaled_transformer",
+]

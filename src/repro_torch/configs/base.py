@@ -1,0 +1,107 @@
+"""Config dataclasses of the LM family: a field-for-field copy of the
+reference's ``configs/base.py`` (transformer, MoE and MLA configs, the
+LM shape cells), so one kwargs dict builds the same config in both
+packages.  The GNN and recsys dataclasses come with their slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any
+
+
+# --------------------------------------------------------------------------- #
+# Shapes
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell. ``kind`` selects which step it drives."""
+
+    name: str
+    kind: str  # train | prefill | decode | long_decode
+    dims: dict[str, int] = field(default_factory=dict)
+
+    def __getitem__(self, k: str) -> int:
+        return self.dims[k]
+
+
+LM_SHAPES = (
+    ShapeSpec("train_4k", "train", {"seq_len": 4096, "global_batch": 256}),
+    ShapeSpec("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
+    ShapeSpec("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
+    ShapeSpec("long_500k", "long_decode", {"seq_len": 524288, "global_batch": 1}),
+)
+
+
+# --------------------------------------------------------------------------- #
+# Model configs
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int                 # per-expert FFN hidden dim
+    n_shared: int = 0             # shared (always-on) experts
+    capacity_factor: float = 1.25
+    router_aux_free: bool = False  # DeepSeek-V3 aux-loss-free bias routing
+    first_k_dense: int = 0        # leading dense layers (DeepSeek-V3: 3)
+    d_ff_dense: int = 0           # FFN dim of those dense layers
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek multi-head latent attention dims."""
+
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0               # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
+    mtp_depth: int = 0            # multi-token-prediction extra heads (DeepSeek-V3)
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    family: str = "lm"
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+
+ModelConfig = Any  # TransformerConfig (GNN and recsys configs: later slices)
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    arch_id: str
+    model: ModelConfig
+    shapes: tuple[ShapeSpec, ...]
+    notes: str = ""
+
+    def shape(self, name: str) -> ShapeSpec:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.arch_id}: unknown shape {name!r}; "
+                       f"have {[s.name for s in self.shapes]}")
+
+
+def scaled_transformer(cfg: TransformerConfig, **over) -> TransformerConfig:
+    return dataclasses.replace(cfg, **over)

@@ -1,0 +1,46 @@
+"""ctypes binding of the CUDA moe_gemm kernel (``csrc/moe_gemm.cu``).
+
+The TPU kernel it replaces is ``moe_gemm_pallas``
+(``src/repro/kernels/moe_gemm/kernel.py``); the source's header says
+what bounds it on the H100 and what its design does about that.  The
+library is built at first use (:mod:`repro_torch.kernels.build`).
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gemm.cu"
+_SYMBOLS = {torch.float32: "moe_gemm_launch_f32",
+            torch.bfloat16: "moe_gemm_launch_bf16"}
+
+
+def _launcher(dtype: torch.dtype):
+    fn = getattr(build.load(SOURCE), _SYMBOLS[dtype])
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def moe_gemm_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                  wd: torch.Tensor, h: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch the kernel on the current stream of ``x``'s device: ``h``
+    (E, C, f) is the scratch the gate/up pass writes and the down pass
+    reads, ``out`` (E, C, d).  The caller has checked shapes, dtypes,
+    device and contiguity."""
+    E, C, d = x.shape
+    f = wg.shape[-1]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _launcher(x.dtype)(x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+                                 wd.data_ptr(), h.data_ptr(), out.data_ptr(),
+                                 E, C, d, f, stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gemm kernel launch failed: CUDA error {err} "
+                           f"(E={E}, C={C}, d={d}, f={f}, {x.dtype})")

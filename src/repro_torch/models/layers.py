@@ -1,0 +1,294 @@
+"""Transformer building blocks as plain functions on tensors, one beside
+each function of the reference's ``models/layers.py``.
+
+Parameters are dicts of tensors (an :class:`~torch.nn.ParameterDict`
+reads the same).  Two functions run a hand-written kernel on a CUDA
+tensor: :func:`flash_attention` (``kernels.flash_attn``) and the expert
+FFN of :func:`moe_block` (``kernels.moe_gemm``).  On a CPU tensor they
+run plain PyTorch: the reference's chunked online softmax, and the
+moe_gemm plain version.  The projections, norms, rope, the router and
+:func:`decode_attention` are plain PyTorch on both, as the reference
+leaves them to XLA.  The MLA functions come with the MLA slice.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import TransformerConfig
+from repro_torch.distributed import ctx
+from repro_torch.kernels.flash_attn import ops as flash_ops
+from repro_torch.kernels.moe_gemm import ops as moe_ops
+
+
+def _init(gen: torch.Generator, shape, scale=None, dtype=torch.float32,
+          device=None) -> torch.Tensor:
+    """Normal(0, 1) in float32 times ``scale`` (default
+    ``1/sqrt(shape[0])``, the reference's rule), cast to ``dtype``."""
+    scale = scale if scale is not None else (1.0 / max(shape[0], 1)) ** 0.5
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return x.mul_(scale).to(dtype)
+
+
+# --------------------------------------------------------------------------- #
+# norms / rope / mlp
+# --------------------------------------------------------------------------- #
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def rope_angles(positions: torch.Tensor, dim: int, theta: float) -> tuple:
+    """positions (...,) -> (cos, sin) of shape (..., dim//2)."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    inv = 1.0 / (theta ** exps)
+    ang = positions[..., None].float() * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D); cos/sin (..., S, D//2) broadcast over heads."""
+    x1, x2 = x.chunk(2, dim=-1)
+    c, s = cos[..., None, :], sin[..., None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+           wd: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+
+# --------------------------------------------------------------------------- #
+# attention
+# --------------------------------------------------------------------------- #
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, q_chunk: int = 1024,
+                    kv_chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
+    """q (B, Sq, H, D), k/v (B, Skv, Hk, D) with H % Hk == 0 (GQA).
+
+    On a CUDA tensor: the flash_attn kernel (its own tiling; ``q_chunk``
+    and ``kv_chunk`` are the CPU path's).  On a CPU tensor: the
+    reference's online softmax over kv chunks, O(S) memory.
+    ``q_offset`` is the absolute position of q[0] for the causal mask."""
+    if q.device.type == "cuda":
+        return flash_ops.flash_attention_k(q, k, v, causal=causal,
+                                           q_offset=q_offset)
+    return _flash_attention_chunked(q, k, v, causal, q_chunk, kv_chunk,
+                                    q_offset)
+
+
+def _flash_attention_chunked(q, k, v, causal, q_chunk, kv_chunk, q_offset):
+    """The reference's chunked online softmax, chunk for chunk."""
+    B, Sq, H, D = q.shape
+    _, Skv, Hk, _ = k.shape
+    Dv = v.shape[-1]
+    rep = H // Hk
+    scale = D ** -0.5
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Skv)
+    nq = -(-Sq // q_chunk)
+    nk = -(-Skv // kv_chunk)
+    qq = F.pad(q, (0, 0, 0, 0, 0, nq * q_chunk - Sq))
+    kk = F.pad(k, (0, 0, 0, 0, 0, nk * kv_chunk - Skv))
+    vv = F.pad(v, (0, 0, 0, 0, 0, nk * kv_chunk - Skv))
+    dev = q.device
+    k_pos_all = torch.arange(nk * kv_chunk, device=dev)
+    outs = []
+    for qi in range(nq):
+        qc = qq[:, qi * q_chunk:(qi + 1) * q_chunk].float()
+        qp = q_offset + torch.arange(qi * q_chunk, (qi + 1) * q_chunk,
+                                     device=dev)
+        m = torch.full((B, H, q_chunk), float("-inf"), device=dev)
+        l = torch.zeros((B, H, q_chunk), device=dev)
+        o = torch.zeros((B, H, q_chunk, Dv), device=dev)
+        for ki in range(nk):
+            sl = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
+            kr = kk[:, sl].repeat_interleave(rep, dim=2).float()
+            vr = vv[:, sl].repeat_interleave(rep, dim=2).float()
+            s = torch.einsum("bqhd,bkhd->bhqk", qc, kr) * scale
+            kp = k_pos_all[sl]
+            mask = (kp < Skv)[None, None, None, :]
+            if causal:
+                mask = mask & (qp[None, None, :, None]
+                               >= kp[None, None, None, :])
+            s = s.masked_fill(~mask, float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vr)
+            m = m_new
+        out = o / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.permute(0, 2, 1, 3))
+    out = torch.cat(outs, dim=1)
+    return out[:, :Sq].to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length) -> torch.Tensor:
+    """Single-token decode: q (B, 1, H, D) against cache (B, S, Hk, D).
+    ``length`` masks positions >= current length (int or (B,))."""
+    B, _, H, D = q.shape
+    _, S, Hk, _ = k_cache.shape
+    rep = H // Hk
+    kr = k_cache.repeat_interleave(rep, dim=2)
+    vr = v_cache.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * D ** -0.5
+    pos = torch.arange(S, device=q.device)
+    ln = torch.as_tensor(length, device=q.device)
+    mask = pos[None, :] < (ln[:, None] if ln.dim() else ln)
+    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vr.float())
+    return out.to(q.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# GQA attention block
+# --------------------------------------------------------------------------- #
+def init_gqa_params(gen: torch.Generator, cfg: TransformerConfig, dtype,
+                    device=None) -> dict:
+    d, H, Hk, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = dict(
+        wq=_init(gen, (d, H * Dh), dtype=dtype, device=device),
+        wk=_init(gen, (d, Hk * Dh), dtype=dtype, device=device),
+        wv=_init(gen, (d, Hk * Dh), dtype=dtype, device=device),
+        wo=_init(gen, (H * Dh, d), dtype=dtype, device=device),
+    )
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H * Dh,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((Hk * Dh,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((Hk * Dh,), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((Dh,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((Dh,), dtype=dtype, device=device)
+    return p
+
+
+def gqa_qkv(p, cfg: TransformerConfig, x, positions):
+    """x (B, S, d) -> q (B,S,H,Dh), k/v (B,S,Hk,Dh) with rope (+qk_norm)."""
+    B, S, _ = x.shape
+    H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, Dh)
+    k = k.reshape(B, S, Hk, Dh)
+    v = v.reshape(B, S, Hk, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope_angles(positions, Dh, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+# --------------------------------------------------------------------------- #
+# MoE
+# --------------------------------------------------------------------------- #
+def init_moe_params(gen: torch.Generator, cfg: TransformerConfig, dtype,
+                    device=None) -> dict:
+    mo = cfg.moe
+    d, E, f = cfg.d_model, mo.n_experts, mo.d_expert
+    p = dict(
+        router=_init(gen, (d, E), dtype=torch.float32, device=device),
+        wg=_init(gen, (E, d, f), dtype=dtype, device=device),
+        wu=_init(gen, (E, d, f), dtype=dtype, device=device),
+        wd=_init(gen, (E, f, d), dtype=dtype, device=device),
+    )
+    if mo.router_aux_free:
+        p["router_bias"] = torch.zeros((E,), dtype=torch.float32,
+                                       device=device)
+    if mo.n_shared:
+        fs = f * mo.n_shared
+        p["shared_wg"] = _init(gen, (d, fs), dtype=dtype, device=device)
+        p["shared_wu"] = _init(gen, (d, fs), dtype=dtype, device=device)
+        p["shared_wd"] = _init(gen, (fs, d), dtype=dtype, device=device)
+    return p
+
+
+def moe_route(p, cfg: TransformerConfig, xt: torch.Tensor):
+    """Router of :func:`moe_block` on xt (T, d): ``(sel (T, k) int64,
+    gates (T, k) f32, probs_mean (E,) f32)``, the experts in descending
+    score order as ``jax.lax.top_k`` gives them."""
+    mo = cfg.moe
+    logits = xt.float() @ p["router"]
+    if mo.router_aux_free:
+        scores = torch.sigmoid(logits)
+        _, sel = torch.topk(scores + p["router_bias"], mo.top_k, dim=-1,
+                            sorted=True)
+        gsel = torch.gather(scores, -1, sel)
+        probs_mean = scores.mean(dim=0)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        gsel, sel = torch.topk(probs, mo.top_k, dim=-1, sorted=True)
+        probs_mean = probs.mean(dim=0)
+    gates = gsel / (gsel.sum(-1, keepdim=True) + 1e-9)
+    return sel, gates, probs_mean
+
+
+def moe_slots(flat_e: torch.Tensor, C: int):
+    """Each (token, expert) pair's slot in its expert's buffer: stable sort
+    by expert, so the priority is token order.  Returns ``(slot_e, slot_c,
+    keep)``; a pair past the capacity C is dropped (``keep`` False) and
+    points at slot (0, C - 1) as in the reference."""
+    n = flat_e.numel()
+    sort_idx = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[sort_idx]
+    first = torch.searchsorted(sorted_e, sorted_e)
+    pos_sorted = torch.arange(n, device=flat_e.device) - first
+    pos_in_e = torch.empty_like(pos_sorted)
+    pos_in_e[sort_idx] = pos_sorted
+    keep = pos_in_e < C
+    slot_e = torch.where(keep, flat_e, 0)
+    slot_c = torch.where(keep, pos_in_e, C - 1)
+    return slot_e, slot_c, keep
+
+
+def moe_block(p, cfg: TransformerConfig, x: torch.Tensor):
+    """Capacity-based top-k dispatch. x (B, S, d) -> (y, aux_loss).
+    Dropped tokens (over capacity) fall back to 0 (plus the shared
+    expert, if any) — standard capacity semantics.  The expert FFN over
+    the (E, C, d) buffer is the moe_gemm kernel on a CUDA tensor and its
+    plain version on a CPU tensor.  Every step is deterministic: the
+    dispatch writes distinct slots and each token sums its k expert
+    outputs in slot order (no atomics)."""
+    fl = ctx.CURRENT
+    mo = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, k = mo.n_experts, mo.top_k
+    xt = x.reshape(T, d)
+    sel, gates, probs_mean = moe_route(p, cfg, xt)
+
+    cf = fl.moe_capacity_factor or mo.capacity_factor
+    C = max(int(T * k / E * cf), 1)
+    flat_e = sel.reshape(-1)                                  # (T*k,)
+    flat_g = gates.reshape(-1)
+    slot_e, slot_c, keep = moe_slots(flat_e, C)
+    flat_t = torch.arange(T, device=x.device).repeat_interleave(k)
+    # kept pairs own distinct slots; dropped pairs go to a dump row past
+    # the buffer, which the reference's add of 0 to slot (0, C-1) equals
+    dest = torch.where(keep, slot_e * C + slot_c, E * C)
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf.index_copy_(0, dest, xt[flat_t])
+    buf = buf[:E * C].view(E, C, d)
+    y_e = moe_ops.moe_gemm(buf, p["wg"], p["wu"], p["wd"])
+    y_tok = y_e.view(E * C, d)[slot_e * C + slot_c]           # (T*k, d)
+    y_tok = torch.where(keep[:, None], y_tok, 0) * flat_g[:, None].to(x.dtype)
+    y = y_tok.view(T, k, d).sum(dim=1)
+    # load-balance aux (Switch-style); for aux-free routing it is only
+    # reported
+    frac_tok = torch.bincount(flat_e, minlength=E).float() / (T * k)
+    aux = E * torch.sum(frac_tok * probs_mean)
+    if mo.n_shared:
+        y = y + swiglu(xt, p["shared_wg"], p["shared_wu"], p["shared_wd"])
+    return y.reshape(B, S, d), aux

@@ -72,7 +72,15 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.launch.enumerate, "
             "repro_torch.kernels.membership.kernel, "
             "repro_torch.kernels.intersect.kernel, "
-            "repro_torch.kernels.varint.kernel, repro_torch.core.wire; "
+            "repro_torch.kernels.varint.kernel, repro_torch.core.wire, "
+            "repro_torch.models, repro_torch.configs, "
+            "repro_torch.configs.olmoe_1b_7b, repro_torch.configs.qwen15_05b, "
+            "repro_torch.configs.qwen3_4b, repro_torch.configs.qwen3_14b, "
+            "repro_torch.distributed.ctx, "
+            "repro_torch.kernels.flash_attn.ops, "
+            "repro_torch.kernels.flash_attn.kernel, "
+            "repro_torch.kernels.moe_gemm.ops, "
+            "repro_torch.kernels.moe_gemm.kernel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -1,0 +1,102 @@
+"""The port's flash-attention module: its plain PyTorch version (the
+kernel wrapper on a CPU tensor) against the reference's Pallas kernel in
+interpret mode at the reference's sweep shapes, and the model-level
+``layers.flash_attention`` against the reference model's chunked online
+softmax (GQA, ``q_offset``, lengths that are not a multiple of the
+chunk).  The CUDA kernel is held against the plain version on the card
+in ``test_torch_gpu.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attn.ops import flash_attention_k as jax_flash_k
+from repro.models.layers import flash_attention as jax_model_flash
+
+from _lm_cases import FLASH_SWEEP, FLASH_TOL, flash_inputs
+from repro_torch.kernels.flash_attn import ops
+from repro_torch.models import layers
+
+torch.set_num_threads(1)
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _both(arrays, dtype):
+    jdt, tdt = DTYPES[dtype]
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def _close(got: torch.Tensor, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,Hk,D", FLASH_SWEEP)
+def test_plain_matches_pallas_sweep(S, H, Hk, D, dtype):
+    (jq, jk, jv), (q, k, v) = _both(
+        flash_inputs(2, S, S, H, Hk, D, seed=S + H), dtype)
+    want = jax_flash_k(jq, jk, jv, causal=True, use_kernel=True,
+                       interpret=True, bq=32, bk=32)
+    got = ops.flash_attention_k(q, k, v, causal=True)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (2, S, H, D)
+    _close(got, want, FLASH_TOL[dtype])
+
+
+def test_plain_matches_pallas_non_causal():
+    (jq, jk, jv), (q, k, v) = _both(flash_inputs(2, 64, 96, 4, 1, 32, seed=7),
+                                    "float32")
+    want = jax_flash_k(jq, jk, jv, causal=False, use_kernel=True,
+                       interpret=True, bq=32, bk=32)
+    _close(ops.flash_attention_k(q, k, v, causal=False), want,
+           FLASH_TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,H,Hk,causal,q_offset", [
+    (40, 40, 4, 2, True, 0),       # GQA 4/2, 40 = 2.5 chunks of 16
+    (24, 40, 4, 1, True, 16),      # the last 24 queries of 40 positions
+    (37, 53, 4, 4, False, 0),      # non-causal, ragged in both lengths
+])
+def test_model_flash_matches_reference(Sq, Skv, H, Hk, causal, q_offset,
+                                       dtype):
+    (jq, jk, jv), (q, k, v) = _both(
+        flash_inputs(2, Sq, Skv, H, Hk, 16, seed=Sq + Skv), dtype)
+    want = jax_model_flash(jq, jk, jv, causal=causal, q_chunk=16,
+                           kv_chunk=16, q_offset=q_offset)
+    got = layers.flash_attention(q, k, v, causal=causal, q_chunk=16,
+                                 kv_chunk=16, q_offset=q_offset)
+    _close(got, want, FLASH_TOL[dtype])
+    # the kernel's plain version agrees with the model's chunked path
+    plain = ops.flash_attention_k(q, k, v, causal=causal, q_offset=q_offset)
+    _close(plain, np.asarray(want, np.float32), FLASH_TOL[dtype])
+
+
+def test_wrapper_rejects_bad_inputs():
+    q = torch.zeros((1, 8, 4, 16))
+    k = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(TypeError):
+        ops.flash_attention_k(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(TypeError):
+        ops.flash_attention_k(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError):
+        ops.flash_attention_k(q, torch.zeros((1, 8, 3, 16)),
+                              torch.zeros((1, 8, 3, 16)))   # H % Hk != 0
+    with pytest.raises(ValueError):
+        ops.flash_attention_k(q[0], k[0], k[0])             # rank 3
+    with pytest.raises(ValueError):
+        ops.flash_attention_k(q, k[:, :0], k[:, :0])        # no keys
+    with pytest.raises(ValueError):
+        ops.flash_attention_k(q, k, k, q_offset=-1)
+
+
+def test_cpu_path_launches_nothing():
+    before = ops.launches
+    q, k, v = (torch.from_numpy(a) for a in flash_inputs(1, 8, 8, 2, 2, 8))
+    ops.flash_attention_k(q, k, v)
+    layers.flash_attention(q, k, v)
+    assert ops.launches == before

@@ -1,25 +1,34 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA kernels
-(membership, intersect, delta_vlen) against their plain PyTorch
-versions, and the whole engine on the card — dense and bucketed storage,
-raw and varint wire — against the port's CPU path.  They skip without a
-CUDA card, and import no JAX, so they run where only PyTorch is
-installed:
+(membership, intersect, delta_vlen, flash_attn, moe_gemm) against their
+plain PyTorch versions, the whole engine on the card — dense and
+bucketed storage, raw and varint wire — and the reduced OLMoE serving
+path, against the port's CPU path.  They skip without a CUDA card, and
+import no JAX, so they run where only PyTorch is installed:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``."""
+import dataclasses
+
 import pytest
 import torch
 
 from _codec_cases import (DELTA_VLEN_SWEEP, INTERSECT_CASES,
                           delta_vlen_inputs, intersect_inputs)
+from _lm_cases import (FLASH_SWEEP, FLASH_TOL, MOE_ROW_CHECK, MOE_SWEEP,
+                       MOE_TOL, flash_inputs, moe_inputs)
 from _membership_cases import CASES, edge_inputs, sweep_inputs
+from repro_torch.configs import get_reduced
 from repro_torch.configs.rads import QUERIES, EngineConfig
 from repro_torch.core import Pattern, rads_enumerate
 from repro_torch.graph import erdos_graph, partition
+from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.kernels.intersect import ops as intersect_ops
 from repro_torch.kernels.intersect.ref import intersect_ref
 from repro_torch.kernels.membership import ops
 from repro_torch.kernels.membership.ref import membership_ref
+from repro_torch.kernels.moe_gemm import ops as moe_ops
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 from repro_torch.kernels.varint import ops as varint_ops
 from repro_torch.kernels.varint.ref import delta_vlen_ref
+from repro_torch.models import decode_step, init_lm_params, prefill
 
 CAPS = dict(frontier_cap=1 << 12, fetch_cap=256, verify_cap=1024,
             region_group_budget=1 << 11)
@@ -101,3 +110,94 @@ def test_engine_on_card_matches_cpu(cuda, q, fmt, wire):
     assert got.count == want.count and got.embeddings == want.embeddings
     for k in set(want.stats) - TIMING_KEYS:
         assert got.stats[k] == want.stats[k], k
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _assert_close(got, want, tol, per_row=False):
+    """Elementwise, as ``tests/test_kernels.py`` checks; ``per_row`` holds
+    each output row to ``tol`` times its own largest ``|want|`` instead
+    (see ``MOE_ROW_CHECK``)."""
+    got, want = got.float(), want.float()
+    if per_row:
+        err = (got - want).abs().amax(-1)
+        bound = tol * want.abs().amax(-1)
+        assert bool((err <= bound).all()), float((err / bound).max())
+    else:
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hk,D,causal,q_offset", [
+    *[(2, S, S, H, Hk, D, True, 0) for S, H, Hk, D in FLASH_SWEEP],
+    (2, 100, 100, 4, 4, 64, True, 0),      # ragged tiles, qwen1.5's D
+    (1, 37, 150, 4, 1, 128, False, 0),     # non-causal, ragged keys
+    (2, 40, 170, 4, 2, 16, True, 130),     # the last 40 of 170
+    (1, 1024, 1024, 16, 16, 128, True, 0),  # OLMoE's heads
+    (1, 512, 512, 32, 8, 128, True, 0),     # qwen3-4b's GQA 32/8
+])
+def test_flash_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, Hk, D,
+                                            causal, q_offset, dtype):
+    q, k, v = (torch.as_tensor(a, device=cuda).to(DTYPES[dtype])
+               for a in flash_inputs(B, Sq, Skv, H, Hk, D, seed=Sq + H))
+    before = flash_ops.launches
+    got = flash_ops.flash_attention_k(q, k, v, causal=causal,
+                                      q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    want = flash_ops.flash_attention_plain(q, k, v, causal=causal,
+                                           q_offset=q_offset)
+    _assert_close(got, want, FLASH_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,d,f", [
+    *MOE_SWEEP,
+    (5, 37, 48, 40),       # ragged tiles
+    (3, 5, 48, 40),        # the decode tiles (C <= 8), ragged
+    (64, 1, 2048, 1024),   # OLMoE decode
+    (8, 320, 2048, 1024)])  # OLMoE's widths, prefill tiles
+def test_moe_gemm_kernel_matches_plain_on_card(cuda, E, C, d, f, dtype):
+    x, wg, wu, wd = (torch.as_tensor(a, device=cuda).to(DTYPES[dtype])
+                     for a in moe_inputs(E, C, d, f, seed=E * C))
+    before = moe_ops.launches
+    got = moe_ops.moe_gemm(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert moe_ops.launches == before + 1
+    want = moe_gemm_ref(x, wg, wu, wd)
+    _assert_close(got, want, MOE_TOL[dtype],
+                  per_row=(dtype, C) == MOE_ROW_CHECK)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-4b"])
+def test_serving_on_card_matches_cpu(cuda, arch):
+    """Reduced model in float32: prefill and four decode steps on the card
+    (through both kernels) against the port's CPU run of the same
+    weights."""
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    model = init_lm_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    card = init_lm_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu").to(cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 24),
+                           generator=torch.Generator().manual_seed(1))
+    before = (flash_ops.launches, moe_ops.launches)
+    got, gcache = prefill(card, tokens.to(cuda), max_len=32)
+    want, cache = prefill(model, tokens, max_len=32)
+    assert flash_ops.launches == before[0] + cfg.n_layers
+    if cfg.moe is not None:
+        assert moe_ops.launches == before[1] + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    nxt = want[:, -1].argmax(-1)
+    for i in range(4):
+        got, gcache = decode_step(card, gcache, nxt.to(cuda), 24 + i)
+        want, cache = decode_step(model, cache, nxt, 24 + i)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        nxt = want.argmax(-1)
+    for k in ("k", "v"):
+        torch.testing.assert_close(gcache[k].cpu(), cache[k], rtol=1e-4,
+                                   atol=1e-4)
