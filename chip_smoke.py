@@ -6,8 +6,9 @@ every phase holds:
 1. device   — the card's name and power limit (``nvidia-smi``), torch and
               CUDA versions;
 2. build    — every CUDA kernel of the port (membership, intersect,
-              delta_vlen), compiled from the repository's sources (one
-              ``nvcc`` per source, all started together);
+              delta_vlen, flash_attn, moe_gemm, segment_spmm), compiled
+              from the repository's sources (one ``nvcc`` per source, all
+              started together);
 3. kernels  — each kernel's wrapper against its plain PyTorch version on
               the card, bit-exact, at the test sweep shapes, edge cases and
               the full-scale engine shapes, with its time beside its bound,
@@ -34,7 +35,23 @@ every phase holds:
 8. lm_serve — OLMoE-1B-7B at full depth and width in bfloat16 with seeded
               random weights: 4 prompts of 4,096 tokens, prefill and 64
               greedy decode steps, twice (the tokens must agree); then one
-              prompt of 32,768 tokens (``prefill_32k`` cut to batch 1).
+              prompt of 32,768 tokens (``prefill_32k`` cut to batch 1);
+9. gnn_kernels — segment_spmm against its plain version on the card, f32
+              and bf16 messages: the test sweep shapes and edge cases
+              elementwise, and the model shapes (GAT's D = 8, 56, 64 on the
+              products-sized graph, GraphCast's D = 512 at the minibatch
+              capacity and on the Cora-sized graph) against float64 row
+              sums, timed beside the bound, the plain version and two
+              library calls;
+10. gnn_parity — GAT, GraphCast, SchNet and PNA at their full config
+              widths in float32 on a Cora-sized graph: the kernel path
+              against the plain path;
+11. gnn_serve — GAT (``gat-cora``, bf16, seeded random weights) on a
+              seeded graph of ogbn-products' size (2,449,029 nodes,
+              61,859,140 edge slots): two bit-identical forwards, one with
+              bf16 messages, a ``torch.profiler`` split; then GraphCast at
+              full width (16 layers, d = 512, bf16) on the Cora-sized
+              graph.
 
 Each phase prints one JSON line.  Then come the kernels line, the
 ``nvidia-smi`` name/power line, and last
@@ -78,6 +95,12 @@ MOE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 MOE_ROW_CHECK = ("float32", 1)
 SMALL_CAPS = dict(frontier_cap=1 << 12, fetch_cap=256, verify_cap=1024,
                   region_group_budget=1 << 11)
+# GNN forward (phases 9-11): GNN_SHAPES' ogb_products and full_graph_sm at
+# their published sizes, neither cut, on seeded synthetic graphs
+GNN_ARCHS = ("gat-cora", "graphcast", "schnet", "pna")
+GNN_TOL = 1e-5            # tests/test_kernels.py::test_segment_spmm_sweep
+GNN_PARITY_TOL = 1e-4
+ZIPF_POWER = 1.795        # products_graph: ~17,000 edges on the largest hub
 FULL_N = 317_080              # com-DBLP's vertex count
 # The full phase runs a slightly smaller graph.  At FULL_N, q1 escalates
 # the capacities four times (its largest hub lands on a device that does
@@ -152,9 +175,10 @@ def phase_build():
     from repro_torch.kernels.intersect import kernel as inter_kernel
     from repro_torch.kernels.membership import kernel as memb_kernel
     from repro_torch.kernels.moe_gemm import kernel as moe_kernel
+    from repro_torch.kernels.segment_spmm import kernel as spmm_kernel
     from repro_torch.kernels.varint import kernel as varint_kernel
     sources = [memb_kernel.SOURCE, inter_kernel.SOURCE, varint_kernel.SOURCE,
-               flash_kernel.SOURCE, moe_kernel.SOURCE]
+               flash_kernel.SOURCE, moe_kernel.SOURCE, spmm_kernel.SOURCE]
     t0 = time.perf_counter()
     took = build.build(sources)
     wall = time.perf_counter() - t0
@@ -818,22 +842,25 @@ def phase_lm_kernels():
 # --------------------------------------------------------------------------- #
 @contextlib.contextmanager
 def _plain_kernels(active: bool):
-    """While active, the two kernel wrappers are swapped for their plain
-    versions, so the model runs the port's plain path on the card.  Only
-    the parity check of phase 7 turns it on."""
+    """While active, the kernel wrappers the models call (flash_attn,
+    moe_gemm, segment_spmm) are swapped for their plain versions, so the
+    models run the port's plain path on the card.  Only the parity checks
+    of phases 7 and 10 turn it on."""
     from repro_torch.kernels.flash_attn import ops as flash
     from repro_torch.kernels.moe_gemm import ops as moe
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    from repro_torch.kernels.segment_spmm import ops as spmm
     if not active:
         yield
         return
-    saved = flash.flash_attention_k, moe.moe_gemm
+    saved = flash.flash_attention_k, moe.moe_gemm, spmm.segment_spmm
     flash.flash_attention_k = flash.flash_attention_plain
     moe.moe_gemm = moe_gemm_ref
+    spmm.segment_spmm = spmm.segment_spmm_plain
     try:
         yield
     finally:
-        flash.flash_attention_k, moe.moe_gemm = saved
+        flash.flash_attention_k, moe.moe_gemm, spmm.segment_spmm = saved
 
 
 def _lm_launches() -> dict:
@@ -1065,6 +1092,430 @@ def phase_lm_serve():
     return runs[0]["launches"]
 
 
+# --------------------------------------------------------------------------- #
+# phases 9-11: the GNN forward
+# --------------------------------------------------------------------------- #
+def _gnn_dims(name: str) -> dict:
+    """The dims of one of the port's ``GNN_SHAPES`` cells."""
+    from repro_torch.configs import GNN_SHAPES
+    return next(s for s in GNN_SHAPES if s.name == name).dims
+
+
+def products_graph(seed: int = 0) -> dict:
+    """A seeded stand-in for ogbn-products at its published size
+    (``GNN_SHAPES`` ``ogb_products``): N nodes and E edge slots, all live.
+    ``src`` is uniform.  ``dst`` follows a Zipf-like law: node rank
+    ``N * u**ZIPF_POWER`` for a uniform ``u``, so that P(rank < r) =
+    (r/N)**(1/ZIPF_POWER), mapped through a random permutation so that
+    the hubs lie anywhere.  The power puts about 17,000 edges on the
+    largest hub, the order of ogbn-products' largest degree, and leaves
+    the mean at E/N = 25.3."""
+    rng = np.random.default_rng(seed)
+    dims = _gnn_dims("ogb_products")
+    N, E = dims["n_nodes"], dims["n_edges"]
+    src = rng.integers(0, N, E, dtype=np.int32)
+    rank = (N * rng.random(E) ** ZIPF_POWER).astype(np.int32)
+    np.minimum(rank, N - 1, out=rank)
+    dst = rng.permutation(N).astype(np.int32)[rank]
+    return dict(edge_src=src, edge_dst=dst, edge_mask=np.ones(E, bool))
+
+
+def cora_graph(seed: int = 1) -> dict:
+    """A seeded stand-in for Cora at ``full_graph_sm``'s published shape
+    (2,708 nodes, 10,556 uniform random edges, all live, 1,433 features)
+    with SchNet's positions at twice a standard normal."""
+    rng = np.random.default_rng(seed)
+    dims = _gnn_dims("full_graph_sm")
+    N, E = dims["n_nodes"], dims["n_edges"]
+    return dict(
+        node_feats=rng.normal(size=(N, dims["d_feat"])).astype(np.float32),
+        edge_src=rng.integers(0, N, E).astype(np.int32),
+        edge_dst=rng.integers(0, N, E).astype(np.int32),
+        edge_mask=np.ones(E, bool),
+        positions=(2.0 * rng.normal(size=(N, 3))).astype(np.float32))
+
+
+def minibatch_dst() -> tuple:
+    """``(dst, N)`` of one sampled minibatch at ``minibatch_lg``'s
+    capacity, ``sample_capacities(1024, (15, 10))``: each of the 1,024
+    seeds takes 15 in-edges and each of its 15,360 first-hop nodes 10
+    (169,984 nodes, 168,960 edges)."""
+    dims = _gnn_dims("minibatch_lg")
+    seeds, f0, f1 = dims["batch_nodes"], dims["fanout0"], dims["fanout1"]
+    hop1 = seeds * f0
+    dst = np.concatenate([np.repeat(np.arange(seeds), f0),
+                          seeds + np.repeat(np.arange(hop1), f1)])
+    return dst.astype(np.int32), seeds + hop1 + hop1 * f1
+
+
+def _f64_sums(msgs, dst, n: int, chunk: int = 1 << 23):
+    """The sums and the sums of |msg| by destination in float64, a chunk
+    of edges at a time."""
+    import torch
+    s = torch.zeros((n, msgs.shape[1]), dtype=torch.float64,
+                    device=msgs.device)
+    a = torch.zeros_like(s)
+    for i in range(0, msgs.shape[0], chunk):
+        m = msgs[i:i + chunk].double()
+        s.index_add_(0, dst[i:i + chunk], m)
+        a.index_add_(0, dst[i:i + chunk], m.abs_())
+    return s, a
+
+
+def _sum_ratio(got, s, a, out_bf16: bool) -> float:
+    """The largest error of an output element over its bound: 1e-5 of the
+    element's sum of |msg| over its row (an f32 sum of a long row in
+    another order is not bit-equal, so the check scales with the row),
+    plus 2**-7 of its value, one bf16 step, where the output is rounded
+    to bf16.  Where the bound is 0 the error must be 0
+    too (inf else)."""
+    import torch
+    diff = (got.double() - s).abs_()
+    bound = GNN_TOL * a
+    if out_bf16:
+        bound += 2.0 ** -7 * s.abs()
+    if bool(((bound == 0) & (diff > 0)).any()):
+        return math.inf
+    return float((diff / bound.clamp_min(1e-300)).max())
+
+
+def _spmm_bound_ms(E: int, n: int, D: int, in_size: int,
+                   out_size: int) -> tuple[float, str]:
+    """Messages read once, the plan's perm and rowptr read once, the
+    output written once; one f32 add per message element."""
+    nbytes = E * D * in_size + 4 * E + 4 * (n + 1) + n * D * out_size
+    return _bound(nbytes, E * D, "float32")
+
+
+def phase_gnn_kernels(dst_products, n_products: int):
+    """segment_spmm against its plain version on the card.  The sweep
+    shapes and edge cases, f32 and bf16 messages summed into f32, are
+    held elementwise at rtol = atol = 1e-5.  At the model shapes — GAT's
+    three widths on the products graph, GraphCast's minibatch capacity
+    and its Cora-sized graph — a long row's f32 sum in another order is
+    not bit-equal, so each element is held to 1e-5 of its row's sum of
+    |msg| against a float64 sum (``_sum_ratio``), the kernel's and the
+    plain version's ratios printed.  GAT's D = 64 is timed beside its
+    bound, the plain version and two library calls: ``index_add_`` and
+    ``segment_reduce`` over messages already sorted by destination.
+    Returns the timed rows."""
+    import torch
+    from repro_torch.kernels.segment_spmm import ops
+    dev = torch.device(DEVICE)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    t_phase = time.perf_counter()
+
+    cases = []
+    for E, N, D in [(300, 50, 8), (1000, 128, 32), (64, 7, 4)]:
+        rng = np.random.default_rng(E + N)              # the test sweep
+        msgs = rng.normal(size=(E, D)).astype(np.float32)
+        dst = rng.integers(0, N, E).astype(np.int32)
+        cases.append((f"sweep_{E}x{N}x{D}", torch.as_tensor(msgs, device=dev),
+                      torch.as_tensor(dst, device=dev), N))
+
+    def rand_case(name, E, n, D, dst=None, keep=1.0):
+        msgs = torch.randn((E, D), generator=gen, device=dev)
+        if keep < 1.0:
+            msgs *= (torch.rand((E, 1), generator=gen, device=dev) < keep)
+        if dst is None:
+            dst = torch.randint(0, n, (E,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        cases.append((name, msgs, dst, n))
+
+    rand_case("d1", 2000, 300, 1)
+    rand_case("d75", 5000, 400, 75)
+    rand_case("no_edges", 0, 5, 8)
+    rand_case("empty_rows", 1000, 600, 16,
+              dst=2 * torch.randint(0, 300, (1000,), generator=gen,
+                                    device=dev, dtype=torch.int32))
+    rand_case("one_node", 1000, 10, 16,
+              dst=torch.full((1000,), 3, device=dev, dtype=torch.int32))
+    rand_case("masked", 3000, 500, 8, keep=0.7)
+    worst = {}
+    for dtype in ("float32", "bfloat16"):
+        for name, msgs, dst, n in cases:
+            m = msgs.to(dts[dtype])
+            got = ops.segment_spmm(m, dst, n, ops.segment_plan(dst, n))
+            want = ops.segment_spmm_plain(m, dst, n)
+            torch.cuda.synchronize()
+            ok, err, elem, _ = _compare(got, want, GNN_TOL)
+            check(ok and got.dtype == torch.float32,
+                  f"segment_spmm {name} {dtype} disagrees: max abs err "
+                  f"{err}, elementwise ratio {elem}")
+            worst[f"{name}/{dtype}"] = elem
+    emit(phase="gnn_kernels", kernel="segment_spmm",
+         elementwise_cases=[c[0] for c in cases], tol=GNN_TOL,
+         worst_elem_ratio=max(worst.values()))
+    del cases
+
+    mb_dst, mb_n = minibatch_dst()
+    cora = cora_graph()
+    n_cora = cora["node_feats"].shape[0]
+    model = [
+        # (name, dst, n, D, messages' dtype, out dtype, timed)
+        ("gat_products_d8", dst_products, n_products, 8, "float32",
+         "float32", False),
+        ("gat_products_d56", dst_products, n_products, 56, "float32",
+         "float32", False),
+        ("gat_products_d64", dst_products, n_products, 64, "float32",
+         "float32", True),
+        ("gat_products_d64_bf16", dst_products, n_products, 64, "bfloat16",
+         "bfloat16", True),
+        ("graphcast_minibatch_d512", torch.as_tensor(mb_dst, device=dev),
+         mb_n, 512, "bfloat16", "bfloat16", True),
+        ("graphcast_cora_d512", torch.as_tensor(cora["edge_dst"],
+                                                device=dev),
+         n_cora, 512, "float32", "float32", False)]
+    rows = {}
+    for name, dst, n, D, in_dt, out_dt, timed in model:
+        E = dst.shape[0]
+        plan = ops.segment_plan(dst, n)
+        if name.startswith("gat_products_d8"):
+            msgs = torch.rand((E, D), generator=gen, device=dev)   # exp(.)
+        else:
+            msgs = torch.randn((E, D), generator=gen, device=dev)
+        msgs = msgs.to(dts[in_dt])
+        odt = dts[out_dt]
+        got = ops.segment_spmm(msgs, dst, n, plan, out_dtype=odt)
+        again = ops.segment_spmm(msgs, dst, n, plan, out_dtype=odt)
+        want = ops.segment_spmm_plain(msgs, dst, n, out_dtype=odt)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"segment_spmm {name}: two runs "
+                                       f"differ")
+        s, a = _f64_sums(msgs, dst, n)
+        ratio = _sum_ratio(got, s, a, out_dt == "bfloat16")
+        plain_ratio = _sum_ratio(want, s, a, out_dt == "bfloat16")
+        err = float((got.double() - s).abs().max())
+        del want, again, s, a
+        check(ratio <= 1, f"segment_spmm {name}: error over its row bound "
+                          f"{ratio}")
+        deg = plan.rowptr[1:] - plan.rowptr[:-1]
+        row = dict(kernel="segment_spmm", shape=name, E=E, n=n, D=D,
+                   dtype=in_dt, out_dtype=out_dt,
+                   max_in_degree=int(deg.max()), max_abs_err=err,
+                   row_ratio=ratio, plain_row_ratio=plain_ratio, tol=GNN_TOL,
+                   check="row sum of |msg|, float64")
+        if timed:
+            row["kernel_ms"] = cuda_ms(lambda: ops.segment_spmm(
+                msgs, dst, n, plan, out_dtype=odt), iters=10)
+            row["plain_ms"] = cuda_ms(lambda: ops.segment_spmm_plain(
+                msgs, dst, n, out_dtype=odt), iters=5)
+            row["library_ms"] = cuda_ms(lambda: torch.zeros(
+                (n, D), dtype=torch.float32, device=dev).index_add_(
+                0, dst, msgs), iters=5) if in_dt == "float32" else None
+            ordered = msgs.index_select(0, plan.perm)
+            lengths = deg.long()
+            row["segment_reduce_ms"] = cuda_ms(lambda: torch.segment_reduce(
+                ordered, "sum", lengths=lengths, axis=0, unsafe=True),
+                iters=5)
+            del ordered, lengths
+            row["bound_ms"], row["bound_by"] = _spmm_bound_ms(
+                E, n, D, msgs.element_size(), got.element_size())
+            rows[name] = row
+        emit(phase="gnn_kernels", **row)
+        del msgs, got, plan, deg
+        torch.cuda.empty_cache()
+    # the products graph's longest row alone at D = 64 f32: the time its
+    # one group of lanes takes, which no other row's work can hide
+    longest = int(torch.bincount(dst_products).max())
+    dst1 = torch.zeros(longest, dtype=torch.int32, device=dev)
+    msgs = torch.randn((longest, 64), generator=gen, device=dev)
+    plan = ops.segment_plan(dst1, 1)
+    emit(phase="gnn_kernels", shape="longest_row_d64", E=longest, D=64,
+         kernel_ms=cuda_ms(lambda: ops.segment_spmm(msgs, dst1, 1, plan)),
+         wall_s=time.perf_counter() - t_phase)
+    return rows
+
+
+def _gnn_launches(cfg) -> int:
+    """segment_spmm launches of one forward: GAT sums denominators and
+    messages per layer; GraphCast and SchNet sum once per layer; PNA sums
+    the degree once, then per layer two ``_seg_mean``s (mean and std) of
+    two sums each."""
+    return {"gat": 2 * cfg.n_layers, "graphcast": cfg.n_layers,
+            "schnet": cfg.n_layers, "pna": 1 + 4 * cfg.n_layers}[cfg.kind]
+
+
+def phase_gnn_parity():
+    """The four GNNs at their full config widths in float32 on the
+    Cora-sized graph: the kernel path against the plain path (the same
+    weights, ``_plain_kernels``), each held to a relative 1e-4 (max |diff|
+    over max |plain|)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import graph_batch_from_arrays
+    from repro_torch.kernels.segment_spmm import ops
+    from repro_torch.models import gnn_forward, init_gnn
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    arrays = cora_graph()
+    gb = graph_batch_from_arrays(arrays, device=dev)
+    res = {}
+    for arch in GNN_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).model, dtype="float32")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2)
+        params = init_gnn(gen, cfg, arrays["node_feats"].shape[1],
+                          cfg.n_classes, device=dev)
+        out = {}
+        for plain in (False, True):
+            with _plain_kernels(plain):
+                ops.launches = 0
+                o = gnn_forward(params, cfg, gb)
+                torch.cuda.synchronize()
+                out[plain] = (o, ops.launches)
+        (ok_, nk), (op, npl) = out[False], out[True]
+        check(nk == _gnn_launches(cfg) and npl == 0,
+              f"gnn_parity {arch}: launches {nk} (plain {npl}), want "
+              f"{_gnn_launches(cfg)}")
+        check(bool(torch.isfinite(ok_).all()), f"gnn_parity {arch}: not "
+                                               f"finite")
+        rel = _rel(ok_, op)
+        check(rel <= GNN_PARITY_TOL, f"gnn_parity {arch}: kernel vs plain "
+                                     f"rel {rel}")
+        res[arch] = dict(n_layers=cfg.n_layers, d_hidden=cfg.d_hidden,
+                         out_shape=list(ok_.shape), rel_err=rel,
+                         launches_per_forward=nk)
+        del params, out, ok_, op
+    emit(phase="gnn_parity", graph="cora-sized (2,708 nodes, 10,556 edges, "
+         "1,433 features)", dtype="float32", tol=GNN_PARITY_TOL,
+         models=res, wall_s=time.perf_counter() - t_phase)
+
+
+def _gnn_forward_once(params, cfg, gb) -> dict:
+    """One forward on the host clock to a synchronise, with the launch
+    count set to 0 just before it and read just after, and the peak
+    memory."""
+    import torch
+    from repro_torch.kernels.segment_spmm import ops
+    from repro_torch.models import gnn_forward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.launches = 0
+    t0 = time.perf_counter()
+    out = gnn_forward(params, cfg, gb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(out=out, wall_ms=wall * 1e3, launches=ops.launches,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def phase_gnn_serve(products: dict):
+    """GAT (``gat-cora``'s full config, bf16, seeded random weights) on the
+    products-sized graph: two forwards that must be bit-identical, one
+    with ``gnn_bf16_msgs``, and a ``torch.profiler`` split of one more;
+    then GraphCast at full width (16 layers, d = 512, bf16) on the
+    Cora-sized graph.  Returns the first GAT forward's launch count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.convert import graph_batch_from_arrays
+    from repro_torch.distributed import ctx
+    from repro_torch.models import GraphBatch, gnn_forward, init_gnn
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    cfg = get_config("gat-cora").model
+    dims = _gnn_dims("ogb_products")
+    N, F_ = dims["n_nodes"], dims["d_feat"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    t0 = time.perf_counter()
+    feats = torch.randn((N, F_), generator=gen, device=dev).to(torch.bfloat16)
+    gb = GraphBatch(node_feats=feats, **{
+        k: torch.as_tensor(v, device=dev) for k, v in products.items()})
+    params = init_gnn(gen, cfg, F_, cfg.n_classes, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = gb.plan()
+    gb.dst_index()
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    deg = (plan.rowptr[1:] - plan.rowptr[:-1]).float()
+    graph = dict(n_nodes=N, edge_slots=gb.edge_dst.shape[0],
+                 live_edges=int(gb.edge_mask.sum()),
+                 max_in_degree=int(deg.max()), mean_in_degree=float(
+                     deg.mean()), nodes_without_in_edges=int((deg == 0).sum()),
+                 d_feat=F_, setup_s=setup_s, plan_ms=plan_ms)
+    del deg
+    runs = [_gnn_forward_once(params, cfg, gb) for _ in range(2)]
+    want = _gnn_launches(cfg)
+    for r in runs:
+        check(r["launches"] == want, f"gnn_serve GAT launches "
+                                     f"{r['launches']} != {want}")
+        check(tuple(r["out"].shape) == (N, cfg.n_classes)
+              and bool(torch.isfinite(r["out"]).all()),
+              "gnn_serve GAT: output not finite or misshapen")
+    check(torch.equal(runs[0]["out"], runs[1]["out"]),
+          "gnn_serve GAT: two forwards are not bit-identical")
+    ctx.set_flags(gnn_bf16_msgs=True)
+    try:
+        b16 = _gnn_forward_once(params, cfg, gb)
+    finally:
+        ctx.reset()
+    check(b16["launches"] == want and bool(torch.isfinite(b16["out"]).all()),
+          f"gnn_serve GAT bf16 messages: launches {b16['launches']} or not "
+          f"finite")
+    b16_rel = _rel(b16["out"], runs[0]["out"])
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        gnn_forward(params, cfg, gb)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    split = _kernel_times(prof, wall, top=10)
+    # the row gathers along the edges (``index_select`` by src or dst),
+    # timed alone at GAT's two row widths beside their byte bound: the
+    # table and the ids read once, the (E, ...) rows written once
+    gathers = {}
+    E = gb.edge_src.shape[0]
+    for name, shape in (("N_8_bf16", (N, 8)), ("N_8_8_bf16", (N, 8, 8))):
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        nbytes = x.numel() * x.element_size()
+        gathers[name] = dict(
+            ms=cuda_ms(lambda: x.index_select(0, gb.edge_src), iters=5),
+            bound_ms=(nbytes + 4 * E + E * nbytes // N) / HBM_BYTES_PER_S
+            * 1e3)
+        del x
+    del gb, params, feats, runs[0]["out"], runs[1]["out"], b16["out"], prof
+    torch.cuda.empty_cache()
+
+    gcfg = get_config("graphcast").model
+    arrays = cora_graph()
+    n_cora, f_cora = arrays["node_feats"].shape
+    cgb = graph_batch_from_arrays(arrays, device=dev)
+    gen.manual_seed(6)
+    gparams = init_gnn(gen, gcfg, f_cora, gcfg.n_classes, device=dev)
+    gc = [_gnn_forward_once(gparams, gcfg, cgb) for _ in range(2)]
+    for r in gc:
+        check(r["launches"] == _gnn_launches(gcfg)
+              and tuple(r["out"].shape) == (n_cora, gcfg.n_vars)
+              and bool(torch.isfinite(r["out"]).all()),
+              f"gnn_serve GraphCast: launches {r['launches']}, or output not "
+              f"finite or misshapen")
+    emit(phase="gnn_serve", arch="gat-cora", dtype=cfg.dtype,
+         n_layers=cfg.n_layers, heads=cfg.n_heads, d_hidden=cfg.d_hidden,
+         n_out=cfg.n_classes, graph=graph,
+         forwards=[dict(wall_ms=r["wall_ms"],
+                        nodes_per_s=N / (r["wall_ms"] / 1e3),
+                        peak_bytes=r["peak"], launches=r["launches"])
+                   for r in runs],
+         bit_identical=True,
+         bf16_msgs=dict(wall_ms=b16["wall_ms"], peak_bytes=b16["peak"],
+                        launches=b16["launches"], rel_vs_f32_msgs=b16_rel),
+         profile=split, gathers=gathers,
+         graphcast=dict(arch="graphcast", dtype=gcfg.dtype,
+                        n_layers=gcfg.n_layers, d_hidden=gcfg.d_hidden,
+                        graph="cora-sized", forwards=[
+                            dict(wall_ms=r["wall_ms"], peak_bytes=r["peak"],
+                                 launches=r["launches"]) for r in gc]),
+         wall_s=time.perf_counter() - t_phase)
+    return runs[0]["launches"]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--full-n", type=int, default=SMOKE_N,
@@ -1136,6 +1587,20 @@ def main():
     phase_lm_parity()
     lm_launches = phase_lm_serve()
 
+    # the GNN forward: the products-sized graph is built once, on the host,
+    # outside every timed forward
+    t0 = time.perf_counter()
+    products = products_graph()
+    n_products = _gnn_dims("ogb_products")["n_nodes"]
+    emit(phase="gnn_graph", build_s=time.perf_counter() - t0,
+         n_nodes=n_products, edge_slots=len(products["edge_dst"]))
+    gnn_rows = phase_gnn_kernels(
+        torch.as_tensor(products["edge_dst"], device=DEVICE), n_products)
+    torch.cuda.empty_cache()
+    phase_gnn_parity()
+    gnn_launches = phase_gnn_serve(products)
+    del products
+
     t, ti, td = timing["backedge"], inter["backedge_padded"], dvl[fcaps[-1]]
     rows = [
         ("membership", "src/repro_torch/kernels/membership/csrc/membership.cu",
@@ -1152,7 +1617,11 @@ def main():
          lm_launches["flash_attn"], lm_rows["flash_attn", "bfloat16"]),
         ("moe_gemm", "src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
          "src/repro/kernels/moe_gemm/kernel.py:44",
-         lm_launches["moe_gemm"], lm_rows["moe_gemm", "bfloat16"])]
+         lm_launches["moe_gemm"], lm_rows["moe_gemm", "bfloat16"]),
+        ("segment_spmm",
+         "src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu",
+         "src/repro/kernels/segment_spmm/kernel.py:35", gnn_launches,
+         gnn_rows["gat_products_d64"])]
     emit(kernels=[dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],

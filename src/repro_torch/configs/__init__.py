@@ -1,5 +1,5 @@
 """Configuration of the port: the RADS engine config (:mod:`.rads`) and
-the registry of the LM architectures whose modules the port has,
+the registry of the LM and GNN architectures whose modules the port has,
 ``get_config(arch_id)`` / ``get_reduced(arch_id)``, with the same ids
 and configs as the reference's registry.
 """
@@ -7,8 +7,9 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (ArchConfig, LM_SHAPES, MLAConfig,
-                                      MoEConfig, ShapeSpec, TransformerConfig,
+from repro_torch.configs.base import (ArchConfig, GNN_SHAPES, GNNConfig,
+                                      LM_SHAPES, MLAConfig, MoEConfig,
+                                      ShapeSpec, TransformerConfig,
                                       scaled_transformer)
 
 _ARCH_MODULES: dict[str, str] = {
@@ -16,15 +17,15 @@ _ARCH_MODULES: dict[str, str] = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
+    "graphcast": "repro_torch.configs.graphcast",
+    "schnet": "repro_torch.configs.schnet",
+    "pna": "repro_torch.configs.pna",
+    "gat-cora": "repro_torch.configs.gat_cora",
 }
 # architectures of the reference's registry whose modules are not ported
 # yet, each with the ROADMAP.md item that ports them
 _NOT_PORTED: dict[str, str] = {
     "deepseek-v3-671b": "queue A item 11 (MLA and MTP)",
-    "graphcast": "queue A item 8 (GNN forward with segment_spmm)",
-    "schnet": "queue A item 8 (GNN forward with segment_spmm)",
-    "pna": "queue A item 8 (GNN forward with segment_spmm)",
-    "gat-cora": "queue A item 8 (GNN forward with segment_spmm)",
     "din": "queue A item 12 (DIN serving)",
 }
 
@@ -46,12 +47,12 @@ def get_config(arch_id: str) -> ArchConfig:
     return _module(arch_id).CONFIG
 
 
-def get_reduced(arch_id: str) -> TransformerConfig:
+def get_reduced(arch_id: str) -> TransformerConfig | GNNConfig:
     return _module(arch_id).reduced()
 
 
 __all__ = [
-    "ArchConfig", "TransformerConfig", "MoEConfig", "MLAConfig", "ShapeSpec",
-    "LM_SHAPES", "ARCH_IDS", "get_config", "get_reduced",
-    "scaled_transformer",
+    "ArchConfig", "TransformerConfig", "MoEConfig", "MLAConfig", "GNNConfig",
+    "ShapeSpec", "LM_SHAPES", "GNN_SHAPES", "ARCH_IDS", "get_config",
+    "get_reduced", "scaled_transformer",
 ]

@@ -1,7 +1,7 @@
-"""Config dataclasses of the LM family: a field-for-field copy of the
-reference's ``configs/base.py`` (transformer, MoE and MLA configs, the
-LM shape cells), so one kwargs dict builds the same config in both
-packages.  The GNN and recsys dataclasses come with their slices.
+"""Config dataclasses of the LM and GNN families: a field-for-field copy
+of the reference's ``configs/base.py`` (transformer, MoE, MLA and GNN
+configs, the LM and GNN shape cells), so one kwargs dict builds the same
+config in both packages.  The recsys dataclasses come with their slice.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ class ShapeSpec:
     """One input-shape cell. ``kind`` selects which step it drives."""
 
     name: str
-    kind: str  # train | prefill | decode | long_decode
+    kind: str  # train | prefill | decode | long_decode | full_graph | minibatch | batched_graphs
     dims: dict[str, int] = field(default_factory=dict)
 
     def __getitem__(self, k: str) -> int:
@@ -30,6 +30,18 @@ LM_SHAPES = (
     ShapeSpec("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
     ShapeSpec("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
     ShapeSpec("long_500k", "long_decode", {"seq_len": 524288, "global_batch": 1}),
+)
+
+GNN_SHAPES = (
+    ShapeSpec("full_graph_sm", "full_graph",
+              {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433}),
+    ShapeSpec("minibatch_lg", "minibatch",
+              {"n_nodes": 232965, "n_edges": 114615892, "batch_nodes": 1024,
+               "fanout0": 15, "fanout1": 10, "d_feat": 602}),
+    ShapeSpec("ogb_products", "full_graph",
+              {"n_nodes": 2449029, "n_edges": 61859140, "d_feat": 100}),
+    ShapeSpec("molecule", "batched_graphs",
+              {"n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 16}),
 )
 
 
@@ -85,7 +97,29 @@ class TransformerConfig:
         return self.d_head or self.d_model // self.n_heads
 
 
-ModelConfig = Any  # TransformerConfig (GNN and recsys configs: later slices)
+@dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    kind: str                     # graphcast | schnet | pna | gat
+    n_layers: int
+    d_hidden: int
+    aggregator: str = "sum"
+    n_heads: int = 1
+    # schnet
+    n_rbf: int = 0
+    cutoff: float = 0.0
+    # graphcast
+    mesh_refinement: int = 0
+    n_vars: int = 0
+    # pna
+    aggregators: tuple[str, ...] = ()
+    scalers: tuple[str, ...] = ()
+    n_classes: int = 47           # ogbn-products has 47 classes
+    dtype: str = "bfloat16"
+    family: str = "gnn"
+
+
+ModelConfig = Any  # TransformerConfig | GNNConfig (recsys: a later slice)
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,7 @@
 """Carry state from the reference package into the port.
 
-Graphs, partitions, cache states and model weights: a parity test builds
+Graphs, partitions, cache states, GNN batches and model weights: a parity
+test builds
 them once and hands the same numbers to both packages.  These functions
 take plain numpy arrays (the reference's fields or parameter pytree, read
 with ``np.asarray``), so the port needs nothing of the reference to use
@@ -11,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import TransformerConfig
+from repro_torch.configs.base import GNNConfig, TransformerConfig
 from repro_torch.core.cache import AdjCache
 from repro_torch.device import resolve_device
 from repro_torch.graph.storage import PartitionedGraph
@@ -79,3 +80,69 @@ def lm_params_from_arrays(tree: dict, cfg: TransformerConfig, device=None):
         cfg, tensor_from_array(tree["embed"], device), blocks,
         tensor_from_array(tree["final_norm"], device),
         None if head is None else tensor_from_array(head, device))
+
+
+def _tensors(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, device) for v in tree]
+    return tensor_from_array(tree, device)
+
+
+def _layer_of(tree, i: int):
+    """Layer ``i`` of a tree whose arrays are stacked on axis 0."""
+    if isinstance(tree, dict):
+        return {k: _layer_of(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_layer_of(v, i) for v in tree]
+    return np.asarray(tree)[i]
+
+
+def _n_stacked(tree) -> int:
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return np.asarray(tree).shape[0]
+
+
+def gnn_params_from_arrays(tree: dict, cfg: GNNConfig, device=None) -> dict:
+    """The port's GNN parameters from the reference's parameter pytree as
+    numpy arrays (``jax.tree.map(np.asarray, params)``).  GraphCast,
+    SchNet and PNA stack their per-layer weights on axis 0 for
+    ``lax.scan`` (``layers`` is a dict of stacked arrays and lists of
+    ``{w, b}``); the port keeps a list of per-layer dicts, as GAT's
+    ``layers`` already is."""
+    device = resolve_device(device)
+    out = {}
+    for key, sub in tree.items():
+        if key == "layers":
+            n = len(sub) if isinstance(sub, list) else _n_stacked(sub)
+            if n != cfg.n_layers:
+                raise ValueError(f"{cfg.name}: {n} layers in the tree, "
+                                 f"{cfg.n_layers} in the config")
+            if isinstance(sub, dict):
+                sub = [_layer_of(sub, i) for i in range(n)]
+        out[key] = _tensors(sub, device)
+    return out
+
+
+_GB_FIELDS = {"node_feats": None, "edge_src": np.int32, "edge_dst": np.int32,
+              "edge_mask": bool, "labels": None, "label_mask": bool,
+              "positions": None, "graph_id": np.int32}
+
+
+def graph_batch_from_arrays(d: dict, device=None):
+    """The port's :class:`~repro_torch.models.gnn.GraphBatch` from a dict
+    of the reference's fields as numpy arrays (``node_feats``,
+    ``edge_src``, ``edge_dst``, ``edge_mask``; ``labels``,
+    ``label_mask``, ``positions`` and ``graph_id`` where present): ids as
+    int32, masks as bool, features in their own dtype."""
+    from repro_torch.models.gnn import GraphBatch
+    device = resolve_device(device)
+    kw = {}
+    for key, dtype in _GB_FIELDS.items():
+        if d.get(key) is not None:
+            a = np.asarray(d[key]) if dtype is None else np.asarray(d[key],
+                                                                     dtype)
+            kw[key] = tensor_from_array(a, device)
+    return GraphBatch(**kw)

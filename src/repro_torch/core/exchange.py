@@ -9,7 +9,7 @@ a real transport would put on the wire, the diagonal (self-traffic) free.
 
 Only the ``sim`` backend is ported, with both wire formats (``raw`` and
 the ``varint`` codecs of :mod:`repro_torch.core.wire`); the other
-backends (ROADMAP queue A item 8) raise ``NotImplementedError``.
+backends (ROADMAP queue A item 13) raise ``NotImplementedError``.
 
 Every primitive works on any leading batch shape (the reference vmaps a
 per-device function), keeps every shape static, and never synchronises
@@ -84,7 +84,7 @@ def Exchange(mode: str = "sim", wire_format: str = "raw",
     if mode in ("gather", "spmd", "dist"):
         raise NotImplementedError(
             f"exchange mode {mode!r} is not ported yet (ROADMAP queue A "
-            f"item 8); use mode='sim'")
+            f"item 13); use mode='sim'")
     if mode != "sim":
         raise ValueError(f"unknown exchange mode {mode!r}")
     if wire_format not in ("raw", "varint"):

@@ -1,0 +1,350 @@
+"""The GNN model zoo of the reference's ``models/gnn.py``, forward only:
+GraphCast (encode-process-decode interaction network), SchNet
+(continuous-filter convolution), PNA (multi-aggregator) and GAT
+(attention).
+
+Message passing is a gather of node rows along the edges, per-edge
+arithmetic, and a segment sum of the messages by destination node.
+Every segment sum goes through :func:`segment_spmm`: on a CUDA tensor
+the hand-written kernel (``kernels.segment_spmm``), on a CPU tensor its
+plain version.  The kernel works from the batch's destination-sorted
+CSR plan, which :meth:`GraphBatch.plan` builds once per batch and every
+layer reuses.  The segment max (GAT's softmax shift, PNA's max and min)
+is plain PyTorch, as the reference leaves it to XLA.
+
+Parameters are nested dicts and lists of tensors.  Where the reference
+stacks per-layer weights for ``lax.scan``, the port keeps a list of
+per-layer dicts and loops over it.  ``gnn_loss`` and training come with
+a later slice.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import GNNConfig
+from repro_torch.device import resolve_device
+from repro_torch.distributed import ctx
+from repro_torch.kernels.segment_spmm import ops as spmm_ops
+from repro_torch.kernels.segment_spmm.ops import SegmentPlan, segment_plan
+from repro_torch.models.layers import _init
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass
+class GraphBatch:
+    """One graph (or a batch of graphs) in the reference's format: edges
+    are slots, and a slot whose ``edge_mask`` is False carries no
+    message."""
+
+    node_feats: torch.Tensor          # (N, F)
+    edge_src: torch.Tensor            # (E,) int32
+    edge_dst: torch.Tensor            # (E,) int32
+    edge_mask: torch.Tensor           # (E,) bool
+    labels: torch.Tensor | None = None       # (N,) int32 or (N, n_vars)
+    label_mask: torch.Tensor | None = None   # (N,) bool
+    positions: torch.Tensor | None = None    # (N, 3) for schnet
+    graph_id: torch.Tensor | None = None     # (N,) for batched molecules
+    _memo: dict = field(default_factory=dict, init=False, repr=False,
+                        compare=False)
+
+    @property
+    def n_nodes(self) -> int:
+        return self.node_feats.shape[0]
+
+    def _memoized(self, name: str, build):
+        key, val = self._memo.get(name, (None, None))
+        if key is not self.edge_dst:
+            val = build()
+            self._memo[name] = (self.edge_dst, val)
+        return val
+
+    def plan(self) -> SegmentPlan:
+        """The destination-sorted CSR of the edges, built at first use
+        and kept until ``edge_dst`` is replaced."""
+        return self._memoized(
+            "plan", lambda: segment_plan(self.edge_dst, self.n_nodes))
+
+    def dst_index(self) -> torch.Tensor:
+        """``edge_dst`` as int64, the index ``scatter_reduce_`` takes,
+        converted once per batch."""
+        return self._memoized("dst64", lambda: self.edge_dst.long())
+
+
+def _dt(cfg: GNNConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def _mlp_init(gen: torch.Generator, dims, dtype, device) -> list:
+    return [dict(w=_init(gen, (dims[i], dims[i + 1]), dtype=dtype,
+                         device=device),
+                 b=torch.zeros((dims[i + 1],), dtype=dtype, device=device))
+            for i in range(len(dims) - 1)]
+
+
+def _mlp(params: list, x: torch.Tensor, act=F.silu,
+         final_act: bool = False) -> torch.Tensor:
+    for i, lyr in enumerate(params):
+        x = x @ lyr["w"] + lyr["b"]
+        if i < len(params) - 1 or final_act:
+            x = act(x)
+    return x
+
+
+def _seg_sum(x: torch.Tensor, idx: torch.Tensor, n: int,
+             plan: SegmentPlan | None = None) -> torch.Tensor:
+    """Sum of ``x`` (E, ...) by ``idx`` into (n, ...), in x's dtype
+    (accumulated in float32)."""
+    return spmm_ops.segment_spmm(x, idx, n, plan, out_dtype=x.dtype)
+
+
+def _seg_mean(x: torch.Tensor, idx: torch.Tensor, n: int,
+              mask: torch.Tensor, plan: SegmentPlan | None = None
+              ) -> torch.Tensor:
+    s = _seg_sum(x, idx, n, plan)
+    c = _seg_sum(mask.to(x.dtype)[:, None], idx, n, plan)
+    return s / torch.clamp_min(c, 1)
+
+
+def _seg_max(x: torch.Tensor, idx64: torch.Tensor, n: int) -> torch.Tensor:
+    """Max of ``x`` (E, ...) by the int64 ``idx64`` into (n, ...); a node
+    with no edge gets ``-inf``, as ``jax.ops.segment_max`` gives."""
+    out = torch.full((n, *x.shape[1:]), -math.inf, dtype=x.dtype,
+                     device=x.device)
+    index = idx64.view(-1, *([1] * (x.dim() - 1))).expand_as(x)
+    return out.scatter_reduce_(0, index, x, "amax", include_self=False)
+
+
+# =========================================================================== #
+# GraphCast-style encode-process-decode interaction network
+# =========================================================================== #
+def init_graphcast(gen: torch.Generator, cfg: GNNConfig, d_feat: int,
+                   device=None) -> dict:
+    dt, d = _dt(cfg), cfg.d_hidden
+    enc_node = _mlp_init(gen, (d_feat, d, d), dt, device)
+    enc_edge = _mlp_init(gen, (2 * d, d, d), dt, device)
+    layers = [dict(edge_mlp=_mlp_init(gen, (3 * d, d, d), dt, device),
+                   node_mlp=_mlp_init(gen, (2 * d, d, d), dt, device))
+              for _ in range(cfg.n_layers)]
+    dec = _mlp_init(gen, (d, d, cfg.n_vars), dt, device)
+    return dict(enc_node=enc_node, enc_edge=enc_edge, layers=layers, dec=dec)
+
+
+def graphcast_forward(params: dict, cfg: GNNConfig,
+                      gb: GraphBatch) -> torch.Tensor:
+    N, dt = gb.n_nodes, _dt(cfg)
+    src, dst, plan = gb.edge_src, gb.edge_dst, gb.plan()
+    h = _mlp(params["enc_node"], gb.node_feats.to(dt))
+    e = _mlp(params["enc_edge"],
+             torch.cat([h.index_select(0, src), h.index_select(0, dst)], -1))
+    m = gb.edge_mask[:, None].to(dt)
+    for lyr in params["layers"]:
+        e_in = torch.cat([e, h.index_select(0, src), h.index_select(0, dst)],
+                         -1)
+        e = e + _mlp(lyr["edge_mlp"], e_in) * m
+        agg = _seg_sum(e * m, dst, N, plan)
+        h = h + _mlp(lyr["node_mlp"], torch.cat([h, agg], -1))
+    return _mlp(params["dec"], h)                       # (N, n_vars)
+
+
+# =========================================================================== #
+# SchNet
+# =========================================================================== #
+def init_schnet(gen: torch.Generator, cfg: GNNConfig, d_feat: int,
+                device=None) -> dict:
+    dt, d, R = _dt(cfg), cfg.d_hidden, cfg.n_rbf
+    emb = _mlp_init(gen, (d_feat, d), dt, device)
+    layers = [dict(filt=_mlp_init(gen, (R, d, d), dt, device),
+                   w_in=_init(gen, (d, d), dtype=dt, device=device),
+                   out=_mlp_init(gen, (d, d, d), dt, device))
+              for _ in range(cfg.n_layers)]
+    head = _mlp_init(gen, (d, d // 2, 1), dt, device)
+    return dict(emb=emb, layers=layers, head=head)
+
+
+def _rbf(dist: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
+    centers = torch.linspace(0.0, cutoff, n_rbf, device=dist.device)
+    gamma = n_rbf / cutoff
+    return torch.exp(-gamma * (dist[:, None] - centers) ** 2)
+
+
+def schnet_forward(params: dict, cfg: GNNConfig,
+                   gb: GraphBatch) -> torch.Tensor:
+    """Continuous-filter convolution; returns the per-node scalar (N,)."""
+    N, dt = gb.n_nodes, _dt(cfg)
+    if gb.positions is None:
+        raise ValueError("schnet needs positions")
+    src, dst, plan, pos = gb.edge_src, gb.edge_dst, gb.plan(), gb.positions
+    h = _mlp(params["emb"], gb.node_feats.to(dt))
+    dvec = pos.index_select(0, src) - pos.index_select(0, dst)
+    dist = torch.sqrt((dvec * dvec).sum(-1) + 1e-12)
+    rbf = _rbf(dist, cfg.n_rbf, cfg.cutoff).to(dt)
+    # cosine cutoff envelope
+    env = 0.5 * (torch.cos(math.pi * torch.clamp(dist / cfg.cutoff, 0, 1))
+                 + 1)
+    m = ((gb.edge_mask & (dist < cfg.cutoff)).to(dt)[:, None]
+         * env[:, None].to(dt))
+    for lyr in params["layers"]:
+        W = _mlp(lyr["filt"], rbf)                      # (E, d)
+        msg = (h @ lyr["w_in"]).index_select(0, src) * W * m
+        agg = _seg_sum(msg, dst, N, plan)
+        h = h + _mlp(lyr["out"], agg)
+    return _mlp(params["head"], h)[:, 0]                # (N,)
+
+
+# =========================================================================== #
+# PNA
+# =========================================================================== #
+def init_pna(gen: torch.Generator, cfg: GNNConfig, d_feat: int, n_out: int,
+             device=None) -> dict:
+    dt, d = _dt(cfg), cfg.d_hidden
+    n_tow = len(cfg.aggregators) * len(cfg.scalers)
+    enc = _mlp_init(gen, (d_feat, d), dt, device)
+    layers = [dict(pre=_mlp_init(gen, (2 * d, d), dt, device),
+                   post=_mlp_init(gen, (n_tow * d + d, d), dt, device))
+              for _ in range(cfg.n_layers)]
+    dec = _mlp_init(gen, (d, n_out), dt, device)
+    return dict(enc=enc, layers=layers, dec=dec)
+
+
+def pna_forward(params: dict, cfg: GNNConfig, gb: GraphBatch,
+                avg_log_deg: float = 2.0) -> torch.Tensor:
+    N, dt = gb.n_nodes, _dt(cfg)
+    src, dst, plan = gb.edge_src, gb.edge_dst, gb.plan()
+    h = _mlp(params["enc"], gb.node_feats.to(dt))
+    mask = gb.edge_mask
+    mcol = mask[:, None]
+    deg = _seg_sum(mask.float()[:, None], dst, N, plan)[:, 0]
+    log_deg = torch.log1p(deg)[:, None].to(dt)
+    has_in = deg[:, None] > 0
+    for lyr in params["layers"]:
+        msg = _mlp(lyr["pre"], torch.cat([h.index_select(0, src),
+                                          h.index_select(0, dst)], -1))
+        msg = msg * mcol.to(dt)
+        aggs = []
+        mean = _seg_mean(msg, dst, N, mask, plan)
+        for a in cfg.aggregators:
+            if a == "mean":
+                aggs.append(mean)
+            elif a == "max":
+                mx = _seg_max(torch.where(mcol, msg, -1e9).float(),
+                              gb.dst_index(), N)
+                aggs.append(torch.where(has_in, mx, 0).to(dt))
+            elif a == "min":
+                mn = -_seg_max(torch.where(mcol, -msg, -1e9).float(),
+                               gb.dst_index(), N)
+                aggs.append(torch.where(has_in, mn, 0).to(dt))
+            elif a == "std":
+                sq = _seg_mean(msg * msg, dst, N, mask, plan)
+                var = torch.clamp_min((sq - mean * mean).float(), 0)
+                aggs.append(torch.sqrt(var + 1e-5).to(dt))  # eps: finite grad
+        towers = []
+        for agg in aggs:
+            for s in cfg.scalers:
+                if s == "identity":
+                    towers.append(agg)
+                elif s == "amplification":
+                    towers.append(agg * log_deg / avg_log_deg)
+                elif s == "attenuation":
+                    towers.append(agg * avg_log_deg
+                                  / torch.clamp_min(log_deg, 1e-3))
+        h = h + _mlp(lyr["post"], torch.cat(towers + [h], -1))
+    return _mlp(params["dec"], h)
+
+
+# =========================================================================== #
+# GAT
+# =========================================================================== #
+def init_gat(gen: torch.Generator, cfg: GNNConfig, d_feat: int, n_out: int,
+             device=None) -> dict:
+    dt, d, H = _dt(cfg), cfg.d_hidden, cfg.n_heads
+    dims_in = [d_feat] + [d * H] * (cfg.n_layers - 1)
+    dims_out = [d] * (cfg.n_layers - 1) + [n_out]
+    layers = [dict(w=_init(gen, (dims_in[i], H * dims_out[i]), dtype=dt,
+                           device=device),
+                   a_src=_init(gen, (H, dims_out[i]), dtype=dt, device=device),
+                   a_dst=_init(gen, (H, dims_out[i]), dtype=dt, device=device))
+              for i in range(cfg.n_layers)]
+    return dict(layers=layers)
+
+
+def gat_forward(params: dict, cfg: GNNConfig, gb: GraphBatch) -> torch.Tensor:
+    """SDDMM edge scores -> segment softmax -> SpMM.  The last layer
+    averages heads (classification head), earlier layers concat + ELU.
+
+    ``ctx.CURRENT.gnn_bf16_msgs`` keeps the softmax denominators and the
+    messages, and their segment sums, in bf16.  Each edge-sized
+    temporary is dropped as soon as the reference's order of operations
+    allows: at ogbn-products' size the (E, H, dout) messages are 7.9 GB
+    in bf16 and 15.8 GB in f32."""
+    acc_dt = torch.bfloat16 if ctx.CURRENT.gnn_bf16_msgs else torch.float32
+    N, dt = gb.n_nodes, _dt(cfg)
+    src, dst, plan = gb.edge_src, gb.edge_dst, gb.plan()
+    dropped = ~gb.edge_mask[:, None]
+    h = gb.node_feats.to(dt)
+    n_layers = len(params["layers"])
+    for i, lyr in enumerate(params["layers"]):
+        H, dout = lyr["a_src"].shape
+        hw = (h @ lyr["w"]).reshape(N, H, dout)
+        s_src = (hw * lyr["a_src"]).sum(-1)             # (N, H)
+        s_dst = (hw * lyr["a_dst"]).sum(-1)
+        score = F.leaky_relu(s_src.index_select(0, src)
+                             + s_dst.index_select(0, dst), 0.2).float()
+        score.masked_fill_(dropped, -math.inf)
+        smax = _seg_max(score, gb.dst_index(), N)       # (N, H) f32
+        ex = torch.exp(score.sub_(smax.index_select(0, dst))).to(acc_dt)
+        del score, smax
+        ex.masked_fill_(dropped, 0)
+        den = _seg_sum(ex, dst, N, plan)
+        alpha = (ex.float()
+                 / torch.clamp_min(den.float().index_select(0, dst), 1e-9)
+                 ).to(dt)
+        del ex, den
+        msg = (alpha[..., None] * hw.index_select(0, src)).to(acc_dt)
+        del alpha
+        out = _seg_sum(msg, dst, N, plan)
+        del msg
+        if i < n_layers - 1:
+            h = F.elu(out.float()).to(dt).reshape(N, H * dout)
+        else:
+            h = out.float().mean(dim=1)                 # (N, n_out)
+    return h
+
+
+# =========================================================================== #
+# uniform entry points
+# =========================================================================== #
+def init_gnn(gen: torch.Generator, cfg: GNNConfig, d_feat: int, n_out: int,
+             device=None) -> dict:
+    """Random parameters, initialised as the reference's ``init_gnn``
+    does (normal weights scaled by ``1/sqrt(shape[0])``, biases 0), drawn
+    from ``gen`` — a :class:`torch.Generator` on ``device`` (default: the
+    card)."""
+    device = resolve_device(device)
+    if gen.device.type != device.type:
+        raise ValueError(f"generator on {gen.device}, model on {device}")
+    if cfg.kind == "graphcast":
+        return init_graphcast(gen, cfg, d_feat, device)
+    if cfg.kind == "schnet":
+        return init_schnet(gen, cfg, d_feat, device)
+    if cfg.kind == "pna":
+        return init_pna(gen, cfg, d_feat, n_out, device)
+    if cfg.kind == "gat":
+        return init_gat(gen, cfg, d_feat, n_out, device)
+    raise KeyError(cfg.kind)
+
+
+def gnn_forward(params: dict, cfg: GNNConfig, gb: GraphBatch) -> torch.Tensor:
+    if cfg.kind == "graphcast":
+        return graphcast_forward(params, cfg, gb)
+    if cfg.kind == "schnet":
+        return schnet_forward(params, cfg, gb)
+    if cfg.kind == "pna":
+        return pna_forward(params, cfg, gb)
+    if cfg.kind == "gat":
+        return gat_forward(params, cfg, gb)
+    raise KeyError(cfg.kind)

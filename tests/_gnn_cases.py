@@ -1,0 +1,68 @@
+"""Shared inputs of the GNN-path tests (segment_spmm and the four GNN
+forwards): the sweep shapes of ``tests/test_kernels.py``, the edge cases,
+and one seeded graph, all drawn with numpy, so the CPU parity tests and
+the card-only tests feed the same numbers.  Imports no JAX."""
+import numpy as np
+
+# (E, N, D, tn, te) of test_segment_spmm_sweep; tn/te tile the
+# reference's Pallas pipeline and mean nothing to the port
+SPMM_SWEEP = [(300, 50, 8, 16, 64), (1000, 128, 32, 32, 128),
+              (64, 7, 4, 8, 32)]
+SPMM_TOL = 1e-5
+SPMM_EDGE_CASES = ["d1", "d75", "no_edges", "empty_rows", "one_node",
+                   "masked"]
+
+GNN_ARCHS = ["graphcast", "schnet", "pna", "gat-cora"]
+# the graph of tests/test_arch_smoke.py::test_gnn_smoke, with 10% of the
+# edge slots masked
+N_NODES, N_EDGES, D_FEAT, N_OUT = 40, 160, 12, 7
+MASKED_SHARE = 0.1
+
+
+def sweep_inputs(E, N, D):
+    """The reference sweep's draw: msgs (E, D) float32, dst (E,) int32."""
+    rng = np.random.default_rng(E + N)
+    msgs = rng.normal(size=(E, D)).astype(np.float32)
+    dst = rng.integers(0, N, E).astype(np.int32)
+    return msgs, dst
+
+
+def edge_inputs(case):
+    """``(msgs (E, D) float32, dst (E,) int32, n)`` for one edge case:
+    D = 1 and D = 75 (no 16-byte vectors), no edges at all, half the
+    nodes with no in-edge, every edge on one node, and 30% of the
+    messages zeroed by a mask, as the models zero masked slots."""
+    rng = np.random.default_rng(len(case))
+    E, n, D = {"d1": (200, 30, 1), "d75": (500, 40, 75),
+               "no_edges": (0, 5, 8), "empty_rows": (100, 60, 16),
+               "one_node": (1000, 10, 16), "masked": (300, 50, 8)}[case]
+    msgs = rng.normal(size=(E, D)).astype(np.float32)
+    dst = rng.integers(0, n, E).astype(np.int32)
+    if case == "empty_rows":
+        dst = 2 * rng.integers(0, n // 2, E).astype(np.int32)
+    elif case == "one_node":
+        dst[:] = 3
+    elif case == "masked":
+        msgs *= (rng.random(E) >= 0.3).astype(np.float32)[:, None]
+    return msgs, dst, n
+
+
+def graph_arrays(kind, seed=0):
+    """One GraphBatch's fields for a model of ``kind``, as numpy arrays:
+    N_NODES nodes with D_FEAT features, N_EDGES edge slots of which
+    MASKED_SHARE are masked, labels of the model's kind, positions."""
+    rng = np.random.default_rng(seed)
+    N, E = N_NODES, N_EDGES
+    if kind == "graphcast":
+        labels = rng.normal(size=(N, 8)).astype(np.float32)
+    elif kind == "schnet":
+        labels = rng.normal(size=N).astype(np.float32)
+    else:
+        labels = rng.integers(0, N_OUT, N).astype(np.int32)
+    return dict(
+        node_feats=rng.normal(size=(N, D_FEAT)).astype(np.float32),
+        edge_src=rng.integers(0, N, E).astype(np.int32),
+        edge_dst=rng.integers(0, N, E).astype(np.int32),
+        edge_mask=rng.random(E) >= MASKED_SHARE,
+        labels=labels, label_mask=np.ones(N, bool),
+        positions=(2.0 * rng.normal(size=(N, 3))).astype(np.float32))

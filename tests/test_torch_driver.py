@@ -59,10 +59,10 @@ def test_default_device_is_cuda(setup):
 def test_unported_configurations_raise(setup, mode, wire):
     tpg, _ = setup
     pat = Pattern.from_edges(QUERIES["q1"])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         rads_enumerate(tpg, pat, EngineConfig(**CAPS, wire_format=wire),
                        mode=mode, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         rads_enumerate(tpg, pat, EngineConfig(**CAPS), mode="spmd",
                        device="cpu")
 
@@ -80,7 +80,12 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.kernels.flash_attn.ops, "
             "repro_torch.kernels.flash_attn.kernel, "
             "repro_torch.kernels.moe_gemm.ops, "
-            "repro_torch.kernels.moe_gemm.kernel; "
+            "repro_torch.kernels.moe_gemm.kernel, "
+            "repro_torch.models.gnn, repro_torch.configs.gat_cora, "
+            "repro_torch.configs.graphcast, repro_torch.configs.schnet, "
+            "repro_torch.configs.pna, "
+            "repro_torch.kernels.segment_spmm.ops, "
+            "repro_torch.kernels.segment_spmm.kernel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

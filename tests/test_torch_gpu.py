@@ -1,15 +1,20 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA kernels
-(membership, intersect, delta_vlen, flash_attn, moe_gemm) against their
-plain PyTorch versions, the whole engine on the card — dense and
-bucketed storage, raw and varint wire — and the reduced OLMoE serving
-path, against the port's CPU path.  They skip without a CUDA card, and
-import no JAX, so they run where only PyTorch is installed:
+(membership, intersect, delta_vlen, flash_attn, moe_gemm, segment_spmm)
+against their plain PyTorch versions, the whole engine on the card —
+dense and bucketed storage, raw and varint wire — the reduced OLMoE
+serving path and the four reduced GNNs, against the port's CPU path.
+They skip without a CUDA card, and import no JAX, so they run where
+only PyTorch is installed:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``."""
 import dataclasses
 
 import pytest
 import torch
 
+from _gnn_cases import (D_FEAT, GNN_ARCHS, N_OUT, SPMM_EDGE_CASES,
+                        SPMM_SWEEP, SPMM_TOL, graph_arrays)
+from _gnn_cases import edge_inputs as spmm_edge_inputs
+from _gnn_cases import sweep_inputs as spmm_sweep_inputs
 from _codec_cases import (DELTA_VLEN_SWEEP, INTERSECT_CASES,
                           delta_vlen_inputs, intersect_inputs)
 from _lm_cases import (FLASH_SWEEP, FLASH_TOL, MOE_ROW_CHECK, MOE_SWEEP,
@@ -17,6 +22,7 @@ from _lm_cases import (FLASH_SWEEP, FLASH_TOL, MOE_ROW_CHECK, MOE_SWEEP,
 from _membership_cases import CASES, edge_inputs, sweep_inputs
 from repro_torch.configs import get_reduced
 from repro_torch.configs.rads import QUERIES, EngineConfig
+from repro_torch.convert import graph_batch_from_arrays
 from repro_torch.core import Pattern, rads_enumerate
 from repro_torch.graph import erdos_graph, partition
 from repro_torch.kernels.flash_attn import ops as flash_ops
@@ -26,9 +32,11 @@ from repro_torch.kernels.membership import ops
 from repro_torch.kernels.membership.ref import membership_ref
 from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+from repro_torch.kernels.segment_spmm import ops as spmm_ops
 from repro_torch.kernels.varint import ops as varint_ops
 from repro_torch.kernels.varint.ref import delta_vlen_ref
-from repro_torch.models import decode_step, init_lm_params, prefill
+from repro_torch.models import (decode_step, gnn_forward, init_gnn,
+                                init_lm_params, prefill)
 
 CAPS = dict(frontier_cap=1 << 12, fetch_cap=256, verify_cap=1024,
             region_group_budget=1 << 11)
@@ -201,3 +209,66 @@ def test_serving_on_card_matches_cpu(cuda, arch):
     for k in ("k", "v"):
         torch.testing.assert_close(gcache[k].cpu(), cache[k], rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,arg", [
+    *[("sweep", shape[:3]) for shape in SPMM_SWEEP],
+    *[("edge", case) for case in SPMM_EDGE_CASES]])
+def test_segment_spmm_kernel_matches_plain_on_card(cuda, kind, arg, dtype):
+    """float32 sums of float32 or bfloat16 messages, elementwise at the
+    sweep's 1e-5; with bfloat16 out, the float32 sum rounded once, so
+    the two may differ by one bfloat16 step (2**-7 of the value)."""
+    if kind == "sweep":
+        msgs, dst = spmm_sweep_inputs(*arg)
+        n = arg[1]
+    else:
+        msgs, dst, n = spmm_edge_inputs(arg)
+    msgs = torch.as_tensor(msgs, device=cuda).to(DTYPES[dtype])
+    dst = torch.as_tensor(dst, device=cuda)
+    plan = spmm_ops.segment_plan(dst, n)
+    before = spmm_ops.launches
+    got = spmm_ops.segment_spmm(msgs, dst, n, plan)
+    torch.cuda.synchronize()
+    assert spmm_ops.launches == before + 1
+    want = spmm_ops.segment_spmm_plain(msgs, dst, n)
+    torch.testing.assert_close(got, want, rtol=SPMM_TOL, atol=SPMM_TOL)
+    assert torch.equal(got, spmm_ops.segment_spmm(msgs, dst, n, plan))
+    if dtype == "bfloat16":
+        got16 = spmm_ops.segment_spmm(msgs, dst, n, plan,
+                                      out_dtype=torch.bfloat16)
+        torch.testing.assert_close(got16.float(), want, rtol=2 ** -7,
+                                   atol=SPMM_TOL)
+
+
+GNN_LAUNCHES = {"graphcast": lambda L: L, "schnet": lambda L: L,
+                "pna": lambda L: 1 + 4 * L, "gat": lambda L: 2 * L}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GNN_ARCHS)
+def test_gnn_on_card_matches_cpu(cuda, arch):
+    """Reduced model in float32: ``gnn_forward`` on the card (every
+    segment sum through the kernel) against the port's CPU run of the
+    same weights and graph."""
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, D_FEAT, N_OUT,
+                      device="cpu")
+    card = {k: _to(v, cuda) for k, v in params.items()}
+    arrays = graph_arrays(cfg.kind)
+    before = spmm_ops.launches
+    got = gnn_forward(card, cfg, graph_batch_from_arrays(arrays, cuda))
+    torch.cuda.synchronize()
+    assert (spmm_ops.launches - before
+            == GNN_LAUNCHES[cfg.kind](cfg.n_layers))
+    want = gnn_forward(params, cfg, graph_batch_from_arrays(arrays, "cpu"))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
