@@ -8,7 +8,9 @@ every phase holds:
 2. build    — every CUDA kernel of the port (membership, intersect,
               delta_vlen, flash_attn, moe_gemm, segment_spmm), compiled
               from the repository's sources (one ``nvcc`` per source, all
-              started together);
+              started together); each library's ``HGMMA`` and ``UTMALDG``
+              instructions counted (``cuobjdump -sass``), and flash_attn's
+              and moe_gemm's must have both;
 3. kernels  — each kernel's wrapper against its plain PyTorch version on
               the card, bit-exact, at the test sweep shapes, edge cases and
               the full-scale engine shapes, with its time beside its bound,
@@ -25,17 +27,20 @@ every phase holds:
               on, depth 2), then bucketed storage with the varint wire,
               whose raw-equivalent byte counts must equal the first run's;
 6. lm_kernels — flash_attn and moe_gemm against their plain versions on
-              the card in float32 and bfloat16, at the test sweep shapes
-              and the serving shapes, timed beside their bounds, the plain
-              versions and a library yardstick;
-7. lm_parity — OLMoE-1B-7B at full width and 2 layers in float32: the
-              kernel path against the plain path (the same model run with
-              the kernels' plain versions) through prefill and 4 decode
-              steps;
+              the card in float32 and bfloat16, at the test sweep shapes,
+              the bf16 variants' edges and the serving shapes, each row
+              with the variant that ran (``ops.route``), timed beside
+              their bounds (with the TFLOP/s and GB/s reached), the plain
+              versions, a library yardstick and the simt variant;
+7. lm_parity — OLMoE-1B-7B at full width and 2 layers: the kernel path
+              against the plain path (the same model run with the
+              kernels' plain versions) through prefill and 4 decode
+              steps, in float32 and in bfloat16 (router pinned);
 8. lm_serve — OLMoE-1B-7B at full depth and width in bfloat16 with seeded
               random weights: 4 prompts of 4,096 tokens, prefill and 64
-              greedy decode steps, twice (the tokens must agree); then one
-              prompt of 32,768 tokens (``prefill_32k`` cut to batch 1);
+              greedy decode steps, twice (the tokens must agree; prefill
+              through the "wgmma" variants, decode through "stream"); then
+              one prompt of 32,768 tokens (``prefill_32k`` cut to batch 1);
 9. gnn_kernels — segment_spmm against its plain version on the card, f32
               and bf16 messages: the test sweep shapes and edge cases
               elementwise, and the model shapes (GAT's D = 8, 56, 64 on the
@@ -93,6 +98,17 @@ MOE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 # of about 4) miss 1e-5 absolute; the phase prints both ratios.  bf16 there
 # and every other shape are held elementwise
 MOE_ROW_CHECK = ("float32", 1)
+# moe_gemm in bf16 is held per pass, each elementwise at MOE_TOL (h against
+# the plain version's, the output against the plain down projection of the
+# kernel's own h), and against the function computed exactly in float64
+# (``moe_gemm_f64``: each h element within one bf16 rounding, each output
+# within the bound of every rounding).  End to end at MOE_TOL it is held
+# too, except at OLMoE's expert widths through the wgmma variant
+# (``end_to_end=False``; float32 is always held end to end): there the
+# tensor cores' f32 sum order puts some h elements one bf16 step from the
+# plain version's, and wd carries such a step past the 5e-2 floor at
+# outputs near 0, as it carries the plain version's own rounding of h past
+# it against the exact function (``plain_vs_exact_elem_ratio``)
 SMALL_CAPS = dict(frontier_cap=1 << 12, fetch_cap=256, verify_cap=1024,
                   region_group_budget=1 << 11)
 # GNN forward (phases 9-11): GNN_SHAPES' ogb_products and full_graph_sm at
@@ -115,6 +131,7 @@ CUT_REASON = ("at n=317,080 the fourth capacity escalation (28 GiB fetch "
               "buffers held through 2^20-row leaf steps) runs out of device "
               "memory; 310,000 needs three escalations")
 DEVICE = "cuda"
+SASS_OPS = ("HGMMA", "UTMALDG")   # counted in each library's SASS
 TIMING_KEYS = {"compiles", "compile_s", "compile_cache_hits", "wave_s_total",
                "sme_wall_us", "dist_wall_us", "wall_us", "sme_pipeline_s",
                "dist_pipeline_s", "exec_cache_enabled"}
@@ -182,14 +199,26 @@ def phase_build():
     t0 = time.perf_counter()
     took = build.build(sources)
     wall = time.perf_counter() - t0
-    ptxas = {}
+    ptxas, sass = {}, {}
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     for src in sources:
-        log = build.library_path(src).with_suffix(".log")
+        lib = build.library_path(src)
+        log = lib.with_suffix(".log")
         ptxas[src.name] = ([ln for ln in log.read_text().splitlines()
                             if "registers" in ln or "spill" in ln]
                            if log.is_file() else [])
+        dump = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=300)
+        check(dump.returncode == 0, f"cuobjdump -sass {lib.name} failed: "
+                                    f"{dump.stderr[-2000:]}")
+        sass[src.name] = {op: dump.stdout.count(op) for op in SASS_OPS}
+    # the tensor-core variants: wgmma (HGMMA) fed by TMA tile loads (UTMALDG)
+    for src in (flash_kernel.SOURCE, moe_kernel.SOURCE):
+        check(all(sass[src.name][op] > 0 for op in SASS_OPS),
+              f"{src.name}: no {' or '.join(SASS_OPS)} in its SASS: "
+              f"{sass[src.name]}")
     emit(phase="build", wall_s=wall,
-         built={s.name: t for s, t in took.items()}, ptxas=ptxas)
+         built={s.name: t for s, t in took.items()}, ptxas=ptxas, sass=sass)
 
 
 # --------------------------------------------------------------------------- #
@@ -684,33 +713,60 @@ def _bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _flash_bound_ms(B, Sq, Skv, H, Hk, D, causal, dtype):
-    """q and o, k and v once each; 4·D flops per (query, key) pair kept,
-    half the square when causal."""
+def _flash_work(B, Sq, Skv, H, Hk, D, causal, dtype):
+    """(bytes, flops): q and o, k and v once each; 4·D flops per (query,
+    key) pair kept, half the square when causal."""
     esize = 2 if dtype == "bfloat16" else 4
     nbytes = esize * (2 * B * Sq * H * D + 2 * B * Skv * Hk * D)
     pairs = B * H * Sq * Skv / (2 if causal else 1)
-    return _bound(nbytes, 4 * pairs * D, dtype)
+    return nbytes, 4 * pairs * D
 
 
-def _moe_bound_ms(E, C, d, f, dtype):
-    """x and out once, the three weight stacks once; 6·E·C·d·f flops."""
+def _moe_work(E, C, d, f, dtype):
+    """(bytes, flops): x and out once, the three weight stacks once;
+    6·E·C·d·f flops."""
     esize = 2 if dtype == "bfloat16" else 4
-    nbytes = esize * (2 * E * C * d + 3 * E * d * f)
-    return _bound(nbytes, 6 * E * C * d * f, dtype)
+    return esize * (2 * E * C * d + 3 * E * d * f), 6 * E * C * d * f
+
+
+def _timed(row, work, dtype):
+    """The row's bound and what the kernel achieved: TFLOP/s and GB/s of
+    the work it had to do."""
+    nbytes, flops = work
+    row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, dtype)
+    row["tflop_s"] = flops / row["kernel_ms"] / 1e9
+    row["gb_s"] = nbytes / row["kernel_ms"] / 1e6
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+
+
+def _variant_of(ops, before: dict) -> str:
+    """The one variant whose count rose by one since ``before``."""
+    rose = [k for k, n in ops.launches_by_variant.items()
+            if n != before.get(k, 0)]
+    check(len(rose) == 1 and ops.launches_by_variant[rose[0]]
+          == before.get(rose[0], 0) + 1,
+          f"expected one launch of one variant, got {before} -> "
+          f"{ops.launches_by_variant}")
+    return rose[0]
 
 
 def phase_lm_kernels():
     """flash_attn and moe_gemm against their plain versions in float32 and
-    bfloat16: the test sweep shapes, then the serving shapes, timed beside
-    the bound, the plain version and the library yardstick
-    (``scaled_dot_product_attention``; three ``bmm`` and ``silu``).
-    Returns the timed rows; the kernels line takes the bfloat16 ones."""
+    bfloat16: the test sweep shapes, the tensor-core variants' edges,
+    then the serving shapes, timed beside the bound, the plain version
+    and the library yardstick (``scaled_dot_product_attention``; three
+    ``bmm`` and ``silu``).  Each row names the variant that ran; the
+    serving rows must take "wgmma" in bf16 ("stream" at decode).  Returns
+    the timed rows; the kernels line takes the bfloat16 ones."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import kernel as flash_kernel
     from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.kernels.moe_gemm import kernel as moe_kernel
     from repro_torch.kernels.moe_gemm import ops as moe
-    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    from repro_torch.kernels.moe_gemm.ref import (bound_ratio, moe_down_ref,
+                                                  moe_gemm_f64, moe_gemm_ref,
+                                                  moe_hidden_ref)
     from repro_torch.models.layers import _flash_attention_chunked
     dev = torch.device(DEVICE)
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -718,55 +774,72 @@ def phase_lm_kernels():
     gen.manual_seed(3)
     rows = {}
     plains = {
-        "naive": lambda q, k, v, causal: flash.flash_attention_plain(
-            q, k, v, causal=causal),
+        "naive": lambda q, k, v, causal, off: flash.flash_attention_plain(
+            q, k, v, causal=causal, q_offset=off),
         # the model's O(S) chunked online softmax: the naive version's
         # (16, 32,768, 32,768) f32 scores would take 68.7 GB at 32k
-        "chunked": lambda q, k, v, causal: _flash_attention_chunked(
-            q, k, v, causal, 1024, 1024, 0)}
+        "chunked": lambda q, k, v, causal, off: _flash_attention_chunked(
+            q, k, v, causal, 1024, 1024, off)}
 
     def held(row, got, want, tol, per_row=False):
         ok, err, elem, rowr = _compare(got, want, tol, per_row)
         row.update(max_abs_err=err, elem_ratio=elem, row_ratio=rowr, tol=tol,
                    check="row" if per_row else "elementwise")
-        check(ok, f"{row['kernel']} {row['shape']} {row['dtype']} disagrees: "
-                  f"max abs err {err}, elementwise ratio {elem}, row ratio "
-                  f"{rowr}, tol {tol}, check {row['check']}")
+        check(ok, f"{row['kernel']} {row['shape']} {row['dtype']} "
+                  f"({row['variant']}) disagrees: max abs err {err}, "
+                  f"elementwise ratio {elem}, row ratio {rowr}, tol {tol}, "
+                  f"check {row['check']}")
 
     def flash_case(name, B, Sq, Skv, H, Hk, D, dtype, causal=True,
-                   plain="naive", timed=False, iters=5):
+                   q_offset=0, plain="naive", timed=False, iters=5,
+                   variant=None):
         dt = dts[dtype]
         q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
         k = torch.randn((B, Skv, Hk, D), generator=gen, device=dev).to(dt)
         v = torch.randn((B, Skv, Hk, D), generator=gen, device=dev).to(dt)
         row = dict(kernel="flash_attn", shape=name, dtype=dtype, B=B, Sq=Sq,
-                   Skv=Skv, H=H, Hk=Hk, D=D, causal=causal, plain=plain)
+                   Skv=Skv, H=H, Hk=Hk, D=D, causal=causal,
+                   q_offset=q_offset, plain=plain)
         ref = plains[plain]
-        got = flash.flash_attention_k(q, k, v, causal=causal)
-        want = ref(q, k, v, causal)
+        before = dict(flash.launches_by_variant)
+        got = flash.flash_attention_k(q, k, v, causal=causal,
+                                      q_offset=q_offset)
+        row["variant"] = _variant_of(flash, before)
+        want = ref(q, k, v, causal, q_offset)
         torch.cuda.synchronize()
+        check(variant is None or row["variant"] == variant,
+              f"flash {name} {dtype} ran {row['variant']}, not {variant}")
         check(bool(torch.isfinite(got).all()), f"flash {name} not finite")
         held(row, got, want, FLASH_TOL[dtype])
         del got, want
         if timed:
             row["kernel_ms"] = cuda_ms(lambda: flash.flash_attention_k(
-                q, k, v, causal=causal), warmup=1, iters=iters)
-            row["plain_ms"] = cuda_ms(lambda: ref(q, k, v, causal), warmup=1,
-                                      iters=2)
+                q, k, v, causal=causal, q_offset=q_offset), warmup=1,
+                iters=iters)
+            row["plain_ms"] = cuda_ms(lambda: ref(q, k, v, causal, q_offset),
+                                      warmup=1, iters=2)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             row["library_ms"] = (cuda_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=causal),
-                warmup=1, iters=iters) if H == Hk else None)
+                warmup=1, iters=iters)
+                if H == Hk and q_offset == 0 else None)
             del qt, kt, vt
-            row["bound_ms"], row["bound_by"] = _flash_bound_ms(
-                B, Sq, Skv, H, Hk, D, causal, dtype)
+            if row["variant"] != "simt":   # the previous kernel, same inputs
+                o = torch.empty_like(q)
+                row["simt_ms"] = cuda_ms(lambda: flash_kernel.flash_attn_cuda(
+                    q, k, v, o, causal, q_offset, "simt"), warmup=1,
+                    iters=2)
+                del o
+            _timed(row, _flash_work(B, Sq, Skv, H, Hk, D, causal, dtype),
+                   dtype)
         emit(phase="lm_kernels", **row)
         del q, k, v
         torch.cuda.empty_cache()
         return row
 
-    def moe_case(name, E, C, d, f, dtype, w_scale, timed=False, iters=5):
+    def moe_case(name, E, C, d, f, dtype, w_scale, timed=False, iters=5,
+                 variant=None, end_to_end=True):
         dt = dts[dtype]
         x = torch.randn((E, C, d), generator=gen, device=dev).to(dt)
         wg, wu = ((torch.randn((E, d, f), generator=gen, device=dev)
@@ -775,11 +848,62 @@ def phase_lm_kernels():
               * w_scale).to(dt)
         row = dict(kernel="moe_gemm", shape=name, dtype=dtype, E=E, C=C, d=d,
                    f=f)
+        before = dict(moe.launches_by_variant)
         got = moe.moe_gemm(x, wg, wu, wd)
+        row["variant"] = _variant_of(moe, before)
         want = moe_gemm_ref(x, wg, wu, wd)
         torch.cuda.synchronize()
-        held(row, got, want, MOE_TOL[dtype],
-             per_row=(dtype, C) == MOE_ROW_CHECK)
+        check(variant is None or row["variant"] == variant,
+              f"moe {name} {dtype} ran {row['variant']}, not {variant}")
+        tol = MOE_TOL[dtype]
+        if dtype == "float32":
+            held(row, got, want, tol, per_row=(dtype, C) == MOE_ROW_CHECK)
+        else:
+            # bf16: each pass against its plain version, elementwise at
+            # tol; h and the output against the function computed exactly
+            # (moe_gemm_f64: h within one bf16 rounding, the output within
+            # the bound of every rounding), the plain version too, which
+            # shows the bound holds a correct run; and end to end against
+            # the plain version at tol, except where end_to_end is off (see
+            # MOE_TOL)
+            h = torch.empty((E, C, f), dtype=dt, device=dev)
+            again = torch.empty_like(x)
+            moe_kernel.moe_gemm_cuda(x, wg, wu, wd, h, again, row["variant"])
+            h_plain = moe_hidden_ref(x, wg, wu)
+            torch.cuda.synchronize()
+            check(torch.equal(again, got), f"moe {name}: two launches differ")
+            ok_h, err_h, elem_h, _ = _compare(h, h_plain, tol)
+            row.update(h_max_abs_err=err_h, h_elem_ratio=elem_h,
+                       h_share_differing=float((h != h_plain).float().mean()))
+            check(ok_h, f"moe_gemm {name} bf16 ({row['variant']}) gate/up "
+                        f"pass disagrees: h elementwise ratio {elem_h}")
+            held(row, got, moe_down_ref(h, wd), tol)
+            row["down_elem_ratio"] = row.pop("elem_ratio")
+            del row["row_ratio"]
+            exact = moe_gemm_f64(x, wg, wu, wd)
+            ratios = dict(
+                h_exact_ratio=bound_ratio(h, exact["h"], exact["h_bound"]),
+                exact_ratio=bound_ratio(got, exact["out"],
+                                        exact["out_bound"]),
+                plain_h_exact_ratio=bound_ratio(h_plain, exact["h"],
+                                                exact["h_bound"]),
+                plain_exact_ratio=bound_ratio(want, exact["out"],
+                                              exact["out_bound"]))
+            row.update(ratios)
+            # the plain version against the exact function at tol
+            row["plain_vs_exact_elem_ratio"] = _compare(want, exact["out"],
+                                                        tol)[2]
+            del exact, h, again, h_plain
+            for key, val in ratios.items():
+                check(val <= 1, f"moe_gemm {name} bf16 ({row['variant']}) "
+                                f"{key} {val} > 1")
+            _, row["max_abs_err"], row["elem_ratio"], _ = _compare(
+                got, want, tol)
+            row["check"] = ("per_pass, exact, elementwise" if end_to_end
+                            else "per_pass, exact")
+            check(not end_to_end or row["elem_ratio"] <= 1,
+                  f"moe_gemm {name} bf16 ({row['variant']}) disagrees end "
+                  f"to end: elementwise ratio {row['elem_ratio']}")
         del got, want
         if timed:
             row["kernel_ms"] = cuda_ms(lambda: moe.moe_gemm(x, wg, wu, wd),
@@ -789,8 +913,14 @@ def phase_lm_kernels():
             row["library_ms"] = cuda_ms(lambda: torch.bmm(
                 F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd),
                 warmup=1, iters=iters)
-            row["bound_ms"], row["bound_by"] = _moe_bound_ms(E, C, d, f,
-                                                             dtype)
+            if row["variant"] != "simt":   # the previous kernel, same inputs
+                h, o = torch.empty((E, C, f), dtype=dt, device=dev), \
+                    torch.empty_like(x)
+                row["simt_ms"] = cuda_ms(lambda: moe_kernel.moe_gemm_cuda(
+                    x, wg, wu, wd, h, o, "simt"), warmup=1,
+                    iters=min(iters, 3))
+                del h, o
+            _timed(row, _moe_work(E, C, d, f, dtype), dtype)
         emit(phase="lm_kernels", **row)
         del x, wg, wu, wd
         torch.cuda.empty_cache()
@@ -804,6 +934,22 @@ def phase_lm_kernels():
         for E, C, d, f in [(4, 64, 32, 64), (2, 128, 16, 128)]:  # the sweep
             moe_case(f"sweep_{E}x{C}x{d}x{f}", E, C, d, f, dtype, 0.1)
         moe_case("ragged_5x37x48x40", 5, 37, 48, 40, dtype, 0.1)
+    # the bf16 variants' edges: ragged query and key tiles (128 each),
+    # q_offset past a tile, D = 64 (one panel), GQA 32/8 below; moe_gemm
+    # at C = 8 (the last stream shape) and C = 9 (the first wgmma one)
+    bf = "bfloat16"
+    flash_case("ragged_q_and_kv", 1, 333, 333, 4, 2, 128, bf,
+               variant="wgmma")
+    flash_case("q_offset_200", 1, 300, 500, 4, 4, 128, bf, q_offset=200,
+               variant="wgmma")
+    flash_case("d64_gqa_14_2", 2, 1000, 1000, 14, 2, 64, bf,
+               variant="wgmma")
+    moe_case("c8_stream", 8, 8, 2048, 1024, bf, 64 ** -0.5,
+             variant="stream")
+    moe_case("c9_wgmma", 8, 9, 2048, 1024, bf, 64 ** -0.5, variant="wgmma",
+             end_to_end=False)
+    moe_case("ragged_c130_d72_f136", 3, 130, 72, 136, bf, 0.1,
+             variant="wgmma")
     # the serving shapes: OLMoE's prefill (B*H = 64, S = 4,096, D = 128),
     # a qwen3-4b-like GQA 32/8, and the 32k prefill; the expert FFN at the
     # 4 x 4,096 prefill (C = 2,560), at decode (C = 1) and at the 32k
@@ -816,24 +962,27 @@ def phase_lm_kernels():
     def capacity(T):
         return max(int(T * mo.top_k / E * mo.capacity_factor), 1)
 
+    bf16_variant = {"float32": "simt", "bfloat16": "wgmma"}
     for dtype in ("float32", "bfloat16"):
         rows["flash_attn", dtype] = flash_case(
             "serve_prefill", SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, H, H, D,
-            dtype, timed=True)
+            dtype, timed=True, variant=bf16_variant[dtype])
         flash_case("gqa_32_8", 2, SERVE_PROMPT, SERVE_PROMPT, 32, 8, 128,
-                   dtype)
+                   dtype, variant=bf16_variant[dtype])
         rows["moe_gemm", dtype] = moe_case(
             "serve_prefill", E, capacity(SERVE_BATCH * SERVE_PROMPT), d, f,
-            dtype, E ** -0.5, timed=True, iters=3)
+            dtype, E ** -0.5, timed=True, iters=3,
+            variant=bf16_variant[dtype], end_to_end=False)
         rows["moe_gemm_decode", dtype] = moe_case(
             "serve_decode", E, capacity(SERVE_BATCH), d, f, dtype, E ** -0.5,
-            timed=True, iters=20)
+            timed=True, iters=20,
+            variant="stream" if dtype == "bfloat16" else "simt")
     rows["flash_attn_32k"] = flash_case(
         "prefill_32k", 1, LONG_PROMPT, LONG_PROMPT, H, H, D, "bfloat16",
-        plain="chunked", timed=True, iters=2)
+        plain="chunked", timed=True, iters=2, variant="wgmma")
     rows["moe_gemm_32k"] = moe_case(
         "prefill_32k", E, capacity(LONG_PROMPT), d, f, "bfloat16", E ** -0.5,
-        timed=True, iters=2)
+        timed=True, iters=2, variant="wgmma", end_to_end=False)
     return rows
 
 
@@ -864,16 +1013,29 @@ def _plain_kernels(active: bool):
 
 
 def _lm_launches() -> dict:
+    """Launches of the two LM kernels, and the same by variant."""
     from repro_torch.kernels.flash_attn import ops as flash
     from repro_torch.kernels.moe_gemm import ops as moe
-    return {"flash_attn": flash.launches, "moe_gemm": moe.launches}
+    return {"flash_attn": flash.launches, "moe_gemm": moe.launches,
+            "by_variant": {
+                "flash_attn": {k: n for k, n in
+                               flash.launches_by_variant.items() if n},
+                "moe_gemm": {k: n for k, n in
+                             moe.launches_by_variant.items() if n}}}
 
 
 def _zero_lm_launches() -> None:
     from repro_torch.kernels.flash_attn import ops as flash
     from repro_torch.kernels.moe_gemm import ops as moe
-    flash.launches = 0
-    moe.launches = 0
+    for ops in (flash, moe):
+        ops.launches = 0
+        ops.launches_by_variant = dict.fromkeys(ops.VARIANTS, 0)
+
+
+def _lm_want(flash: dict, moe: dict) -> dict:
+    """What ``_lm_launches`` must read: launches by variant per kernel."""
+    return {"flash_attn": sum(flash.values()), "moe_gemm": sum(moe.values()),
+            "by_variant": {"flash_attn": flash, "moe_gemm": moe}}
 
 
 def _rel(a, b) -> float:
@@ -881,55 +1043,105 @@ def _rel(a, b) -> float:
                  / b.float().abs().max().clamp_min(1e-30))
 
 
+@contextlib.contextmanager
+def _router(choices: list, pin: bool):
+    """While active, every ``moe_block`` records its router's decision, the
+    experts and their gates, into ``choices`` or, with ``pin``, takes the
+    next recorded one instead of its own.  lm_parity's bf16 run pins the
+    kernel path to the plain path's decisions: top-8 of 64 on bf16 scores
+    flips for near-tied tokens under any change of rounding, and a flipped
+    token's output changes by whole experts.  The router is plain PyTorch
+    on both paths, not a kernel."""
+    from repro_torch.models import layers
+    orig = layers.moe_route
+    pinned = iter(list(choices)) if pin else None
+
+    def route(p, cfg, xt):
+        sel, gates, probs_mean = orig(p, cfg, xt)
+        if pinned is None:
+            choices.append((sel, gates))
+            return sel, gates, probs_mean
+        sel, gates = next(pinned)
+        return sel, gates, probs_mean
+
+    layers.moe_route = route
+    try:
+        yield
+    finally:
+        layers.moe_route = orig
+
+
 def phase_lm_parity():
-    """OLMoE-1B-7B at full width and PARITY_LAYERS layers in float32: the
-    kernel path against the plain path, same weights and prompt, through
-    prefill (logits and cache) and PARITY_DECODE decode steps fed the same
-    tokens, each held to a relative 1e-3."""
+    """OLMoE-1B-7B at full width and PARITY_LAYERS layers: the kernel path
+    against the plain path, same weights and prompt, through prefill
+    (logits and cache) and PARITY_DECODE decode steps fed the same tokens.
+    In float32 (the simt variants) each is held to a relative 1e-3.  In
+    bfloat16 (the tensor-core and stream variants) each is held to 5e-2
+    with the kernel path's router decisions pinned to the plain path's
+    (see ``_router``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_lm_params, prefill
     dev = torch.device(DEVICE)
-    cfg = dataclasses.replace(get_config(LM_ARCH).model, dtype="float32",
-                              n_layers=PARITY_LAYERS)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    model = init_lm_params(gen, cfg, device=dev)
-    tokens = torch.randint(0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT
-                                          + PARITY_DECODE),
-                           generator=gen, device=dev)
-    prompt, feed = tokens[:, :PARITY_PROMPT], tokens[:, PARITY_PROMPT:]
-    max_len = PARITY_PROMPT + PARITY_DECODE
-    out = {}
-    for plain in (False, True):
-        with _plain_kernels(plain):
+    L = PARITY_LAYERS
+    want = {"float32": _lm_want({"simt": L},
+                                {"simt": L * (1 + PARITY_DECODE)}),
+            "bfloat16": _lm_want({"wgmma": L}, {"wgmma": L,
+                                                "stream": L * PARITY_DECODE})}
+
+    def run(model, prompt, feed, plain, choices=None, pin=False):
+        router = (_router(choices, pin) if choices is not None
+                  else contextlib.nullcontext())
+        with _plain_kernels(plain), router:
             _zero_lm_launches()
-            logits, cache = prefill(model, prompt, max_len=max_len)
+            logits, cache = prefill(model, prompt,
+                                    max_len=PARITY_PROMPT + PARITY_DECODE)
             steps = []
             for i in range(PARITY_DECODE):
                 lg, cache = decode_step(model, cache, feed[:, i],
                                         PARITY_PROMPT + i)
                 steps.append(lg)
             torch.cuda.synchronize()
-            out[plain] = (logits, cache, steps, _lm_launches())
-    (lk, ck, sk, nk), (lp, cp, sp, npl) = out[False], out[True]
-    check(nk == {"flash_attn": PARITY_LAYERS,
-                 "moe_gemm": PARITY_LAYERS * (1 + PARITY_DECODE)},
-          f"lm_parity kernel path launches {nk}")
-    check(npl == {"flash_attn": 0, "moe_gemm": 0},
-          f"lm_parity plain path launched kernels: {npl}")
-    rel = {"prefill_logits": _rel(lk, lp), "cache_k": _rel(ck["k"], cp["k"]),
-           "cache_v": _rel(ck["v"], cp["v"])}
-    for i, (a, b) in enumerate(zip(sk, sp)):
-        rel[f"decode_{i}"] = _rel(a, b)
-    for key, val in rel.items():
-        check(val <= 1e-3, f"lm_parity {key}: kernel vs plain rel {val}")
-    emit(phase="lm_parity", arch=LM_ARCH, n_layers=PARITY_LAYERS,
-         dtype="float32", batch=PARITY_BATCH, prompt=PARITY_PROMPT,
-         decode_steps=PARITY_DECODE, rel_err=rel, tol=1e-3,
-         kernel_launches=nk)
-    del model, out
-    torch.cuda.empty_cache()
+            return logits, cache, steps, _lm_launches()
+
+    def rel_errs(a, b):
+        (lk, ck, sk, _), (lp, cp, sp, _) = a, b
+        rel = {"prefill_logits": _rel(lk, lp),
+               "cache_k": _rel(ck["k"], cp["k"]),
+               "cache_v": _rel(ck["v"], cp["v"])}
+        for i, (x, y) in enumerate(zip(sk, sp)):
+            rel[f"decode_{i}"] = _rel(x, y)
+        return rel
+
+    for dtype, tol in (("float32", 1e-3), ("bfloat16", 5e-2)):
+        cfg = dataclasses.replace(get_config(LM_ARCH).model, dtype=dtype,
+                                  n_layers=L)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        model = init_lm_params(gen, cfg, device=dev)
+        tokens = torch.randint(0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT
+                                              + PARITY_DECODE),
+                               generator=gen, device=dev)
+        prompt, feed = tokens[:, :PARITY_PROMPT], tokens[:, PARITY_PROMPT:]
+        chosen = [] if dtype == "bfloat16" else None
+        plain = run(model, prompt, feed, True, chosen)
+        kern = run(model, prompt, feed, False, chosen, pin=True)
+        check(kern[3] == want[dtype], f"lm_parity {dtype} kernel path "
+                                      f"launches {kern[3]} != {want[dtype]}")
+        check(plain[3] == _lm_want({}, {}),
+              f"lm_parity {dtype} plain path launched kernels: {plain[3]}")
+        rel = rel_errs(kern, plain)
+        for key, val in rel.items():
+            check(val <= tol, f"lm_parity {dtype} {key}: kernel vs plain rel "
+                              f"{val} > {tol}")
+        emit(phase="lm_parity", arch=LM_ARCH, n_layers=L, dtype=dtype,
+             batch=PARITY_BATCH, prompt=PARITY_PROMPT,
+             decode_steps=PARITY_DECODE, rel_err=rel, tol=tol,
+             router="free" if chosen is None else
+             f"pinned to the plain path ({len(chosen)} router calls)",
+             kernel_launches=kern[3])
+        del model, plain, kern
+        torch.cuda.empty_cache()
 
 
 def _serve_once(model, prompts):
@@ -1036,7 +1248,8 @@ def phase_lm_serve():
                             generator=gen, device=dev)
     runs = [_serve_once(model, prompts) for _ in range(2)]
     L = cfg.n_layers
-    want = {"flash_attn": L, "moe_gemm": L * (1 + SERVE_DECODE)}
+    # prefill through the tensor-core variants, decode through stream
+    want = _lm_want({"wgmma": L}, {"wgmma": L, "stream": L * SERVE_DECODE})
     for r in runs:
         check(r["finite"], "lm_serve (a): logits not finite")
         check(r["launches"] == want,
@@ -1060,7 +1273,7 @@ def phase_lm_serve():
     check(logits.shape == (1, 1, cfg.vocab)
           and bool(torch.isfinite(logits).all()),
           "lm_serve (b): logits not finite or misshapen")
-    check(long_launches == {"flash_attn": L, "moe_gemm": L},
+    check(long_launches == _lm_want({"wgmma": L}, {"wgmma": L}),
           f"lm_serve (b) launches {long_launches}")
     long_peak = torch.cuda.max_memory_allocated()
     del logits, cache, long_prompt, model

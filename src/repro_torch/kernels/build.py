@@ -3,7 +3,10 @@
 Each ``csrc/*.cu`` file exports a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own ``.so`` under ``build/kernels/`` at
 the repository root (listed in ``.gitignore``), named by the hash of the
-source so an edited kernel is rebuilt and an unchanged one is reused.
+source, of every local header it includes (``#include "..."``, found
+beside the source or in ``kernels/common/csrc``, such as ``hopper.cuh``)
+and of the flags, so an edited
+kernel or header is rebuilt and an unchanged one is reused.
 The libraries are loaded with :mod:`ctypes`: no PyTorch headers are
 compiled, which keeps a build to seconds.  Nothing here runs at import.
 """
@@ -12,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -20,8 +24,11 @@ from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
+COMMON_DIR = Path(__file__).resolve().parent / "common" / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(COMMON_DIR))
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _loaded: dict[Path, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -40,10 +47,26 @@ def nvcc_path() -> str:
     return found
 
 
+def local_headers(source: Path) -> list[Path]:
+    """The headers ``source`` includes with quotes, found beside it or in
+    :data:`COMMON_DIR` (``nvcc``'s order: the ``-I`` of
+    :data:`NVCC_FLAGS`).  Headers found in neither (the toolkit's own)
+    are left out; the common headers include no local header."""
+    found = []
+    for name in _LOCAL_INCLUDE.findall(source.read_text(errors="replace")):
+        for d in (source.parent, COMMON_DIR):
+            if (d / name).is_file():
+                found.append((d / name).resolve())
+                break
+    return found
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{source.stem}-{digest[:16]}.so"
+    h = hashlib.sha256(source.read_bytes())
+    for header in local_headers(source):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(sources: list[Path]) -> dict[Path, float]:

@@ -13,19 +13,43 @@
 // the Pallas wrapper it takes any Sq and Skv (ragged tiles are masked)
 // and reads the model's (B, S, H, D) layout in place.
 //
+// Two variants; ops.route picks one from dtype and shape before launch.
+//
 // What bounds it: at the serving prefill (B*H = 64, S = 4,096, D = 128,
 // causal) the work is 4*BH*S^2*D/2 = 0.27 TFLOP against 0.2 GB of q, k,
 // v and o, so it is bound by operations: 0.28 ms at the 989 TFLOP/s of
-// the bf16 tensor cores.  This first version computes on the CUDA cores
-// in f32 (one FMA per multiply-add, no tensor cores): one block of 256
-// threads per (64-query tile, b, h); the Q tile and each 64-key K/V tile
-// are staged in shared memory as f32, each thread holds a 4 x 4 tile of
-// scores and a 4 x ceil(D/16) tile of the accumulator.  Moving the two
-// products onto wgmma with TMA-fed tiles is the next step.
+// the bf16 tensor cores.
+//
+// "simt" (f32, and bf16 shapes the wgmma variant does not take): the
+// first version, on the CUDA cores in f32 (one FMA per multiply-add): one
+// block of 256 threads per (64-query tile, b, h); the Q tile and each
+// 64-key K/V tile are staged in shared memory as f32, each thread holds a
+// 4 x 4 tile of scores and a 4 x ceil(D/16) tile of the accumulator.
+//
+// "wgmma" (bf16, D % 16 == 0, D <= 128): both products on the tensor
+// cores.  One CTA of three warpgroups per (128-query tile, b, h): the
+// first issues TMA loads from one thread (the Q tile once, then 128-key
+// K and V tiles through a 2-stage ring of mbarriers), the other two each
+// own 64 queries.  Per key tile a consumer computes S = Q K^T as one
+// wgmma chain over D (both operands from 128-byte-swizzled shared
+// memory, f32 accumulators), applies D^-0.5 * log2(e) to S in f32, masks
+// only diagonal and ragged tiles, runs the online softmax in registers
+// (row max and sum by quad shuffles over the accumulator layout, exp2f),
+// rounds P to bf16 in registers and feeds it as the register A operand
+// of O += P V, with V read from shared memory as an MN-major B operand.
+// q, k, v are read in place through 4-D tensor maps (D, H, S, B); rows
+// and columns past Sq, Skv and D arrive as zeros, and stores are
+// guarded.  Causal grids run the longest query tiles first.  D < 64 pads
+// the head to one 64-column panel, 64 < D <= 128 to two.  Against the
+// simt variant two rounding points move: P is rounded to bf16 before
+// P V, and the scale is applied to S after the product (as the plain
+// version does); both stay far inside the bf16 tolerance of 2e-2.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -215,6 +239,248 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kBQ = 128;        // queries per CTA: two consumer warpgroups
+constexpr int kBK = 128;        // keys per K/V tile
+constexpr int kStages = 2;
+constexpr int kThreads = 384;   // producer warpgroup + 2 consumers
+constexpr int kPanelQ = kBQ * 64;   // elements of one 64-column panel
+constexpr int kPanelK = kBK * 64;
+
+// kD: the head dimension padded to 64 or 128 (one or two panels)
+template <int kD>
+struct Smem {
+  bf16 q[kD / 64][kPanelQ];
+  bf16 k[kStages][kD / 64][kPanelK];
+  bf16 v[kStages][kD / 64][kPanelK];
+  uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
+};
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                int H, int Hk, int Sq, int Skv, int D, int causal,
+                int q_offset, float scale_log2) {
+  using namespace hopper;
+  constexpr int kP = kD / 64;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<kD>& sm = *reinterpret_cast<Smem<kD>*>(align_1k(smem_raw));
+
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * kBQ;
+  const int h = blockIdx.y % H, b = blockIdx.y / H;
+  const int hk = h / (H / Hk);
+  int n_tiles = (Skv + kBK - 1) / kBK;
+  if (causal)  // the CTA's last query sees keys up to its position
+    n_tiles = min(n_tiles, (min(q0 + kBQ, Sq) - 1 + q_offset) / kBK + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {  // producer
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(&sm.q_full, kP * kPanelQ * 2);
+      for (int p = 0; p < kP; ++p)
+        tma_load_4d(sm.q[p], &tq, &sm.q_full, 64 * p, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(&sm.empty[s], ((t / kStages) - 1) & 1);
+        mbar_arrive_expect_tx(&sm.k_full[s], kP * kPanelK * 2);
+        for (int p = 0; p < kP; ++p)
+          tma_load_4d(sm.k[s][p], &tk, &sm.k_full[s], 64 * p, hk, t * kBK, b);
+        mbar_arrive_expect_tx(&sm.v_full[s], kP * kPanelK * 2);
+        for (int p = 0; p < kP; ++p)
+          tma_load_4d(sm.v[s][p], &tv, &sm.v_full[s], 64 * p, hk, t * kBK, b);
+      }
+    }
+  } else {  // consumers: warpgroup c owns queries q0 + 64c .. + 63
+    regs_alloc<240>();
+    const int c = wgi - 1;
+    const int tid = threadIdx.x - 128 * wgi;
+    const int lane = tid & 31, quad = lane & 3;
+    const int row0 = q0 + 64 * c + 16 * (tid >> 5) + (lane >> 2);  // and +8
+    const int first_pos = q0 + 64 * c + q_offset;  // the WG's first query
+
+    float acc[kD / 2];
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+    float sc[kBK / 2];
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    mbar_wait(&sm.q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      const uint32_t ph = (t / kStages) & 1;
+      const int k0 = t * kBK;
+      mbar_wait(&sm.k_full[s], ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint64_t da = desc_sw128(
+            &sm.q[kk / 4][64 * c * 64 + (kk % 4) * 16], 16, 1024);
+        const uint64_t db =
+            desc_sw128(&sm.k[s][kk / 4][(kk % 4) * 16], 16, 1024);
+        wgmma_m64n128k16_ss<0>(sc, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // scale into the log2 domain; mask only diagonal and ragged tiles
+      const bool edge =
+          k0 + kBK > Skv || (causal && k0 + kBK - 1 > first_pos);
+#pragma unroll
+      for (int i = 0; i < kBK / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * i + e] * scale_log2;
+          if (edge) {
+            const int key = k0 + 8 * i + 2 * quad + (e & 1);
+            const int qpos = row0 + 8 * (e >> 1) + q_offset;
+            if (key >= Skv || (causal && key > qpos)) x = -INFINITY;
+          }
+          sc[4 * i + e] = x;
+        }
+      float corr[2], base[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < kBK / 8; ++i)
+          mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * hh], sc[4 * i + 2 * hh + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        base[hh] = m_new == -INFINITY ? 0.f : m_new;
+        corr[hh] = exp2f(m[hh] - base[hh]);
+        m[hh] = m_new;
+        l[hh] *= corr[hh];
+      }
+#pragma unroll
+      for (int i = 0; i < kBK / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(sc[4 * i + e] - base[e >> 1]);
+          sc[4 * i + e] = p;
+          l[e >> 1] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < kD / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * i + e] *= corr[e >> 1];
+      uint32_t pa[kBK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+      mbar_wait(&sm.v_full[s], ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t db =
+            desc_sw128(&sm.v[s][0][kk * 16 * 64], kPanelK * 2, 1024);
+        if constexpr (kD == 128)
+          wgmma_m64n128k16_rs<1>(acc, pa[kk], db, 1);
+        else
+          wgmma_m64n64k16_rs<1>(acc, pa[kk], db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&sm.empty[s]);
+    }
+
+    const long long q_stride = (long long)H * D;  // between positions
+    bf16* ob = o + ((long long)b * Sq * H + h) * D;
+    float denom[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {  // the row's sum over its quad
+      float lt = l[hh];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      denom[hh] = fmaxf(lt, 1e-30f);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      if (row >= Sq) continue;
+#pragma unroll
+      for (int i = 0; i < kD / 8; ++i) {
+        const int col = 8 * i + 2 * quad;
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(ob + row * q_stride + col) =
+              __floats2bfloat162_rn(acc[4 * i + 2 * hh] / denom[hh],
+                                    acc[4 * i + 2 * hh + 1] / denom[hh]);
+      }
+    }
+  }
+}
+
+template <int kD>
+int run(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+        void* o, int B, int H, int Hk, int Sq, int Skv, int D, int causal,
+        int q_offset, cudaStream_t st) {
+  const int smem = (int)sizeof(Smem<kD>) + 1024;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  flash_fwd_wgmma<kD><<<grid, kThreads, smem, st>>>(
+      tq, tk, tv, static_cast<bf16*>(o), H, Hk, Sq, Skv, D, causal, q_offset,
+      scale_log2);
+  return (int)cudaGetLastError();
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int Hk, int Sq, int Skv, int D, int causal, int q_offset,
+           void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0) return 0;
+  if (D < 16 || D > 128 || D % 16 != 0 || Hk < 1 || H % Hk != 0 ||
+      q_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  // (D, H, S, B), innermost first; boxes of 64 columns x one head x a
+  // tile of positions
+  CUtensorMap tq, tk, tv;
+  const cuuint64_t e = sizeof(bf16);
+  const cuuint64_t qd[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)Sq,
+                            (cuuint64_t)B};
+  const cuuint64_t qs[3] = {e * D, e * D * H, e * D * H * Sq};
+  const cuuint64_t kd[4] = {(cuuint64_t)D, (cuuint64_t)Hk, (cuuint64_t)Skv,
+                            (cuuint64_t)B};
+  const cuuint64_t ks[3] = {e * D, e * D * Hk, e * D * Hk * Skv};
+  const cuuint32_t qbox[4] = {64, 1, kBQ, 1}, kbox[4] = {64, 1, kBK, 1};
+  int err = hopper::make_map_bf16(&tq, q, 4, qd, qs, qbox);
+  if (!err) err = hopper::make_map_bf16(&tk, k, 4, kd, ks, kbox);
+  if (!err) err = hopper::make_map_bf16(&tv, v, 4, kd, ks, kbox);
+  if (err) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return D <= 64 ? run<64>(tq, tk, tv, o, B, H, Hk, Sq, Skv, D, causal,
+                           q_offset, st)
+                 : run<128>(tq, tk, tv, o, B, H, Hk, Sq, Skv, D, causal,
+                            q_offset, st);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q (B, Sq, H, D), k/v (B, Skv, Hk, D), o (B, Sq, H, D), contiguous, on
@@ -236,4 +502,17 @@ extern "C" int flash_attn_launch_bf16(const void* q, const void* k,
                                       void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, B, H, Hk, Sq, Skv, D, causal,
                                q_offset, stream);
+}
+
+// The wgmma variant: bf16 q (B, Sq, H, D), k/v (B, Skv, Hk, D), o (B, Sq,
+// H, D), contiguous, 16-byte aligned, D % 16 == 0 and D <= 128, H % Hk ==
+// 0, B * H <= 65535.  Launches on `stream` and returns a cudaError_t (0
+// on success).  Does not synchronise.
+extern "C" int flash_attn_launch_bf16_wgmma(const void* q, const void* k,
+                                            const void* v, void* o, int B,
+                                            int H, int Hk, int Sq, int Skv,
+                                            int D, int causal, int q_offset,
+                                            void* stream) {
+  return tc::launch(q, k, v, o, B, H, Hk, Sq, Skv, D, causal, q_offset,
+                    stream);
 }

@@ -16,12 +16,14 @@ import torch
 from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attn.cu"
-_SYMBOLS = {torch.float32: "flash_attn_launch_f32",
-            torch.bfloat16: "flash_attn_launch_bf16"}
+# (dtype, variant) -> the exported launcher; ops.route picks the variant
+_SYMBOLS = {(torch.float32, "simt"): "flash_attn_launch_f32",
+            (torch.bfloat16, "simt"): "flash_attn_launch_bf16",
+            (torch.bfloat16, "wgmma"): "flash_attn_launch_bf16_wgmma"}
 
 
-def _launcher(dtype: torch.dtype):
-    fn = getattr(build.load(SOURCE), _SYMBOLS[dtype])
+def _launcher(dtype: torch.dtype, variant: str):
+    fn = getattr(build.load(SOURCE), _SYMBOLS[dtype, variant])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
@@ -30,18 +32,20 @@ def _launcher(dtype: torch.dtype):
 
 
 def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    out: torch.Tensor, causal: bool, q_offset: int) -> None:
-    """Launch the kernel on the current stream of ``q``'s device.  q
-    (B, Sq, H, D), k/v (B, Skv, Hk, D), out (B, Sq, H, D), all contiguous
-    and of one dtype; the caller has checked them."""
+                    out: torch.Tensor, causal: bool, q_offset: int,
+                    variant: str) -> None:
+    """Launch the kernel's ``variant`` on the current stream of ``q``'s
+    device.  q (B, Sq, H, D), k/v (B, Skv, Hk, D), out (B, Sq, H, D), all
+    contiguous and of one dtype; the caller has checked them and picked
+    the variant (``ops.route``)."""
     B, Sq, H, D = q.shape
     Skv, Hk = k.shape[1], k.shape[2]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 out.data_ptr(), B, H, Hk, Sq, Skv, D,
-                                 int(causal), q_offset, stream)
+        err = _launcher(q.dtype, variant)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            Hk, Sq, Skv, D, int(causal), q_offset, stream)
     if err != 0:
         raise RuntimeError(f"flash_attn kernel launch failed: CUDA error "
-                           f"{err} (B={B}, Sq={Sq}, Skv={Skv}, H={H}, "
-                           f"Hk={Hk}, D={D}, {q.dtype})")
+                           f"{err} ({variant}, B={B}, Sq={Sq}, Skv={Skv}, "
+                           f"H={H}, Hk={Hk}, D={D}, {q.dtype})")

@@ -4,7 +4,11 @@ CUDA kernel on the card, the plain PyTorch version on the CPU.
 The tensor's device decides.  A CUDA tensor launches the kernel or
 raises — there is no fallback — and each launch adds one to
 :data:`launches`, so a run can show that its main path went through the
-kernel.  The kernel reads the (B, S, H, D) tensors in place and indexes
+kernel.  Which of the kernel's variants runs is decided before the
+launch by :func:`route`, from dtype, head width and alignment alone, and
+counted in :data:`launches_by_variant`: "wgmma" (bf16 on the tensor
+cores, TMA-fed) or "simt" (f32 on the CUDA cores, and every other
+shape).  The kernel reads the (B, S, H, D) tensors in place and indexes
 the kv head of query head ``h`` as ``h // (H // Hk)``.  A CPU tensor
 takes the reference's ``ops.py`` route: GQA broadcast by ``repeat``, the
 (B·H, S, D) layout, and :func:`flash_attention_ref`; both give the same
@@ -17,8 +21,23 @@ import torch
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 
 launches = 0    # kernel launches since the count was last set to 0
+VARIANTS = ("wgmma", "simt")
+launches_by_variant = dict.fromkeys(VARIANTS, 0)   # the same, by variant
 MAX_HEAD_DIM = 128
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+def route(dtype: torch.dtype, head_dim: int, ptrs=()) -> str:
+    """The kernel variant for these inputs, from their dtype, head width
+    and data pointers alone, never from a launch: "wgmma" for bf16 with
+    ``head_dim % 16 == 0``, ``head_dim <= 128`` and every pointer 16-byte
+    aligned (the wrapper passes contiguous tensors, whose strides are then
+    multiples of 32 bytes), else "simt"."""
+    if (dtype == torch.bfloat16 and head_dim % 16 == 0
+            and 0 < head_dim <= MAX_HEAD_DIM
+            and all(p % 16 == 0 for p in ptrs)):
+        return "wgmma"
+    return "simt"
 
 
 def _check(q, k, v, q_offset):
@@ -86,6 +105,9 @@ def flash_attention_k(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * H > 65535:
         raise ValueError(f"flash_attn kernel takes B*H <= 65535, got {B * H}")
     if out.numel():
-        flash_attn_cuda(q, k, v, out, causal, int(q_offset))
+        variant = route(q.dtype, D, (q.data_ptr(), k.data_ptr(),
+                                     v.data_ptr(), out.data_ptr()))
+        flash_attn_cuda(q, k, v, out, causal, int(q_offset), variant)
         launches += 1
+        launches_by_variant[variant] += 1
     return out

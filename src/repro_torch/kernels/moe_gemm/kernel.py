@@ -15,12 +15,15 @@ import torch
 from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gemm.cu"
-_SYMBOLS = {torch.float32: "moe_gemm_launch_f32",
-            torch.bfloat16: "moe_gemm_launch_bf16"}
+# (dtype, variant) -> the exported launcher; ops.route picks the variant
+_SYMBOLS = {(torch.float32, "simt"): "moe_gemm_launch_f32",
+            (torch.bfloat16, "simt"): "moe_gemm_launch_bf16",
+            (torch.bfloat16, "wgmma"): "moe_gemm_launch_bf16_wgmma",
+            (torch.bfloat16, "stream"): "moe_gemm_launch_bf16_stream"}
 
 
-def _launcher(dtype: torch.dtype):
-    fn = getattr(build.load(SOURCE), _SYMBOLS[dtype])
+def _launcher(dtype: torch.dtype, variant: str):
+    fn = getattr(build.load(SOURCE), _SYMBOLS[dtype, variant])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
@@ -29,18 +32,21 @@ def _launcher(dtype: torch.dtype):
 
 
 def moe_gemm_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                  wd: torch.Tensor, h: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch the kernel on the current stream of ``x``'s device: ``h``
-    (E, C, f) is the scratch the gate/up pass writes and the down pass
-    reads, ``out`` (E, C, d).  The caller has checked shapes, dtypes,
-    device and contiguity."""
+                  wd: torch.Tensor, h: torch.Tensor, out: torch.Tensor,
+                  variant: str) -> None:
+    """Launch the kernel's ``variant`` on the current stream of ``x``'s
+    device: ``h`` (E, C, f) is the scratch the gate/up pass writes and
+    the down pass reads, ``out`` (E, C, d).  The caller has checked
+    shapes, dtypes, device and contiguity and picked the variant
+    (``ops.route``)."""
     E, C, d = x.shape
     f = wg.shape[-1]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher(x.dtype)(x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-                                 wd.data_ptr(), h.data_ptr(), out.data_ptr(),
-                                 E, C, d, f, stream)
+        err = _launcher(x.dtype, variant)(
+            x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+            h.data_ptr(), out.data_ptr(), E, C, d, f, stream)
     if err != 0:
         raise RuntimeError(f"moe_gemm kernel launch failed: CUDA error {err} "
-                           f"(E={E}, C={C}, d={d}, f={f}, {x.dtype})")
+                           f"({variant}, E={E}, C={C}, d={d}, f={f}, "
+                           f"{x.dtype})")

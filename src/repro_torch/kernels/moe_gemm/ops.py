@@ -4,7 +4,12 @@ version on the CPU.
 The tensor's device decides.  A CUDA tensor launches the kernel or
 raises — there is no fallback — and each launch adds one to
 :data:`launches`, so a run can show that its main path went through the
-kernel.  A CPU tensor runs :func:`moe_gemm_ref`.
+kernel.  Which of the kernel's variants runs is decided before the
+launch by :func:`route`, from dtype, shape and alignment alone, and
+counted in :data:`launches_by_variant`: "wgmma" (bf16 prefill on the
+tensor cores, TMA-fed), "stream" (bf16 decode, C <= 8, streaming the
+weights once) or "simt" (f32 on the CUDA cores, and every other shape).
+A CPU tensor runs :func:`moe_gemm_ref`.
 """
 from __future__ import annotations
 
@@ -13,7 +18,25 @@ import torch
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 
 launches = 0    # kernel launches since the count was last set to 0
+VARIANTS = ("wgmma", "stream", "simt")
+launches_by_variant = dict.fromkeys(VARIANTS, 0)   # the same, by variant
 DTYPES = (torch.float32, torch.bfloat16)
+SMALL_C = 8     # at most this many rows per expert: the decode variant
+
+
+def route(dtype: torch.dtype, C: int, d: int, f: int, ptrs=()) -> str:
+    """The kernel variant for x (E, C, d) and weights of width f, from
+    dtype, shape and data pointers alone, never from a launch: bf16 with
+    ``C <= 8`` is "stream"; bf16 with ``d % 8 == 0``, ``f % 8 == 0`` and
+    every pointer 16-byte aligned (contiguous rows are then too) is
+    "wgmma"; everything else, float32 above all, is "simt"."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if C <= SMALL_C:
+        return "stream"
+    if d % 8 == 0 and f % 8 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "simt"
 
 
 def moe_gemm(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -49,6 +72,9 @@ def moe_gemm(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     out = torch.empty_like(x)
     if out.numel():
         h = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
-        moe_gemm_cuda(x, wg, wu, wd, h, out)
+        variant = route(x.dtype, C, d, f,
+                        [t.data_ptr() for t in (x, wg, wu, wd, h, out)])
+        moe_gemm_cuda(x, wg, wu, wd, h, out, variant)
         launches += 1
+        launches_by_variant[variant] += 1
     return out

@@ -96,7 +96,79 @@ def test_wrapper_rejects_bad_inputs():
 
 def test_cpu_path_launches_nothing():
     before = ops.launches
+    by_variant = dict(ops.launches_by_variant)
     q, k, v = (torch.from_numpy(a) for a in flash_inputs(1, 8, 8, 2, 2, 8))
     ops.flash_attention_k(q, k, v)
     layers.flash_attention(q, k, v)
     assert ops.launches == before
+    assert ops.launches_by_variant == by_variant
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,D,ptrs,want", [
+    (BF16, 128, (0x1000, 0x2000, 0x3000, 0x4000), "wgmma"),  # OLMoE, Qwen3
+    (BF16, 64, (), "wgmma"),          # qwen1.5's head
+    (BF16, 16, (), "wgmma"),          # one k16 step, padded to a panel
+    (BF16, 80, (), "wgmma"),          # two panels, the second padded
+    (BF16, 72, (), "simt"),           # D % 16 != 0
+    (BF16, 8, (), "simt"),
+    (BF16, 144, (), "simt"),          # D > 128
+    (BF16, 128, (0x1000, 0x1008), "simt"),   # an 8-byte-aligned pointer
+    (F32, 128, (), "simt"),           # f32 stays on the CUDA cores
+    (F32, 64, (0x1000,), "simt"),
+])
+def test_route(dtype, D, ptrs, want):
+    assert ops.route(dtype, D, ptrs) == want
+    assert want in ops.VARIANTS
+    assert set(ops.launches_by_variant) == set(ops.VARIANTS)
+
+
+def _flash_wgmma_rounding(q, k, v, causal, q_offset=0, bk=128):
+    """A PyTorch model of the wgmma variant's arithmetic on (B·H, S, D)
+    tensors: 128-key tiles in order, scores in f32 scaled after the
+    product into the log2 domain, an online softmax in f32, and P rounded
+    to bf16 before P·V (the row sums stay in f32)."""
+    D = q.shape[-1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    BH, Sq, Skv = q.shape[0], q.shape[1], k.shape[1]
+    m = torch.full((BH, Sq, 1), -torch.inf)
+    l = torch.zeros((BH, Sq, 1))
+    acc = torch.zeros((BH, Sq, D))
+    qpos = torch.arange(Sq)[:, None] + q_offset
+    for k0 in range(0, Skv, bk):
+        s = torch.einsum("bqd,bkd->bqk", qf, kf[:, k0:k0 + bk])
+        s = s * (D ** -0.5 * 1.4426950408889634)
+        if causal:
+            key = torch.arange(k0, min(k0 + bk, Skv))[None, :]
+            s = s.masked_fill(~(qpos >= key)[None], -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum(
+            "bqk,bkd->bqd", p.bfloat16().float(), vf[:, k0:k0 + bk])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+@pytest.mark.parametrize("S,H,Hk,D,causal", [
+    *[(S, H, Hk, D, True) for S, H, Hk, D in FLASH_SWEEP],
+    (320, 2, 2, 64, True),      # three 128-key tiles, the last ragged
+    (320, 2, 1, 32, False)])
+def test_wgmma_rounding_is_inside_the_bf16_tolerance(S, H, Hk, D, causal):
+    """The wgmma variant moves two rounding points (P in bf16, the scale
+    after the product): a model of them stays inside 2e-2 of the Pallas
+    kernel in interpret mode."""
+    (jq, jk, jv), (q, k, v) = _both(flash_inputs(1, S, S, H, Hk, D, seed=S),
+                                    "bfloat16")
+    want = jax_flash_k(jq, jk, jv, causal=causal, use_kernel=True,
+                       interpret=True, bq=32, bk=32)
+    rep = H // Hk
+    qf = q.transpose(1, 2).reshape(H, S, D)
+    kf, vf = (t.repeat_interleave(rep, dim=2).transpose(1, 2).reshape(H, S, D)
+              for t in (k, v))
+    got = _flash_wgmma_rounding(qf, kf, vf, causal)
+    got = got.reshape(1, H, S, D).transpose(1, 2)
+    _close(got, want, FLASH_TOL["bfloat16"])

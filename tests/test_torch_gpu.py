@@ -30,8 +30,11 @@ from repro_torch.kernels.intersect import ops as intersect_ops
 from repro_torch.kernels.intersect.ref import intersect_ref
 from repro_torch.kernels.membership import ops
 from repro_torch.kernels.membership.ref import membership_ref
+from repro_torch.kernels.moe_gemm import kernel as moe_kernel
 from repro_torch.kernels.moe_gemm import ops as moe_ops
-from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+from repro_torch.kernels.moe_gemm.ref import (bound_ratio, moe_down_ref,
+                                              moe_gemm_f64, moe_gemm_ref,
+                                              moe_hidden_ref)
 from repro_torch.kernels.segment_spmm import ops as spmm_ops
 from repro_torch.kernels.varint import ops as varint_ops
 from repro_torch.kernels.varint.ref import delta_vlen_ref
@@ -136,48 +139,111 @@ def _assert_close(got, want, tol, per_row=False):
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
+def _variant_counted(ops, dtype, bf16_variant, before):
+    """One launch, counted under the variant the route must pick: float32
+    always takes "simt"."""
+    want = bf16_variant if dtype == "bfloat16" else "simt"
+    after = ops.launches_by_variant
+    assert {k: after[k] - before.get(k, 0) for k in after} == {
+        k: int(k == want) for k in after}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,Sq,Skv,H,Hk,D,causal,q_offset", [
-    *[(2, S, S, H, Hk, D, True, 0) for S, H, Hk, D in FLASH_SWEEP],
-    (2, 100, 100, 4, 4, 64, True, 0),      # ragged tiles, qwen1.5's D
-    (1, 37, 150, 4, 1, 128, False, 0),     # non-causal, ragged keys
-    (2, 40, 170, 4, 2, 16, True, 130),     # the last 40 of 170
-    (1, 1024, 1024, 16, 16, 128, True, 0),  # OLMoE's heads
-    (1, 512, 512, 32, 8, 128, True, 0),     # qwen3-4b's GQA 32/8
+@pytest.mark.parametrize("B,Sq,Skv,H,Hk,D,causal,q_offset,bf16_variant", [
+    *[(2, S, S, H, Hk, D, True, 0, "wgmma") for S, H, Hk, D in FLASH_SWEEP],
+    (2, 100, 100, 4, 4, 64, True, 0, "wgmma"),   # ragged tiles, qwen1.5's D
+    (1, 37, 150, 4, 1, 128, False, 0, "wgmma"),  # non-causal, ragged keys
+    (2, 40, 170, 4, 2, 16, True, 130, "wgmma"),  # the last 40 of 170
+    (1, 1024, 1024, 16, 16, 128, True, 0, "wgmma"),  # OLMoE's heads
+    (1, 512, 512, 32, 8, 128, True, 0, "wgmma"),     # qwen3-4b's GQA 32/8
+    # the wgmma variant's tile edges: 128-query and 128-key tiles, the
+    # 2-stage ring wrapping, q_offset across a tile, padded heads
+    (1, 129, 129, 2, 1, 128, True, 0, "wgmma"),
+    (2, 257, 385, 2, 2, 64, False, 0, "wgmma"),
+    (1, 200, 455, 4, 2, 128, True, 255, "wgmma"),
+    (1, 130, 130, 2, 2, 48, True, 0, "wgmma"),   # one padded panel
+    (1, 130, 260, 2, 1, 80, False, 0, "wgmma"),  # two, the second padded
+    (1, 64, 64, 2, 2, 72, True, 0, "simt"),      # D % 16 != 0
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, Hk, D,
-                                            causal, q_offset, dtype):
+                                            causal, q_offset, bf16_variant,
+                                            dtype):
     q, k, v = (torch.as_tensor(a, device=cuda).to(DTYPES[dtype])
                for a in flash_inputs(B, Sq, Skv, H, Hk, D, seed=Sq + H))
     before = flash_ops.launches
+    by_variant = dict(flash_ops.launches_by_variant)
     got = flash_ops.flash_attention_k(q, k, v, causal=causal,
                                       q_offset=q_offset)
     torch.cuda.synchronize()
     assert flash_ops.launches == before + 1
+    _variant_counted(flash_ops, dtype, bf16_variant, by_variant)
     want = flash_ops.flash_attention_plain(q, k, v, causal=causal,
                                            q_offset=q_offset)
     _assert_close(got, want, FLASH_TOL[dtype])
 
 
+MOE_CARD_CASES = [
+    *[(*shape, "wgmma") for shape in MOE_SWEEP],
+    (5, 37, 48, 40, "wgmma"),     # ragged tiles
+    (3, 5, 48, 40, "stream"),     # the decode shapes (C <= 8), ragged
+    (64, 1, 2048, 1024, "stream"),   # OLMoE decode
+    (8, 320, 2048, 1024, "wgmma"),   # OLMoE's widths, prefill tiles
+    # the variants' edges: 128-row C tiles, 64-deep K stages and
+    # 128/256-wide N tiles with ragged ends; unaligned widths (scalar
+    # loads in stream, simt past it)
+    (2, 130, 72, 136, "wgmma"),
+    (3, 129, 264, 520, "wgmma"),
+    (2, 3, 36, 37, "stream"),
+    (2, 20, 36, 40, "simt")]
+# C = 8 and 9 at OLMoE's widths: the last stream and the first wgmma
+# shape.  bf16 only: in f32 at C <= 9 the plain version's cuBLAS product
+# sums in another order than at large C, and the simt kernel is held
+# elementwise at 1e-5 only where the two orders agree (MOE_ROW_CHECK)
+MOE_CARD_BF16_EDGES = [(2, 8, 2048, 1024, "stream"),
+                       (2, 9, 2048, 1024, "wgmma")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("E,C,d,f", [
-    *MOE_SWEEP,
-    (5, 37, 48, 40),       # ragged tiles
-    (3, 5, 48, 40),        # the decode tiles (C <= 8), ragged
-    (64, 1, 2048, 1024),   # OLMoE decode
-    (8, 320, 2048, 1024)])  # OLMoE's widths, prefill tiles
-def test_moe_gemm_kernel_matches_plain_on_card(cuda, E, C, d, f, dtype):
+@pytest.mark.parametrize("E,C,d,f,bf16_variant,dtype", [
+    *[(*case, dtype) for case in MOE_CARD_CASES
+      for dtype in ("float32", "bfloat16")],
+    *[(*case, "bfloat16") for case in MOE_CARD_BF16_EDGES]])
+def test_moe_gemm_kernel_matches_plain_on_card(cuda, E, C, d, f, bf16_variant,
+                                               dtype):
     x, wg, wu, wd = (torch.as_tensor(a, device=cuda).to(DTYPES[dtype])
                      for a in moe_inputs(E, C, d, f, seed=E * C))
     before = moe_ops.launches
+    by_variant = dict(moe_ops.launches_by_variant)
     got = moe_ops.moe_gemm(x, wg, wu, wd)
     torch.cuda.synchronize()
     assert moe_ops.launches == before + 1
-    want = moe_gemm_ref(x, wg, wu, wd)
-    _assert_close(got, want, MOE_TOL[dtype],
-                  per_row=(dtype, C) == MOE_ROW_CHECK)
+    _variant_counted(moe_ops, dtype, bf16_variant, by_variant)
+    if dtype == "float32":
+        _assert_close(got, moe_gemm_ref(x, wg, wu, wd), MOE_TOL[dtype],
+                      per_row=(dtype, C) == MOE_ROW_CHECK)
+        return
+    # bf16: each pass against its plain version, elementwise; h and the
+    # output against the function computed exactly (h within one bf16
+    # rounding, the output within the bound of every rounding); end to end
+    # as in float32, except at OLMoE's expert widths through the wgmma
+    # variant.  There the tensor cores sum in another order than the plain
+    # version, so a few elements of h sit one bf16 step apart, and wd
+    # carries such a step past the 5e-2 floor at outputs near 0, as it
+    # carries the plain version's own rounding of h past it against the
+    # exact function
+    h = torch.empty((E, C, f), dtype=x.dtype, device=cuda)
+    again = torch.empty_like(x)
+    moe_kernel.moe_gemm_cuda(x, wg, wu, wd, h, again, bf16_variant)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)         # deterministic
+    _assert_close(h, moe_hidden_ref(x, wg, wu), MOE_TOL[dtype])
+    _assert_close(got, moe_down_ref(h, wd), MOE_TOL[dtype])
+    exact = moe_gemm_f64(x, wg, wu, wd)
+    assert bound_ratio(h, exact["h"], exact["h_bound"]) <= 1
+    assert bound_ratio(got, exact["out"], exact["out_bound"]) <= 1
+    if not (bf16_variant == "wgmma" and (d, f) == (2048, 1024)):
+        _assert_close(got, moe_gemm_ref(x, wg, wu, wd), MOE_TOL[dtype])
 
 
 @pytest.mark.gpu

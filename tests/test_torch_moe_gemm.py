@@ -24,6 +24,9 @@ from repro_torch.configs import get_reduced
 from repro_torch.convert import tensor_from_array
 from repro_torch.distributed import ctx
 from repro_torch.kernels.moe_gemm import ops
+from repro_torch.kernels.moe_gemm.ref import (bound_ratio, moe_down_ref,
+                                              moe_gemm_f64, moe_gemm_ref,
+                                              moe_hidden_ref)
 from repro_torch.models import layers
 
 torch.set_num_threads(1)
@@ -138,5 +141,52 @@ def test_wrapper_rejects_bad_inputs():
 
 def test_cpu_path_launches_nothing():
     before = ops.launches
+    by_variant = dict(ops.launches_by_variant)
     ops.moe_gemm(*(torch.from_numpy(a) for a in moe_inputs(2, 4, 8, 16)))
     assert ops.launches == before
+    assert ops.launches_by_variant == by_variant
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,C,d,f,ptrs,want", [
+    (BF16, 2560, 2048, 1024, (0x1000, 0x2000), "wgmma"),  # OLMoE prefill
+    (BF16, 5120, 2048, 1024, (), "wgmma"),                # prefill_32k
+    (BF16, 9, 2048, 1024, (), "wgmma"),       # the first C past decode
+    (BF16, 8, 2048, 1024, (), "stream"),      # the last decode C
+    (BF16, 1, 2048, 1024, (), "stream"),      # OLMoE decode
+    (BF16, 5, 48, 40, (), "stream"),
+    (BF16, 1, 37, 41, (0x1002,), "stream"),   # any width and alignment
+    (BF16, 37, 48, 40, (), "wgmma"),          # ragged tiles
+    (BF16, 37, 36, 40, (), "simt"),           # d % 8 != 0
+    (BF16, 37, 48, 44, (), "simt"),           # f % 8 != 0
+    (BF16, 64, 2048, 1024, (0x1000, 0x1008), "simt"),   # misaligned
+    (F32, 1, 2048, 1024, (), "simt"),         # f32 stays on the CUDA cores
+    (F32, 2560, 2048, 1024, (), "simt"),
+])
+def test_route(dtype, C, d, f, ptrs, want):
+    assert ops.route(dtype, C, d, f, ptrs) == want
+    assert want in ops.VARIANTS
+    assert set(ops.launches_by_variant) == set(ops.VARIANTS)
+
+
+@pytest.mark.parametrize("E,C,d,f", [*MOE_SWEEP, (5, 37, 48, 40),
+                                     (2, 9, 2048, 1024)])
+def test_f64_bounds_hold_the_plain_version(E, C, d, f):
+    """``moe_gemm_f64``'s bounds, which the card's checks hold the kernel
+    to in bf16: the plain version's run lies within them (h within one
+    rounding of the exact h, the output within its bound), an h one bf16
+    step off does not, nor does a run with gate and up swapped."""
+    x, wg, wu, wd = (torch.from_numpy(a).to(BF16)
+                     for a in moe_inputs(E, C, d, f, seed=E * C))
+    exact = moe_gemm_f64(x, wg, wu, wd)
+    assert exact["out"].dtype == torch.float64
+    h = moe_hidden_ref(x, wg, wu)
+    assert bound_ratio(h, exact["h"], exact["h_bound"]) <= 1
+    assert bound_ratio(moe_down_ref(h, wd), exact["out"],
+                       exact["out_bound"]) <= 1
+    off = (h.float() * (1 + 2 ** -7)).to(BF16)
+    assert bound_ratio(off, exact["h"], exact["h_bound"]) > 1
+    assert bound_ratio(moe_gemm_ref(x, wu, wg, wd), exact["out"],
+                       exact["out_bound"]) > 1
