@@ -41,22 +41,30 @@ every phase holds:
               greedy decode steps, twice (the tokens must agree; prefill
               through the "wgmma" variants, decode through "stream"); then
               one prompt of 32,768 tokens (``prefill_32k`` cut to batch 1);
-9. gnn_kernels — segment_spmm against its plain version on the card, f32
-              and bf16 messages: the test sweep shapes and edge cases
-              elementwise, and the model shapes (GAT's D = 8, 56, 64 on the
+9. gnn_kernels — segment_spmm's two variants against their plain
+              versions on the card.  "sum", f32 and bf16 messages: the test
+              sweep shapes and edge cases (a hub row among them)
+              elementwise, and the model shapes (D = 8, 56, 64 on the
               products-sized graph, GraphCast's D = 512 at the minibatch
               capacity and on the Cora-sized graph) against float64 row
               sums, timed beside the bound, the plain version and two
-              library calls;
+              library calls; the longest row with and without the hub
+              split.  "gat": a small graph with a hub, masked slots, empty
+              and all-masked rows at the reduced and full head shapes in
+              every dtype pair, then GAT's two layers on the products-sized
+              graph and on the Cora-sized graph, timed beside two bounds
+              and the plain version, and the hub threshold swept;
 10. gnn_parity — GAT, GraphCast, SchNet and PNA at their full config
               widths in float32 on a Cora-sized graph: the kernel path
-              against the plain path;
+              against the plain path, launches by variant;
 11. gnn_serve — GAT (``gat-cora``, bf16, seeded random weights) on a
               seeded graph of ogbn-products' size (2,449,029 nodes,
-              61,859,140 edge slots): two bit-identical forwards, one with
-              bf16 messages, a ``torch.profiler`` split; then GraphCast at
-              full width (16 layers, d = 512, bf16) on the Cora-sized
-              graph.
+              61,859,140 edge slots): three bit-identical forwards through
+              the "gat" variant alone, one with bf16 messages, a
+              ``torch.profiler`` split with no edge-sized gather or
+              scatter; PyTorch's edge gathers timed four ways; then
+              GraphCast at full width (16 layers, d = 512, bf16) on the
+              Cora-sized graph.
 
 Each phase prints one JSON line.  Then come the kernels line, the
 ``nvidia-smi`` name/power line, and last
@@ -115,6 +123,14 @@ SMALL_CAPS = dict(frontier_cap=1 << 12, fetch_cap=256, verify_cap=1024,
 # their published sizes, neither cut, on seeded synthetic graphs
 GNN_ARCHS = ("gat-cora", "graphcast", "schnet", "pna")
 GNN_TOL = 1e-5            # tests/test_kernels.py::test_segment_spmm_sweep
+# gat_aggregate with bf16 anywhere: each element within 3 bf16 steps of its
+# row's sum of |msg| (the kernel repeats each rounding of the plain version,
+# but a weight can round one way in one and the other way in the other: a
+# denominator one step off moves it a step, its own rounding another, and
+# the message's rounding a third), plus one step of its value where the
+# output is bf16 (``_sum_ratio``)
+GAT_BF16_TOL = 3 * 2.0 ** -7
+EDGE_OPS = ("index_select", "scatter", "gather", "aten::index", "embedding")
 GNN_PARITY_TOL = 1e-4
 ZIPF_POWER = 1.795        # products_graph: ~17,000 edges on the largest hub
 FULL_N = 317_080              # com-DBLP's vertex count
@@ -992,9 +1008,9 @@ def phase_lm_kernels():
 @contextlib.contextmanager
 def _plain_kernels(active: bool):
     """While active, the kernel wrappers the models call (flash_attn,
-    moe_gemm, segment_spmm) are swapped for their plain versions, so the
-    models run the port's plain path on the card.  Only the parity checks
-    of phases 7 and 10 turn it on."""
+    moe_gemm, segment_spmm and gat_aggregate) are swapped for their plain
+    versions, so the models run the port's plain path on the card.  Only
+    the parity checks of phases 7 and 10 turn it on."""
     from repro_torch.kernels.flash_attn import ops as flash
     from repro_torch.kernels.moe_gemm import ops as moe
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
@@ -1002,14 +1018,17 @@ def _plain_kernels(active: bool):
     if not active:
         yield
         return
-    saved = flash.flash_attention_k, moe.moe_gemm, spmm.segment_spmm
+    saved = (flash.flash_attention_k, moe.moe_gemm, spmm.segment_spmm,
+             spmm.gat_aggregate)
     flash.flash_attention_k = flash.flash_attention_plain
     moe.moe_gemm = moe_gemm_ref
     spmm.segment_spmm = spmm.segment_spmm_plain
+    spmm.gat_aggregate = spmm.gat_aggregate_plain
     try:
         yield
     finally:
-        flash.flash_attention_k, moe.moe_gemm, spmm.segment_spmm = saved
+        (flash.flash_attention_k, moe.moe_gemm, spmm.segment_spmm,
+         spmm.gat_aggregate) = saved
 
 
 def _lm_launches() -> dict:
@@ -1375,16 +1394,22 @@ def _f64_sums(msgs, dst, n: int, chunk: int = 1 << 23):
     return s, a
 
 
-def _sum_ratio(got, s, a, out_bf16: bool) -> float:
-    """The largest error of an output element over its bound: 1e-5 of the
-    element's sum of |msg| over its row (an f32 sum of a long row in
-    another order is not bit-equal, so the check scales with the row),
-    plus 2**-7 of its value, one bf16 step, where the output is rounded
-    to bf16.  Where the bound is 0 the error must be 0
+def _elem_ratio(got, s, tol: float) -> float:
+    """The largest ``|got - s| / (tol + tol * |s|)`` against the float64
+    sums ``s``: the elementwise check of ``tests/test_kernels.py``, held
+    against exact sums."""
+    return float(((got.double() - s).abs_() / (tol + tol * s.abs())).max())
+
+
+def _sum_ratio(got, s, a, out_bf16: bool, tol: float = GNN_TOL) -> float:
+    """The largest error of an output element over its bound: ``tol``
+    (1e-5) of the element's sum of |msg| over its row (an f32 sum of a
+    long row in another order is not bit-equal, so the check scales with
+    the row), plus 2**-7 of its value, one bf16 step, where the output is
+    rounded to bf16.  Where the bound is 0 the error must be 0
     too (inf else)."""
-    import torch
     diff = (got.double() - s).abs_()
-    bound = GNN_TOL * a
+    bound = tol * a
     if out_bf16:
         bound += 2.0 ** -7 * s.abs()
     if bool(((bound == 0) & (diff > 0)).any()):
@@ -1394,23 +1419,141 @@ def _sum_ratio(got, s, a, out_bf16: bool) -> float:
 
 def _spmm_bound_ms(E: int, n: int, D: int, in_size: int,
                    out_size: int) -> tuple[float, str]:
-    """Messages read once, the plan's perm and rowptr read once, the
-    output written once; one f32 add per message element."""
+    """Messages read once, the plan's perm and row pointers read once,
+    the output written once; one f32 add per message element."""
     nbytes = E * D * in_size + 4 * E + 4 * (n + 1) + n * D * out_size
     return _bound(nbytes, E * D, "float32")
 
 
-def phase_gnn_kernels(dst_products, n_products: int):
-    """segment_spmm against its plain version on the card.  The sweep
-    shapes and edge cases, f32 and bf16 messages summed into f32, are
-    held elementwise at rtol = atol = 1e-5.  At the model shapes — GAT's
+def _csr_mm_ms(msgs, got, plan) -> dict:
+    """The library yardstick of a bf16 "sum": one ``torch.sparse.mm`` of
+    the (n, E) destination incidence matrix in CSR (the plan's row
+    pointers, its perm as the columns, values 1) by the messages, which
+    cuSPARSE sums in f32 and rounds to bf16 as the kernel does; its
+    largest difference from the kernel's ``got`` printed beside it.  None,
+    with the error, where the card's build refuses it."""
+    import torch
+    ones = torch.ones(plan.n_edges, dtype=msgs.dtype, device=msgs.device)
+    inc = torch.sparse_csr_tensor(plan.rowptr, plan.perm, ones,
+                                  (plan.n, plan.n_edges))
+    row = dict(library="torch.sparse.mm (CSR)")
+    try:
+        lib = torch.sparse.mm(inc, msgs)
+        row["library_max_abs_err"] = float((lib.float() - got.float())
+                                           .abs().max())
+        row["library_ms"] = cuda_ms(lambda: torch.sparse.mm(inc, msgs),
+                                    iters=5)
+    except RuntimeError as e:
+        row.update(library_ms=None, library_error=str(e)[:300])
+    return row
+
+
+def _gat_bounds(E: int, n: int, H: int, dout: int, in_size: int,
+                acc_size: int) -> dict:
+    """Two byte bounds of one GAT aggregation (``gat_aggregate``).  Each
+    input once: hw, s_src, s_dst, the plan's sorted sources, live bytes
+    and row pointers read once, the output written once.  Gather once:
+    what the kernel's three passes must read at the least, each edge's
+    source id, live byte and s_src row in every pass and its hw row in
+    the last, plus the kernel's row spans, s_dst and the output.
+    Operations: per edge and head the score's add and product, the
+    shift, the exp, the denominator's add and the division; per value a
+    product and an add; at the f32 rate."""
+    flops = E * H * (6 + 2 * dout)
+    once = ((n * H * dout + 2 * n * H) * in_size + 5 * E + 4 * (n + 1)
+            + n * H * dout * acc_size)
+    gather = (E * (3 * (4 + 1 + H * in_size) + H * dout * in_size)
+              + n * (H * in_size + 16) + n * H * dout * acc_size)
+    (once_ms, by), (gather_ms, _) = (_bound(once, flops, "float32"),
+                                     _bound(gather, flops, "float32"))
+    return dict(bound_ms=once_ms, bound_by=by, gather_once_bound_ms=gather_ms)
+
+
+def _gat_graph(rng, N: int, E: int, hub: int):
+    """A seeded GAT test graph of N nodes and E uniform edge slots, 10%
+    masked, plus ``hub`` slots into node 5 (above the plan's threshold);
+    node 7 has no in-edge, every in-edge slot of node 9 is masked."""
+    src = rng.integers(0, N, E + hub).astype(np.int32)
+    dst = np.concatenate([rng.integers(0, N, E), np.full(hub, 5)]).astype(
+        np.int32)
+    dst[dst == 7] = 8
+    mask = rng.random(E + hub) >= 0.1
+    mask[dst == 9] = False
+    return src, dst, mask
+
+
+def _gat_case(name, src, dst, mask, n, H, dout, dt, acc, gen, timed=False,
+              zero_rows=()):
+    """``gat_aggregate`` against ``gat_aggregate_plain`` on the card, on
+    seeded random hw, s_src, s_dst: two launches bit-identical; each
+    element within 1e-5 (dt and acc both f32) or ``GAT_BF16_TOL`` (bf16
+    anywhere) of its row's sum of |msg| (``_sum_ratio`` against float64
+    sums of the plain version's messages; the plain version's own ratio
+    printed beside the kernel's); the ``zero_rows`` (empty or
+    all-masked) 0.  Timed: beside both bounds and the plain version."""
+    import torch
+    from repro_torch.kernels.segment_spmm import ops
+    dev = torch.device(DEVICE)
+    plan = ops.segment_plan(dst, n, src=src, mask=mask)
+    hw = torch.randn((n, H, dout), generator=gen, device=dev).to(dt)
+    s_src = torch.randn((n, H), generator=gen, device=dev).to(dt)
+    s_dst = torch.randn((n, H), generator=gen, device=dev).to(dt)
+    args = (hw, s_src, s_dst, plan, mask, acc)
+    got = ops.gat_aggregate(*args)
+    again = ops.gat_aggregate(*args)
+    want = ops.gat_aggregate_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"gat_aggregate {name}: two runs differ")
+    E = dst.shape[0]
+    row = dict(kernel="segment_spmm", variant="gat", shape=name, E=E, n=n,
+               H=H, dout=dout, dtype=str(dt).split(".")[-1],
+               acc_dtype=str(acc).split(".")[-1], hub_degree=ops.HUB_DEGREE,
+               hub_rows=plan.n_heavy,
+               max_in_degree=int((plan.rowptr[1:] - plan.rowptr[:-1]).max()),
+               max_abs_err=float((got.float() - want.float()).abs().max()))
+    msg = ops.gat_messages_plain(*args).reshape(E, H * dout)
+    s, a = _f64_sums(msg, dst, n)
+    del msg
+    tol = GNN_TOL if dt == acc == torch.float32 else GAT_BF16_TOL
+    out_bf16 = acc == torch.bfloat16
+    row.update(row_ratio=_sum_ratio(got.reshape(n, -1), s, a, out_bf16, tol),
+               plain_row_ratio=_sum_ratio(want.reshape(n, -1), s, a,
+                                          out_bf16, tol),
+               tol=tol, check="row sum of |msg|, float64")
+    del s, a
+    ok = row["row_ratio"] <= 1
+    check(ok and got.dtype == acc and bool(torch.isfinite(got).all()),
+          f"gat_aggregate {name} disagrees with its plain version: {row}")
+    for v in zero_rows:
+        check(not bool(got[v].any()),
+              f"gat_aggregate {name}: row {v} (no live edge) is not 0")
+    if timed:
+        row["kernel_ms"] = cuda_ms(lambda: ops.gat_aggregate(*args), iters=10)
+        row["plain_ms"] = cuda_ms(lambda: ops.gat_aggregate_plain(*args),
+                                  iters=2)
+        row["library_ms"] = None
+        row.update(_gat_bounds(E, n, H, dout, hw.element_size(),
+                               got.element_size()))
+    del hw, s_src, s_dst, got, again, want, plan, args
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_gnn_kernels(src_products, dst_products, n_products: int):
+    """segment_spmm's "sum" and "gat" variants against their plain
+    versions on the card.  The sweep shapes and edge cases, f32 and bf16
+    messages summed into f32, are held elementwise at rtol = atol = 1e-5.
+    At the model shapes — GAT's
     three widths on the products graph, GraphCast's minibatch capacity
     and its Cora-sized graph — a long row's f32 sum in another order is
     not bit-equal, so each element is held to 1e-5 of its row's sum of
     |msg| against a float64 sum (``_sum_ratio``), the kernel's and the
-    plain version's ratios printed.  GAT's D = 64 is timed beside its
-    bound, the plain version and two library calls: ``index_add_`` and
-    ``segment_reduce`` over messages already sorted by destination.
+    plain version's ratios printed.  GAT's old D = 64, the minibatch and
+    the bf16 Cora-sized row that GraphCast's forward runs (the kernels
+    line's "sum") are timed beside the bound, the plain version and two
+    library calls: ``index_add_`` in f32 or ``torch.sparse.mm`` in bf16
+    (``_csr_mm_ms``), and ``segment_reduce`` over messages already sorted
+    by destination.  The "gat" rows are held and timed by ``_gat_case``.
     Returns the timed rows."""
     import torch
     from repro_torch.kernels.segment_spmm import ops
@@ -1446,21 +1589,41 @@ def phase_gnn_kernels(dst_products, n_products: int):
     rand_case("one_node", 1000, 10, 16,
               dst=torch.full((1000,), 3, device=dev, dtype=torch.int32))
     rand_case("masked", 3000, 500, 8, keep=0.7)
-    worst = {}
+    rand_case("hub", 5000, 400, 64,                 # node 0 above the
+              dst=torch.randint(0, 400, (5000,), generator=gen, device=dev,
+                                dtype=torch.int32) * (torch.rand(
+                  (5000,), generator=gen, device=dev) > 0.2))   # threshold
+    # each case elementwise at 1e-5 against the plain version's sums in
+    # float64: the plain version itself adds in float32 with index_add_'s
+    # atomics, in an order that changes from run to run, and on the hub's
+    # row of about a thousand edges its own error can pass 1e-5 (printed
+    # beside the kernel's), so it cannot be the yardstick there
+    worst, worst_plain = {}, {}
     for dtype in ("float32", "bfloat16"):
         for name, msgs, dst, n in cases:
             m = msgs.to(dts[dtype])
-            got = ops.segment_spmm(m, dst, n, ops.segment_plan(dst, n))
+            plan = ops.segment_plan(dst, n)
+            got = ops.segment_spmm(m, dst, n, plan)
+            again = ops.segment_spmm(m, dst, n, plan)
             want = ops.segment_spmm_plain(m, dst, n)
+            s, _ = _f64_sums(m, dst, n)
             torch.cuda.synchronize()
-            ok, err, elem, _ = _compare(got, want, GNN_TOL)
-            check(ok and got.dtype == torch.float32,
+            elem = _elem_ratio(got, s, GNN_TOL)
+            check(elem <= 1 and got.dtype == torch.float32,
                   f"segment_spmm {name} {dtype} disagrees: max abs err "
-                  f"{err}, elementwise ratio {elem}")
+                  f"{float((got.double() - s).abs().max())}, elementwise "
+                  f"ratio {elem}")
+            check(torch.equal(got, again),
+                  f"segment_spmm {name} {dtype}: two runs differ")
             worst[f"{name}/{dtype}"] = elem
-    emit(phase="gnn_kernels", kernel="segment_spmm",
+            worst_plain[f"{name}/{dtype}"] = _elem_ratio(want, s, GNN_TOL)
+    emit(phase="gnn_kernels", kernel="segment_spmm", variant="sum",
          elementwise_cases=[c[0] for c in cases], tol=GNN_TOL,
-         worst_elem_ratio=max(worst.values()))
+         check="elementwise, float64 sums", hub_degree=ops.HUB_DEGREE,
+         worst_elem_ratio=max(worst.values()),
+         hub_elem_ratio=worst["hub/float32"],
+         plain_hub_elem_ratio=worst_plain["hub/float32"],
+         plain_worst_elem_ratio=max(worst_plain.values()))
     del cases
 
     mb_dst, mb_n = minibatch_dst()
@@ -1480,7 +1643,12 @@ def phase_gnn_kernels(dst_products, n_products: int):
          mb_n, 512, "bfloat16", "bfloat16", True),
         ("graphcast_cora_d512", torch.as_tensor(cora["edge_dst"],
                                                 device=dev),
-         n_cora, 512, "float32", "float32", False)]
+         n_cora, 512, "float32", "float32", False),
+        # what GraphCast's forward in phase 11 runs: its launches and this
+        # row's times stand for "sum" in the kernels line
+        ("graphcast_cora_d512_bf16", torch.as_tensor(cora["edge_dst"],
+                                                     device=dev),
+         n_cora, 512, "bfloat16", "bfloat16", True)]
     rows = {}
     for name, dst, n, D, in_dt, out_dt, timed in model:
         E = dst.shape[0]
@@ -1515,9 +1683,13 @@ def phase_gnn_kernels(dst_products, n_products: int):
                 msgs, dst, n, plan, out_dtype=odt), iters=10)
             row["plain_ms"] = cuda_ms(lambda: ops.segment_spmm_plain(
                 msgs, dst, n, out_dtype=odt), iters=5)
-            row["library_ms"] = cuda_ms(lambda: torch.zeros(
-                (n, D), dtype=torch.float32, device=dev).index_add_(
-                0, dst, msgs), iters=5) if in_dt == "float32" else None
+            if in_dt == "float32":
+                row["library"] = "index_add_"
+                row["library_ms"] = cuda_ms(lambda: torch.zeros(
+                    (n, D), dtype=torch.float32, device=dev).index_add_(
+                    0, dst, msgs), iters=5)
+            else:
+                row.update(_csr_mm_ms(msgs, got, plan))
             ordered = msgs.index_select(0, plan.perm)
             lengths = deg.long()
             row["segment_reduce_ms"] = cuda_ms(lambda: torch.segment_reduce(
@@ -1530,32 +1702,106 @@ def phase_gnn_kernels(dst_products, n_products: int):
         emit(phase="gnn_kernels", **row)
         del msgs, got, plan, deg
         torch.cuda.empty_cache()
-    # the products graph's longest row alone at D = 64 f32: the time its
-    # one group of lanes takes, which no other row's work can hide
+    # the products graph's longest row alone at D = 64 f32: with the hub
+    # split (a block of its own), and without it (the threshold at the
+    # row's length: one group of lanes), the time no other row can hide
     longest = int(torch.bincount(dst_products).max())
     dst1 = torch.zeros(longest, dtype=torch.int32, device=dev)
     msgs = torch.randn((longest, 64), generator=gen, device=dev)
-    plan = ops.segment_plan(dst1, 1)
+    split = ops.segment_plan(dst1, 1)
+    whole = dataclasses.replace(split, n_heavy=0)
     emit(phase="gnn_kernels", shape="longest_row_d64", E=longest, D=64,
-         kernel_ms=cuda_ms(lambda: ops.segment_spmm(msgs, dst1, 1, plan)),
+         hub_degree=ops.HUB_DEGREE,
+         kernel_ms=cuda_ms(lambda: ops.segment_spmm(msgs, dst1, 1, split)),
+         unsplit_ms=cuda_ms(lambda: ops.segment_spmm(msgs, dst1, 1, whole)))
+    del msgs, dst1, split, whole
+
+    # the "gat" variant: a small graph with a hub, masked slots, an empty
+    # and an all-masked row, at GAT's reduced and full head shapes in
+    # every dtype pair; then the products graph's two layers (bf16 model,
+    # f32 sums as gat_forward runs them, layer 1 also with bf16 messages
+    # and in f32) and the Cora-sized graph's, timed
+    rng = np.random.default_rng(7)
+    small = [torch.as_tensor(x, device=dev)
+             for x in _gat_graph(rng, 300, 6000, hub=600)]
+    worst = {}
+    for H, dout in ((2, 4), (8, 8), (8, 7)):
+        for dt in (torch.float32, torch.bfloat16):
+            for acc in (torch.float32, torch.bfloat16):
+                r = _gat_case(f"small_{H}x{dout}", *small, 300, H, dout, dt,
+                              acc, gen, zero_rows=(7, 9))
+                worst[f"{H}x{dout}/{r['dtype']}/{r['acc_dtype']}"] = r[
+                    "row_ratio"]
+    emit(phase="gnn_kernels", kernel="segment_spmm", variant="gat",
+         shape="small (300 nodes, 6,600 slots, a 600-slot hub)",
+         hub_degree=ops.HUB_DEGREE, worst=worst)
+    del small
+    f32, b16 = torch.float32, torch.bfloat16
+    mask_p = torch.ones_like(dst_products, dtype=torch.bool)
+    cora_t = [torch.as_tensor(cora[k], device=dev)
+              for k in ("edge_src", "edge_dst", "edge_mask")]
+    for name, graph, n, H, dout, dt, acc in [
+            ("gat_products_l1", (src_products, dst_products, mask_p),
+             n_products, 8, 8, b16, f32),
+            ("gat_products_l2", (src_products, dst_products, mask_p),
+             n_products, 8, 7, b16, f32),
+            ("gat_products_l1_bf16_msgs", (src_products, dst_products,
+                                           mask_p), n_products, 8, 8, b16,
+             b16),
+            ("gat_products_l1_f32", (src_products, dst_products, mask_p),
+             n_products, 8, 8, f32, f32),
+            ("gat_cora_l1", cora_t, n_cora, 8, 8, b16, f32),
+            ("gat_cora_l1_f32", cora_t, n_cora, 8, 8, f32, f32),
+            ("gat_cora_l2_f32", cora_t, n_cora, 8, 7, f32, f32)]:
+        row = _gat_case(name, *graph, n, H, dout, dt, acc, gen, timed=True)
+        emit(phase="gnn_kernels", **row)
+        rows[name] = row
+    # the hub split at the products graph's layer-1 shape: the kernel's
+    # time at other thresholds and with no split (the plan's rows are in
+    # degree order, so a threshold only sets how many lead as hubs)
+    hw = torch.randn((n_products, 8, 8), generator=gen, device=dev).to(b16)
+    s_src = torch.randn((n_products, 8), generator=gen, device=dev).to(b16)
+    s_dst = torch.randn((n_products, 8), generator=gen, device=dev).to(b16)
+    sweep = {}
+    base = ops.segment_plan(dst_products, n_products, src=src_products,
+                            mask=mask_p)
+    deg = base.rowptr[1:] - base.rowptr[:-1]
+    for t in (64, ops.HUB_DEGREE, 512, dst_products.shape[0]):
+        plan = dataclasses.replace(base, n_heavy=int((deg > t).sum()))
+        sweep[t] = dict(hub_rows=plan.n_heavy, kernel_ms=cuda_ms(
+            lambda: ops.gat_aggregate(hw, s_src, s_dst, plan, mask_p, f32)))
+        del plan
+    del base, deg
+    emit(phase="gnn_kernels", shape="hub_sweep", variant="gat",
+         of="gat_products_l1", by_hub_degree=sweep,
          wall_s=time.perf_counter() - t_phase)
+    del hw, s_src, s_dst, mask_p
+    torch.cuda.empty_cache()
     return rows
 
 
-def _gnn_launches(cfg) -> int:
-    """segment_spmm launches of one forward: GAT sums denominators and
-    messages per layer; GraphCast and SchNet sum once per layer; PNA sums
+def _gnn_launches(cfg) -> dict:
+    """segment_spmm launches of one forward, by variant: GAT one "gat" a
+    layer and no "sum"; GraphCast and SchNet one "sum" a layer; PNA sums
     the degree once, then per layer two ``_seg_mean``s (mean and std) of
     two sums each."""
-    return {"gat": 2 * cfg.n_layers, "graphcast": cfg.n_layers,
-            "schnet": cfg.n_layers, "pna": 1 + 4 * cfg.n_layers}[cfg.kind]
+    if cfg.kind == "gat":
+        return {"sum": 0, "gat": cfg.n_layers}
+    return {"sum": {"graphcast": cfg.n_layers, "schnet": cfg.n_layers,
+                    "pna": 1 + 4 * cfg.n_layers}[cfg.kind], "gat": 0}
+
+
+def _zero_gnn_launches() -> None:
+    from repro_torch.kernels.segment_spmm import ops
+    ops.launches = 0
+    ops.launches_by_variant = dict.fromkeys(ops.VARIANTS, 0)
 
 
 def phase_gnn_parity():
     """The four GNNs at their full config widths in float32 on the
     Cora-sized graph: the kernel path against the plain path (the same
     weights, ``_plain_kernels``), each held to a relative 1e-4 (max |diff|
-    over max |plain|)."""
+    over max |plain|), the kernel path's launches by variant counted."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.convert import graph_batch_from_arrays
@@ -1575,12 +1821,12 @@ def phase_gnn_parity():
         out = {}
         for plain in (False, True):
             with _plain_kernels(plain):
-                ops.launches = 0
+                _zero_gnn_launches()
                 o = gnn_forward(params, cfg, gb)
                 torch.cuda.synchronize()
-                out[plain] = (o, ops.launches)
+                out[plain] = (o, dict(ops.launches_by_variant))
         (ok_, nk), (op, npl) = out[False], out[True]
-        check(nk == _gnn_launches(cfg) and npl == 0,
+        check(nk == _gnn_launches(cfg) and not any(npl.values()),
               f"gnn_parity {arch}: launches {nk} (plain {npl}), want "
               f"{_gnn_launches(cfg)}")
         check(bool(torch.isfinite(ok_).all()), f"gnn_parity {arch}: not "
@@ -1606,26 +1852,56 @@ def _gnn_forward_once(params, cfg, gb) -> dict:
     from repro_torch.models import gnn_forward
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.launches = 0
+    _zero_gnn_launches()
     t0 = time.perf_counter()
     out = gnn_forward(params, cfg, gb)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return dict(out=out, wall_ms=wall * 1e3, launches=ops.launches,
+    return dict(out=out, wall_ms=wall * 1e3,
+                launches=dict(ops.launches_by_variant),
                 peak=torch.cuda.max_memory_allocated())
+
+
+def _launch_shape(fn) -> dict:
+    """The longest CUDA kernel of one call of ``fn``, with its grid and
+    block, from a ``torch.profiler`` trace (written under ``build/`` and
+    deleted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(ROOT, "build", f"trace-{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    kern = max((e for e in events if e.get("cat") == "kernel"),
+               key=lambda e: e.get("dur", 0), default={"name": None})
+    args = kern.get("args", {})
+    return dict(kernel=kern["name"] and kern["name"][:80],
+                grid=args.get("grid"), block=args.get("block"))
 
 
 def phase_gnn_serve(products: dict):
     """GAT (``gat-cora``'s full config, bf16, seeded random weights) on the
-    products-sized graph: two forwards that must be bit-identical, one
-    with ``gnn_bf16_msgs``, and a ``torch.profiler`` split of one more;
-    then GraphCast at full width (16 layers, d = 512, bf16) on the
-    Cora-sized graph.  Returns the first GAT forward's launch count."""
+    products-sized graph: three forwards that must be bit-identical and
+    launch the "gat" variant once a layer and nothing else, one with
+    ``gnn_bf16_msgs``, and a ``torch.profiler`` split of one more, which
+    must hold no edge-sized ``index_select`` or ``scatter_reduce``; the
+    edge gathers that GraphCast, SchNet and PNA still make, timed four
+    ways; then GraphCast at full width (16 layers, d = 512, bf16) on the
+    Cora-sized graph.  Returns the launches by variant of the first GAT
+    forward ("gat") and of the first GraphCast forward ("sum")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.convert import graph_batch_from_arrays
     from repro_torch.distributed import ctx
+    from repro_torch.kernels.segment_spmm import ops
     from repro_torch.models import GraphBatch, gnn_forward, init_gnn
     dev = torch.device(DEVICE)
     t_phase = time.perf_counter()
@@ -1642,8 +1918,7 @@ def phase_gnn_serve(products: dict):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    plan = gb.plan()
-    gb.dst_index()
+    plan = gb.gat_plan()
     torch.cuda.synchronize()
     plan_ms = (time.perf_counter() - t0) * 1e3
     deg = (plan.rowptr[1:] - plan.rowptr[:-1]).float()
@@ -1651,9 +1926,10 @@ def phase_gnn_serve(products: dict):
                  live_edges=int(gb.edge_mask.sum()),
                  max_in_degree=int(deg.max()), mean_in_degree=float(
                      deg.mean()), nodes_without_in_edges=int((deg == 0).sum()),
+                 hub_degree=ops.HUB_DEGREE, hub_rows=plan.n_heavy,
                  d_feat=F_, setup_s=setup_s, plan_ms=plan_ms)
     del deg
-    runs = [_gnn_forward_once(params, cfg, gb) for _ in range(2)]
+    runs = [_gnn_forward_once(params, cfg, gb) for _ in range(3)]
     want = _gnn_launches(cfg)
     for r in runs:
         check(r["launches"] == want, f"gnn_serve GAT launches "
@@ -1661,8 +1937,9 @@ def phase_gnn_serve(products: dict):
         check(tuple(r["out"].shape) == (N, cfg.n_classes)
               and bool(torch.isfinite(r["out"]).all()),
               "gnn_serve GAT: output not finite or misshapen")
-    check(torch.equal(runs[0]["out"], runs[1]["out"]),
-          "gnn_serve GAT: two forwards are not bit-identical")
+    check(all(torch.equal(runs[0]["out"], r["out"]) for r in runs[1:]),
+          "gnn_serve GAT: three forwards are not bit-identical")
+    check("dst64" not in gb._memo, "gnn_serve GAT built the int64 dst ids")
     ctx.set_flags(gnn_bf16_msgs=True)
     try:
         b16 = _gnn_forward_once(params, cfg, gb)
@@ -1673,27 +1950,48 @@ def phase_gnn_serve(products: dict):
           f"finite")
     b16_rel = _rel(b16["out"], runs[0]["out"])
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    E = gb.edge_src.shape[0]
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
         gnn_forward(params, cfg, gb)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     split = _kernel_times(prof, wall, top=10)
-    # the row gathers along the edges (``index_select`` by src or dst),
-    # timed alone at GAT's two row widths beside their byte bound: the
-    # table and the ids read once, the (E, ...) rows written once
+    edge_ops = sorted({e.name for e in prof.events()
+                       if any(w in e.name for w in EDGE_OPS)
+                       and any(E in shape for shape in e.input_shapes)})
+    check(not edge_ops, f"gnn_serve GAT: edge-sized {edge_ops} in the "
+                        f"profiled forward")
+    split["edge_sized_gathers_or_scatters"] = edge_ops
+    # the row gathers along the edges that GraphCast, SchNet and PNA still
+    # make, at GAT's two row widths on the same tables and ids, four ways,
+    # each beside its byte bound (the table and the ids read once, the
+    # (E, ...) rows written once) and with the kernel it launched
     gathers = {}
-    E = gb.edge_src.shape[0]
+    ids64 = gb.edge_src.long()
     for name, shape in (("N_8_bf16", (N, 8)), ("N_8_8_bf16", (N, 8, 8))):
         x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        flat = x.reshape(N, -1)
         nbytes = x.numel() * x.element_size()
-        gathers[name] = dict(
-            ms=cuda_ms(lambda: x.index_select(0, gb.edge_src), iters=5),
-            bound_ms=(nbytes + 4 * E + E * nbytes // N) / HBM_BYTES_PER_S
-            * 1e3)
-        del x
-    del gb, params, feats, runs[0]["out"], runs[1]["out"], b16["out"], prof
+        wide = ids64.view(E, 1).expand(E, flat.shape[1])
+        ways = {
+            "index_select_int32": (lambda: x.index_select(0, gb.edge_src), 4),
+            "index_select_int64": (lambda: x.index_select(0, ids64), 8),
+            "embedding_int32": (lambda: torch.embedding(flat, gb.edge_src),
+                                4),
+            "gather_expanded_int64": (lambda: torch.gather(flat, 0, wide),
+                                      8)}
+        gathers[name] = {way: dict(
+            ms=cuda_ms(fn, iters=5),
+            bound_ms=(nbytes + id_size * E + E * nbytes // N)
+            / HBM_BYTES_PER_S * 1e3, **_launch_shape(fn))
+            for way, (fn, id_size) in ways.items()}
+        del x, flat, wide
+    del ids64
+    for r in (*runs, b16):
+        del r["out"]
+    del gb, params, feats, prof
     torch.cuda.empty_cache()
 
     gcfg = get_config("graphcast").model
@@ -1726,7 +2024,8 @@ def phase_gnn_serve(products: dict):
                             dict(wall_ms=r["wall_ms"], peak_bytes=r["peak"],
                                  launches=r["launches"]) for r in gc]),
          wall_s=time.perf_counter() - t_phase)
-    return runs[0]["launches"]
+    return {"gat": runs[0]["launches"]["gat"],
+            "sum": gc[0]["launches"]["sum"]}
 
 
 def main():
@@ -1808,6 +2107,7 @@ def main():
     emit(phase="gnn_graph", build_s=time.perf_counter() - t0,
          n_nodes=n_products, edge_slots=len(products["edge_dst"]))
     gnn_rows = phase_gnn_kernels(
+        torch.as_tensor(products["edge_src"], device=DEVICE),
         torch.as_tensor(products["edge_dst"], device=DEVICE), n_products)
     torch.cuda.empty_cache()
     phase_gnn_parity()
@@ -1833,8 +2133,12 @@ def main():
          lm_launches["moe_gemm"], lm_rows["moe_gemm", "bfloat16"]),
         ("segment_spmm",
          "src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu",
-         "src/repro/kernels/segment_spmm/kernel.py:35", gnn_launches,
-         gnn_rows["gat_products_d64"])]
+         "src/repro/kernels/segment_spmm/kernel.py:35", gnn_launches["sum"],
+         gnn_rows["graphcast_cora_d512_bf16"]),
+        ("segment_spmm_gat",
+         "src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu",
+         "src/repro/kernels/segment_spmm/kernel.py:35", gnn_launches["gat"],
+         gnn_rows["gat_products_l1"])]
     emit(kernels=[dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],

@@ -40,7 +40,10 @@ class EngineConfig:
                                        # 'auto' (measured per-run selection
                                        # from persisted wire trials — see
                                        # core/wire.py resolve_wire_format;
-                                       # requires priors_path to learn)
+                                       # requires priors_path to learn; the
+                                       # measured choice depends on wall
+                                       # times, so runs may differ in wire
+                                       # bytes, never in results)
     plan_rho: float = 1.0              # score-function exponent (paper uses 1)
     seed: int = 0
     # --- on-device adjacency storage (graph/storage.py DeviceGraph) --------- #

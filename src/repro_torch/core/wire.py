@@ -675,7 +675,15 @@ def resolve_wire_format(requested: str, mode: str, prior: dict | None = None,
 
     Returns ``(format, reason)`` with reason in ``{"explicit", "measured",
     "explore", "heuristic"}`` — the driver reports it as
-    ``stats["wire_auto_reason"]``."""
+    ``stats["wire_auto_reason"]``.
+
+    The function itself is pure: the same priors give the same answer in
+    both packages.  But the "measured" branch compares recorded wall
+    times, so two runs of either package (or one of each) on the same
+    input may pick different codecs, as ``pipeline_depth="auto"`` may
+    pick different depths (:mod:`repro_torch.core.scheduler`).  Counts
+    and embeddings never differ between them; the wire bytes
+    (``bytes_wire_*``, their per-device arrays, ``comm_skew``) do."""
     if requested != "auto":
         return requested, "explicit"
     trials = (prior or {}).get("wire_trials", {})

@@ -1,43 +1,89 @@
-// Segment sum of edge messages by destination for Hopper (sm_90a):
-//   out[v] = sum of msgs[e] over the edges e with dst[e] == v
-// for msgs (E, D) float32 or bfloat16, summed in float32, written as
-// float32 or bfloat16.  It is the GNN message aggregation of every
-// `_seg_sum` in the model zoo (GraphCast, SchNet, PNA, GAT).
+// Segment sums by destination for Hopper (sm_90a), in two variants.
+//
+// "sum":  out[v] = sum of msgs[e] over the edges e with dst[e] == v
+//         for msgs (E, D) float32 or bfloat16, summed in float32, written
+//         as float32 or bfloat16.  It is the GNN message aggregation of
+//         every `_seg_sum` in the model zoo (GraphCast, SchNet, PNA).
+// "gat":  one GAT layer's edge softmax and aggregation, fused: for each
+//         destination v and head h, from the node rows hw (N, H, dout)
+//         and the per-node scores s_src, s_dst (N, H),
+//           score_e = leaky_relu(s_src[src_e, h] + s_dst[v, h], 0.2)
+//           alpha_e = exp(score_e - max score) / sum of exp(...)
+//           out[v, h] = sum of alpha_e * hw[src_e, h]
+//         over v's live edges, with every rounding of the plain version
+//         (ops.gat_aggregate_plain) repeated: see gat_row below.
 //
 // Replaces the TPU kernel segment_spmm_pallas
 // (src/repro/kernels/segment_spmm/kernel.py) with its function, not its
 // form.  The TPU sorts edges into destination tiles on the host and turns
 // each tile's scatter into one_hot(dst_local)^T @ msgs on the MXU: a
-// product that multiplies by zero for (TN - 1)/TN of its work.  Here the
+// product that multiplies by zero for (TN - 1)/TN of its work, and that
+// needs the (E, ...) messages written out first, so GAT's scores,
+// exponentials, weights and messages were edge-sized tensors.  Here the
 // edges come as a CSR plan built once per graph (ops.segment_plan): a
 // stable sort of the edges by destination, `perm`, and `rowptr` (n + 1),
-// so destination v owns the edges perm[rowptr[v] : rowptr[v + 1]].
+// so destination v owns the edges perm[rowptr[v] : rowptr[v + 1]]; for
+// GAT also src_sorted = edge_src[perm] and live_sorted = edge_mask[perm].
 //
-// What bounds it: bytes.  A segment sum does one add per message element,
-// so its work is reading each message once, perm and rowptr once, and
-// writing each output row once: at GAT's first layer on ogbn-products'
-// shape (E = 61,859,140, D = 64, f32 in and out, N = 2,449,029) that is
-// 16.7 GB, about 5.0 ms at 3.35 TB/s.
+// What bounds it: bytes.  "sum" reads each message once, perm and the
+// row spans once, and writes each output row once: at GAT-sized messages
+// on ogbn-products' shape (E = 61,859,140, D = 64, f32 in and out,
+// N = 2,449,029) that is 16.7 GB, about 5.0 ms at 3.35 TB/s.  "gat" writes
+// no edge-sized tensor at all.  A three-pass design that gathers each
+// edge's source id, live byte and s_src row in every pass and its hw row
+// in the last reads about (4 + 1 + 16) * 3 + 128 = 191 bytes an edge at
+// GAT's first layer in bf16 (11.8 GB, 3.5 ms): the "gather-once" bound
+// (the score cache below saves most of the s_src rows after the first).
 //
 // Design.  Each destination row belongs to a group of LPR lanes of one
 // warp (LPR the smallest power of two >= the row's 16-byte vectors, at
-// most 32), so narrow rows (D = 1, 8) pack several rows into a warp and no
-// lane idles.  The lanes run across D with 16-byte loads (4 f32 or 8 bf16
-// values) and gather each message row through perm, so the messages are
-// never permuted into a copy; a row whose bytes are not a multiple of 16
-// (PNA's D = 75) takes scalar loads, still coalesced across lanes.  Sums
-// live in f32 registers, up to 8 edges are loaded ahead of the adds (and
-// their ids one step earlier) to keep bytes in flight, and each output
-// row is written once; an empty row writes 0.  The adds run in the plan's
-// stable edge order, with no atomics, so a run repeats bit for bit.  Rows are not split by edge
-// count: a power-law hub keeps its warp long after the others finish.
+// most 32), so narrow rows pack several rows into a warp and no lane
+// idles.  The lanes run across the row with 16-byte loads (4 f32 or 8
+// bf16 values) and gather each source row through the plan, so nothing is
+// permuted into a copy; a row whose bytes are not a multiple of 16 (PNA's
+// D = 75) takes scalar loads, still coalesced across lanes.  Sums live in
+// f32 registers, several edges are loaded ahead of the adds (their ids
+// one step earlier still), and each output row is written once; an empty
+// row writes 0.  In "gat" a lane owns one vector of the row, so one or
+// two heads: it keeps its heads' running max and denominator in
+// registers through three passes over the row's edges (max, denominator,
+// weighted sum).  The first pass computes each edge's score from the
+// gathered s_src row and keeps the lane's first kCache scores in shared
+// memory for the later passes, which recompute only the scores of longer
+// rows' later edges; only the last pass reads hw.
+//
+// Hub rows.  A power-law graph's largest in-degree (16,961 on the
+// products-sized graph) would keep one lane group busy long after every
+// other row is done.  So the plan lists the rows whose in-degree is above
+// a threshold (ops.HUB_DEGREE), and each such row gets a whole block of
+// its own, scheduled first (the first blocks of the grid): the block's
+// kThreads / LPR lane groups ("slots") take every slots-th edge of the
+// row, and their partial maxima, denominators and sums are combined
+// through shared memory in slot order.  The other rows go to lane groups
+// in the plan's order, by in-degree, largest first: the longest rows
+// start first, and the rows that share a warp have about the same length,
+// so no lane group waits long on another.  The plan's `spans` list each
+// row in that order with its first and end edge, so a lane group finds
+// its row's edges in one 16-byte load.
+//
+// Every add runs in a fixed order, with no atomics, so a run repeats bit
+// for bit: a row's own edges in the plan's (stable) edge order, and for a
+// hub row each slot's edges in order and then the slots in order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxVec = 8;    // values in one 16-byte vector (bf16)
+constexpr int kMaxHeads = 2;  // heads one vector of a GAT row may touch
+constexpr int kMaxUnits = 32; // vectors in one GAT row: one per lane
+constexpr int kCache = 20;    // scores a GAT lane keeps in shared memory:
+                              // with a hub block's partials, 48 KB a block
 
 // VEC consecutive values at p as float (16-byte aligned when VEC > 1)
 template <typename T, int VEC>
@@ -75,7 +121,50 @@ __device__ __forceinline__ void load<__nv_bfloat16, 8>(
   }
 }
 
-// VEC values from a to p (16-byte aligned when VEC > 1)
+// VEC values of T as loaded (16-byte aligned when VEC > 1), unpacked to
+// float one at a time: a row kept across a step takes 4 registers, not
+// VEC
+template <typename T, int VEC>
+struct Packed;
+template <>
+struct Packed<float, 1> {
+  float x;
+  __device__ __forceinline__ void load(const float* p) { x = __ldg(p); }
+  __device__ __forceinline__ float at(int) const { return x; }
+};
+template <>
+struct Packed<float, 4> {
+  float4 x;
+  __device__ __forceinline__ void load(const float* p) {
+    x = __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ __forceinline__ float at(int k) const {
+    return k == 0 ? x.x : k == 1 ? x.y : k == 2 ? x.z : x.w;
+  }
+};
+template <>
+struct Packed<__nv_bfloat16, 1> {
+  float x;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    x = __bfloat162float(p[0]);
+  }
+  __device__ __forceinline__ float at(int) const { return x; }
+};
+template <>
+struct Packed<__nv_bfloat16, 8> {
+  uint4 x;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    x = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  // value k is the low (even k) or high (odd k) half of word k / 2
+  __device__ __forceinline__ float at(int k) const {
+    const uint32_t w = k < 2 ? x.x : k < 4 ? x.y : k < 6 ? x.z : x.w;
+    return __uint_as_float(k & 1 ? w & 0xffff0000u : w << 16);
+  }
+};
+
+// VEC values from a to p, rounded to p's type (VEC * sizeof(*p)-byte
+// aligned)
 template <int VEC>
 __device__ __forceinline__ void store(float* p, const float* a) {
   if constexpr (VEC == 1) {
@@ -93,38 +182,127 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, const float* a) {
   if constexpr (VEC == 1) {
     p[0] = __float2bfloat16_rn(a[0]);
   } else {
-    static_assert(VEC == 8, "bf16 rows are stored 8 values at a time");
-    uint32_t w[4];
+    static_assert(VEC == 4 || VEC == 8, "bf16 rows store 1, 4 or 8 values");
+    uint32_t w[VEC / 2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < VEC / 2; ++i) {
       const __nv_bfloat162 h = __floats2bfloat162_rn(a[2 * i], a[2 * i + 1]);
       w[i] = *reinterpret_cast<const uint32_t*>(&h);
     }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    if constexpr (VEC == 8) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    }
   }
 }
 
-// One destination row per group of (1 << lpr_log2) lanes.  A row has
-// `units` vectors of VEC values; lane `sub` of the group owns vectors
-// sub, sub + LPR, ..., ITEMS of them per pass over the row's edges (a row
-// wider than LPR * ITEMS vectors takes several passes).  UNROLL edges are
-// loaded before they are added, in edge order: ITEMS * UNROLL = 8 keeps
-// 8 loads of 16 bytes in flight per lane.
+// x rounded to T and back: what storing a value in a T tensor does
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// ------------------------------------------------------------------------ //
+// "sum"
+// ------------------------------------------------------------------------ //
+
+// One hub row, by the whole block: slot s of the block's kThreads / LPR
+// lane groups sums the edges beg + s, beg + s + slots, ... in that order,
+// UNROLL of them loaded ahead of the adds; the slots' sums are added in
+// slot order through shared memory.  The row's vectors are taken LPR at a
+// time.
+template <typename TIn, typename TOut, int VEC, int UNROLL>
+__device__ void hub_sum(const TIn* __restrict__ msgs,
+                        const int32_t* __restrict__ perm, int beg, int end,
+                        TOut* __restrict__ orow, int units, int lpr_log2) {
+  __shared__ float part[kThreads * kMaxVec];
+  const int lpr = 1 << lpr_log2;
+  const int slots = kThreads >> lpr_log2;
+  const int slot = threadIdx.x >> lpr_log2;
+  const int sub = threadIdx.x & (lpr - 1);
+  const long long D = (long long)units * VEC;
+  for (int c0 = 0; c0 < units; c0 += lpr) {
+    const int c = c0 + sub;
+    float acc[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+    if (c < units) {
+      for (int e = beg + slot; e < end; e += UNROLL * slots) {
+        int id[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int ee = e + u * slots;
+          id[u] = ee < end ? __ldg(perm + ee) : -1;
+        }
+        float v[UNROLL][VEC];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+          if (id[u] >= 0)
+            load<TIn, VEC>(msgs + (long long)id[u] * D + (long long)c * VEC,
+                           v[u]);
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+          if (id[u] >= 0)
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) acc[k] += v[u][k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) part[threadIdx.x * VEC + k] = acc[k];
+    __syncthreads();
+    for (int i = threadIdx.x; i < lpr * VEC; i += kThreads) {
+      const int s = i / VEC;
+      if (c0 + s < units) {
+        float t = 0.f;
+        for (int j = 0; j < slots; ++j) t += part[j * lpr * VEC + i];
+        store<1>(orow + (long long)c0 * VEC + i, &t);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Blocks [0, n_heavy) each take one hub row, spans[blockIdx.x]; the
+// others take one destination row per group of (1 << lpr_log2) lanes, the
+// rows of spans[n_heavy:] in turn.  A row has `units` vectors of VEC values;
+// lane `sub`
+// of the group owns vectors sub, sub + LPR, ..., ITEMS of them per pass
+// over the row's edges (a row wider than LPR * ITEMS vectors takes
+// several passes).  UNROLL edges are loaded before they are added, in
+// edge order: ITEMS * UNROLL = 8 keeps 8 loads of 16 bytes in flight per
+// lane.
 template <typename TIn, typename TOut, int VEC, int ITEMS, int UNROLL>
 __global__ void __launch_bounds__(kThreads)
 segment_sum_kernel(const TIn* __restrict__ msgs,
                    const int32_t* __restrict__ perm,
-                   const int32_t* __restrict__ rowptr, TOut* __restrict__ out,
-                   long long n, int units, int lpr_log2) {
+                   const int4* __restrict__ spans, int n_heavy,
+                   TOut* __restrict__ out, long long n, int units,
+                   int lpr_log2) {
+  const long long D = (long long)units * VEC;
+  if ((int)blockIdx.x < n_heavy) {
+    const int4 sp = __ldg(spans + blockIdx.x);   // (row, begin, end, 0)
+    hub_sum<TIn, TOut, VEC, 4>(msgs, perm, sp.y, sp.z, out + sp.x * D, units,
+                               lpr_log2);
+    return;
+  }
   const int lpr = 1 << lpr_log2;
   const int lane = threadIdx.x & 31;
-  const long long warp = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
-  const long long row = (warp << (5 - lpr_log2)) + (lane >> lpr_log2);
-  if (row >= n) return;
+  const long long warp =
+      ((long long)(blockIdx.x - n_heavy) * kThreads + threadIdx.x) >> 5;
+  const long long idx =
+      n_heavy + (warp << (5 - lpr_log2)) + (lane >> lpr_log2);
+  if (idx >= n) return;
+  const int4 sp = __ldg(spans + idx);
   const int sub = lane & (lpr - 1);
-  const long long D = (long long)units * VEC;
-  const int beg = __ldg(rowptr + row), end = __ldg(rowptr + row + 1);
-  TOut* orow = out + row * D;
+  const int beg = sp.y, end = sp.z;
+  TOut* orow = out + sp.x * D;
 
   for (int c0 = sub; c0 < units; c0 += lpr * ITEMS) {
     float acc[ITEMS][VEC];
@@ -189,36 +367,348 @@ segment_sum_kernel(const TIn* __restrict__ msgs,
   }
 }
 
-template <typename TIn, typename TOut, int VEC>
-int launch(const void* msgs, const void* perm, const void* rowptr, void* out,
-           long long n, long long d, cudaStream_t stream) {
-  const int units = (int)(d / VEC);
-  int lpr_log2 = 0;
-  while (lpr_log2 < 5 && (1 << lpr_log2) < units) ++lpr_log2;
-  const int per_lane = (units + (1 << lpr_log2) - 1) >> lpr_log2;
+// lanes per row (log2) for a row of `units` vectors, and the grid: the
+// hub rows' blocks, then the lane groups' blocks for the other rows
+int lanes_log2(int units) {
+  int l = 0;
+  while (l < 5 && (1 << l) < units) ++l;
+  return l;
+}
+
+long long grid_blocks(long long n, int lpr_log2, long long n_heavy) {
   const long long rows_per_block = (long long)(kThreads / 32)
                                    << (5 - lpr_log2);
-  const long long blocks = (n + rows_per_block - 1) / rows_per_block;
+  return n_heavy + (n - n_heavy + rows_per_block - 1) / rows_per_block;
+}
+
+template <typename TIn, typename TOut, int VEC>
+int launch_sum(const void* msgs, const void* perm, const void* spans,
+               long long n_heavy, void* out,
+               long long n, long long d, cudaStream_t stream) {
+  const int units = (int)(d / VEC);
+  const int lpr_log2 = lanes_log2(units);
+  const int per_lane = (units + (1 << lpr_log2) - 1) >> lpr_log2;
+  const long long blocks = grid_blocks(n, lpr_log2, n_heavy);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const auto* m = static_cast<const TIn*>(msgs);
   const auto* p = static_cast<const int32_t*>(perm);
-  const auto* r = static_cast<const int32_t*>(rowptr);
+  const auto* sp = static_cast<const int4*>(spans);
   auto* o = static_cast<TOut*>(out);
   const dim3 grid((unsigned)blocks);
+  const int nh = (int)n_heavy;
   if (per_lane <= 1) {
-    segment_sum_kernel<TIn, TOut, VEC, 1, 8>
-        <<<grid, kThreads, 0, stream>>>(m, p, r, o, n, units, lpr_log2);
+    segment_sum_kernel<TIn, TOut, VEC, 1, 8><<<grid, kThreads, 0, stream>>>(
+        m, p, sp, nh, o, n, units, lpr_log2);
   } else if (per_lane <= 2) {
-    segment_sum_kernel<TIn, TOut, VEC, 2, 4>
-        <<<grid, kThreads, 0, stream>>>(m, p, r, o, n, units, lpr_log2);
+    segment_sum_kernel<TIn, TOut, VEC, 2, 4><<<grid, kThreads, 0, stream>>>(
+        m, p, sp, nh, o, n, units, lpr_log2);
   } else if (per_lane <= 4) {
-    segment_sum_kernel<TIn, TOut, VEC, 4, 2>
-        <<<grid, kThreads, 0, stream>>>(m, p, r, o, n, units, lpr_log2);
+    segment_sum_kernel<TIn, TOut, VEC, 4, 2><<<grid, kThreads, 0, stream>>>(
+        m, p, sp, nh, o, n, units, lpr_log2);
   } else {
-    segment_sum_kernel<TIn, TOut, VEC, 8, 1>
-        <<<grid, kThreads, 0, stream>>>(m, p, r, o, n, units, lpr_log2);
+    segment_sum_kernel<TIn, TOut, VEC, 8, 1><<<grid, kThreads, 0, stream>>>(
+        m, p, sp, nh, o, n, units, lpr_log2);
   }
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------------ //
+// "gat"
+// ------------------------------------------------------------------------ //
+
+template <typename TD>
+struct GatArgs {
+  const TD* hw;           // (N, H * dout)
+  const TD* s_src;        // (N, H)
+  const TD* s_dst;        // (N, H)
+  const int32_t* src;     // (E,) edge_src[perm]
+  const uint8_t* live;    // (E,) edge_mask[perm]
+  int heads, dout, units;
+};
+
+// What one lane owns of a GAT row: vector c (values c*VEC .. c*VEC+VEC-1),
+// which touches heads h0 .. h0 + nh - 1 (nh <= kMaxHeads; nh = 0 for a
+// lane past the row's last vector); bit k of `second` is set where value
+// k belongs to head h0 + 1; sd[j] is s_dst[v, h0 + j].
+struct GatLane {
+  int c, h0, nh;
+  uint32_t second;
+  float sd[kMaxHeads];
+};
+
+template <typename TD, int VEC>
+__device__ __forceinline__ GatLane gat_lane(const GatArgs<TD>& g, long long v,
+                                            int c) {
+  GatLane L;
+  L.c = c;
+  L.nh = 0;
+  L.h0 = 0;
+  L.second = 0;
+  if (c < g.units) {
+    const int first = c * VEC;
+    L.h0 = first / g.dout;
+    L.nh = (first + VEC - 1) / g.dout - L.h0 + 1;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      if ((first + k) / g.dout != L.h0) L.second |= 1u << k;
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxHeads; ++j) {
+    L.sd[j] = 0.f;
+    if (j < L.nh) load<TD, 1>(g.s_dst + v * g.heads + L.h0 + j, &L.sd[j]);
+  }
+  return L;
+}
+
+// leaky_relu(a + b, 0.2) in TD, as a float: the add and the negative
+// branch's product round to TD, as PyTorch's elementwise ops do
+template <typename TD>
+__device__ __forceinline__ float gat_score(float a, float b) {
+  const float x = round_to<TD>(__fadd_rn(a, b));
+  return x > 0.f ? x : round_to<TD>(__fmul_rn(x, 0.2f));
+}
+
+// exp(score - max) rounded to the accumulation type TA, as float
+template <typename TA>
+__device__ __forceinline__ float gat_exp(float score, float m) {
+  return round_to<TA>(expf(__fsub_rn(score, m)));
+}
+
+// The source ids of U edges e, e + step, ..., and whether each exists
+// (below `end`) and is live; a lane that owns no vector (on = false)
+// takes no edge
+template <int U>
+struct Edges {
+  int id[U];
+  bool ok[U];
+};
+
+template <typename TD, int U>
+__device__ __forceinline__ void load_edges(const GatArgs<TD>& g, int e,
+                                           int end, int step, bool on,
+                                           Edges<U>& x) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int ee = e + u * step;
+    const bool in = on && ee < end;
+    x.id[u] = in ? __ldg(g.src + ee) : 0;
+    x.ok[u] = in && __ldg(g.live + ee) != 0;
+  }
+}
+
+// One pass over the edges e0, e0 + step, ... < end of a destination row,
+// U edges a step, in order, the next step's ids loaded while this step's
+// source rows load:
+//   PASS 0: m[j]   = max of the live edges' scores;
+//   PASS 1: den[j] = sum in f32 of TA(exp(score - m));
+//   PASS 2: acc[k] = sum in f32 of TA(TD(alpha * hw[src, k])), with
+//           alpha = TD(TA(exp(score - m)) / den)  (den final).
+// Masked and missing edges add nothing.  PASS 0 keeps the scores of the
+// lane's first kCache edges in shared memory (cache[(k * kMaxHeads + j)
+// * kThreads] for its k-th edge and head h0 + j), and the later passes
+// read them there instead of gathering s_src again.
+template <int PASS, int U, typename TD, typename TA, int VEC>
+__device__ __forceinline__ void gat_pass(const GatArgs<TD>& g,
+                                         const GatLane& L, int e0, int end,
+                                         int step, float* cache,
+                                         float (&m)[kMaxHeads],
+                                         float (&den)[kMaxHeads],
+                                         float (&acc)[VEC]) {
+  Edges<U> cur, nxt;
+  load_edges<TD, U>(g, e0, end, step, L.nh > 0, cur);
+  for (int e = e0, k0 = 0; e < end; e += U * step, k0 += U) {
+    load_edges<TD, U>(g, e + U * step, end, step, L.nh > 0, nxt);
+    float a[U][kMaxHeads];
+    Packed<TD, VEC> v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long s = cur.id[u];
+      const bool gather = PASS == 0 || k0 + u >= kCache;
+#pragma unroll
+      for (int j = 0; j < kMaxHeads; ++j) {
+        a[u][j] = 0.f;
+        if (cur.ok[u] && j < L.nh && gather)
+          load<TD, 1>(g.s_src + s * g.heads + L.h0 + j, &a[u][j]);
+      }
+      if (PASS == 2 && cur.ok[u])
+        v[u].load(g.hw + s * ((long long)g.units * VEC) +
+                  (long long)L.c * VEC);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!cur.ok[u]) continue;
+      float alpha[kMaxHeads];
+#pragma unroll
+      for (int j = 0; j < kMaxHeads; ++j) {
+        if (j >= L.nh) continue;
+        float* slot = cache + ((k0 + u) * kMaxHeads + j) * kThreads;
+        const float sc = PASS > 0 && k0 + u < kCache
+                             ? *slot
+                             : gat_score<TD>(a[u][j], L.sd[j]);
+        if (PASS == 0 && k0 + u < kCache) *slot = sc;
+        if (PASS == 0) m[j] = fmaxf(m[j], sc);
+        if (PASS == 1) den[j] = __fadd_rn(den[j], gat_exp<TA>(sc, m[j]));
+        if (PASS == 2)
+          alpha[j] = round_to<TD>(__fdiv_rn(gat_exp<TA>(sc, m[j]), den[j]));
+      }
+      if (PASS == 2) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float w = (L.second >> k) & 1u ? alpha[1] : alpha[0];
+          acc[k] = __fadd_rn(
+              acc[k], round_to<TA>(round_to<TD>(__fmul_rn(w, v[u].at(k)))));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      cur.id[u] = nxt.id[u];
+      cur.ok[u] = nxt.ok[u];
+    }
+  }
+}
+
+// The three passes over one destination row's edges e0, e0 + step, ...
+// < end, for one lane: acc ends as the lane's vector of out[v], in f32.
+// COMBINE(kind, values) merges the lanes' partial maxima (kind 0) and
+// denominators (kind 1) across the block's slots for a hub row (nothing
+// for a row of one lane group).  A row without a live edge ends with
+// acc = 0.  A step takes 8 edges in the score passes and 4 in the
+// weighted sum, where each edge's vector of hw stays packed until used:
+// enough loads in flight at 3 blocks of 256 threads an SM.
+template <typename TD, typename TA, int VEC, typename Combine>
+__device__ __forceinline__ void gat_row(const GatArgs<TD>& g,
+                                        const GatLane& L, int e0, int end,
+                                        int step, float* cache,
+                                        float (&acc)[VEC], Combine combine) {
+  constexpr int kScoreEdges = 8;
+  constexpr int kRowEdges = 4;
+  float m[kMaxHeads], den[kMaxHeads];
+#pragma unroll
+  for (int j = 0; j < kMaxHeads; ++j) {
+    m[j] = -INFINITY;
+    den[j] = 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+  gat_pass<0, kScoreEdges, TD, TA, VEC>(g, L, e0, end, step, cache, m, den,
+                                        acc);
+  combine(0, m);
+  gat_pass<1, kScoreEdges, TD, TA, VEC>(g, L, e0, end, step, cache, m, den,
+                                        acc);
+  combine(1, den);
+#pragma unroll
+  for (int j = 0; j < kMaxHeads; ++j)
+    den[j] = fmaxf(round_to<TA>(den[j]), 1e-9f);
+  gat_pass<2, kRowEdges, TD, TA, VEC>(g, L, e0, end, step, cache, m, den,
+                                     acc);
+}
+
+// Blocks [0, n_heavy) each take one hub row, spans[blockIdx.x]; the
+// others one row per group of (1 << lpr_log2) lanes, lane `sub` owning
+// vector `sub`, the rows of spans[n_heavy:] in turn.
+template <typename TD, typename TA, int VEC>
+__global__ void __launch_bounds__(kThreads, 3)
+gat_aggregate_kernel(GatArgs<TD> g, const int4* __restrict__ spans,
+                     int n_heavy,
+                     TA* __restrict__ out, long long n, int lpr_log2) {
+  const long long D = (long long)g.units * VEC;
+  const int lpr = 1 << lpr_log2;
+  __shared__ float cache[kCache * kMaxHeads * kThreads];
+  if ((int)blockIdx.x < n_heavy) {
+    // a hub row: slot `slot` of the block takes every slots-th edge; the
+    // partials meet in shared memory and are combined in slot order, by
+    // every lane alike, so all slots go on with the same max and
+    // denominator
+    __shared__ float part[kThreads * kMaxVec];
+    const int slots = kThreads >> lpr_log2;
+    const int slot = threadIdx.x >> lpr_log2;
+    const int sub = threadIdx.x & (lpr - 1);
+    const int4 sp = __ldg(spans + blockIdx.x);   // (row, begin, end, 0)
+    const long long row = sp.x;
+    const GatLane L = gat_lane<TD, VEC>(g, row, sub);
+    const auto combine = [&](int kind, float(&x)[kMaxHeads]) {
+#pragma unroll
+      for (int j = 0; j < kMaxHeads; ++j)
+        part[threadIdx.x * kMaxHeads + j] = x[j];
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kMaxHeads; ++j) {
+        float t = kind == 0 ? -INFINITY : 0.f;
+        for (int s = 0; s < slots; ++s) {
+          const float y = part[(s * lpr + sub) * kMaxHeads + j];
+          t = kind == 0 ? fmaxf(t, y) : __fadd_rn(t, y);
+        }
+        x[j] = t;
+      }
+      __syncthreads();
+    };
+    float acc[VEC];
+    gat_row<TD, TA, VEC>(g, L, sp.y + slot, sp.z, slots,
+                         cache + threadIdx.x, acc, combine);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) part[threadIdx.x * VEC + k] = acc[k];
+    __syncthreads();
+    for (int i = threadIdx.x; i < g.units * VEC; i += kThreads) {
+      float t = 0.f;
+      for (int s = 0; s < slots; ++s)
+        t = __fadd_rn(t, part[s * lpr * VEC + i]);
+      store<1>(out + row * D + i, &t);
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      ((long long)(blockIdx.x - n_heavy) * kThreads + threadIdx.x) >> 5;
+  const long long idx =
+      n_heavy + (warp << (5 - lpr_log2)) + (lane >> lpr_log2);
+  const int sub = lane & (lpr - 1);
+  if (idx >= n || sub >= g.units) return;
+  const int4 sp = __ldg(spans + idx);
+  const long long row = sp.x;
+  const GatLane L = gat_lane<TD, VEC>(g, row, sub);
+  float acc[VEC];
+  gat_row<TD, TA, VEC>(g, L, sp.y, sp.z, 1, cache + threadIdx.x, acc,
+                       [](int, float(&)[kMaxHeads]) {});
+  store<VEC>(out + row * D + (long long)sub * VEC, acc);
+}
+
+template <typename TD, typename TA, int VEC>
+int launch_gat(const GatArgs<TD>& g, const void* spans, long long n_heavy,
+               void* out, long long n,
+               cudaStream_t stream) {
+  const int lpr_log2 = lanes_log2(g.units);
+  const long long blocks = grid_blocks(n, lpr_log2, n_heavy);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  gat_aggregate_kernel<TD, TA, VEC>
+      <<<dim3((unsigned)blocks), kThreads, 0, stream>>>(
+          g, static_cast<const int4*>(spans), (int)n_heavy,
+          static_cast<TA*>(out), n, lpr_log2);
+  return (int)cudaGetLastError();
+}
+
+template <typename TD, typename TA>
+int dispatch_gat(const void* hw, const void* s_src, const void* s_dst,
+                 const void* src, const void* live, const void* spans,
+                 long long n_heavy, void* out, long long n,
+                 int heads, int dout, bool vec_ok, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(TD);
+  const long long d = (long long)heads * dout;
+  GatArgs<TD> g{static_cast<const TD*>(hw), static_cast<const TD*>(s_src),
+                static_cast<const TD*>(s_dst),
+                static_cast<const int32_t*>(src),
+                static_cast<const uint8_t*>(live), heads, dout, 0};
+  if (vec_ok && d % V == 0) {
+    g.units = (int)(d / V);
+    if (g.units > kMaxUnits) return (int)cudaErrorInvalidValue;
+    for (int c = 0; c < g.units; ++c)
+      if ((c * V + V - 1) / dout - (c * V) / dout >= kMaxHeads)
+        return (int)cudaErrorInvalidValue;
+    return launch_gat<TD, TA, V>(g, spans, n_heavy, out, n, stream);
+  }
+  g.units = (int)d;
+  if (g.units > kMaxUnits) return (int)cudaErrorInvalidValue;
+  return launch_gat<TD, TA, 1>(g, spans, n_heavy, out, n, stream);
 }
 
 bool aligned16(const void* p) {
@@ -227,33 +717,65 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// msgs (E, D) float32 (in_bf16 = 0) or bfloat16 (1); perm (E,) int32, the
-// edges sorted stably by destination; rowptr (n + 1,) int32 with
-// rowptr[0] = 0, rowptr[n] = E; out (n, D) float32 (out_bf16 = 0) or
+// "sum".  msgs (E, D) float32 (in_bf16 = 0) or bfloat16 (1); perm (E,)
+// int32, the edges sorted stably by destination; spans (n, 4) int32, every
+// row once as (row, its first edge in perm, its end edge, 0), 16-byte
+// aligned, the first n_heavy the hub rows (the plan lists the rows by
+// in-degree, largest first); out (n, D) float32 (out_bf16 = 0) or
 // bfloat16 (1, only for bfloat16 messages).  All contiguous on the
 // current device, n >= 1, D >= 1.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).  Does not synchronise.
 extern "C" int segment_spmm_launch(const void* msgs, const void* perm,
-                                   const void* rowptr, void* out, long long n,
-                                   long long d, int in_bf16, int out_bf16,
-                                   void* stream) {
+                                   const void* spans, long long n_heavy,
+                                   void* out, long long n, long long d,
+                                   int in_bf16, int out_bf16, void* stream) {
   if (n <= 0 || d <= 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   const bool vec_ok = aligned16(msgs) && aligned16(out);
+  using bf16 = __nv_bfloat16;
+  const auto go = [&](auto in, auto o, auto vec) {
+    using TIn = decltype(in);
+    using TOut = decltype(o);
+    return launch_sum<TIn, TOut, decltype(vec)::value>(
+        msgs, perm, spans, n_heavy, out, n, d, s);
+  };
+  using V1 = std::integral_constant<int, 1>;
+  using V4 = std::integral_constant<int, 4>;
+  using V8 = std::integral_constant<int, 8>;
   if (!in_bf16) {
     if (out_bf16) return (int)cudaErrorInvalidValue;
-    if (vec_ok && d % 4 == 0)
-      return launch<float, float, 4>(msgs, perm, rowptr, out, n, d, s);
-    return launch<float, float, 1>(msgs, perm, rowptr, out, n, d, s);
+    return vec_ok && d % 4 == 0 ? go(0.f, 0.f, V4()) : go(0.f, 0.f, V1());
   }
-  if (out_bf16) {
-    if (vec_ok && d % 8 == 0)
-      return launch<__nv_bfloat16, __nv_bfloat16, 8>(msgs, perm, rowptr, out,
-                                                     n, d, s);
-    return launch<__nv_bfloat16, __nv_bfloat16, 1>(msgs, perm, rowptr, out, n,
-                                                   d, s);
-  }
-  if (vec_ok && d % 8 == 0)
-    return launch<__nv_bfloat16, float, 8>(msgs, perm, rowptr, out, n, d, s);
-  return launch<__nv_bfloat16, float, 1>(msgs, perm, rowptr, out, n, d, s);
+  if (out_bf16)
+    return vec_ok && d % 8 == 0 ? go(bf16(), bf16(), V8())
+                                : go(bf16(), bf16(), V1());
+  return vec_ok && d % 8 == 0 ? go(bf16(), 0.f, V8()) : go(bf16(), 0.f, V1());
+}
+
+// "gat".  hw (N, heads * dout), s_src and s_dst (N, heads), all float32
+// (td_bf16 = 0) or bfloat16 (1); src (E,) int32 = edge_src[perm]; live
+// (E,) one byte per edge, edge_mask[perm]; spans, n_heavy as for "sum";
+// out (N, heads * dout) float32 (ta_bf16 = 0) or bfloat16 (1).
+// A row of heads * dout values takes at most 32 vectors (16 bytes each,
+// or single values when the row is not a multiple of 16 bytes), and a
+// vector may touch at most 2 heads: other shapes return
+// cudaErrorInvalidValue (the wrapper checks first).  Launches on `stream`
+// and returns cudaGetLastError().  Does not synchronise.
+extern "C" int gat_aggregate_launch(const void* hw, const void* s_src,
+                                    const void* s_dst, const void* src,
+                                    const void* live, const void* spans,
+                                    long long n_heavy, void* out, long long n,
+                                    int heads, int dout, int td_bf16,
+                                    int ta_bf16, void* stream) {
+  if (n <= 0 || heads <= 0 || dout <= 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool vec_ok = aligned16(hw) && aligned16(out);
+  using bf16 = __nv_bfloat16;
+  const auto go = [&](auto td, auto ta) {
+    return dispatch_gat<decltype(td), decltype(ta)>(
+        hw, s_src, s_dst, src, live, spans, n_heavy, out, n, heads, dout,
+        vec_ok, s);
+  };
+  if (td_bf16) return ta_bf16 ? go(bf16(), bf16()) : go(bf16(), 0.f);
+  return ta_bf16 ? go(0.f, bf16()) : go(0.f, 0.f);
 }

@@ -1,16 +1,25 @@
-"""segment_spmm entry point: the CUDA kernel on the card, the plain
+"""segment_spmm entry points: the CUDA kernel on the card, the plain
 PyTorch version on the CPU.
 
 ``segment_spmm(msgs, dst, n)`` sums edge messages by destination node,
-in float32.  On the card the kernel works from a :class:`SegmentPlan`,
-the destination-sorted CSR of the edge list, which
-:func:`segment_plan` builds once per graph: a forward passes the same
-plan to every segment sum it does (``GraphBatch.plan``).
+in float32 (the "sum" variant).  ``gat_aggregate(hw, s_src, s_dst, plan,
+edge_mask, acc_dtype)`` is one GAT layer's edge softmax and weighted sum
+by destination, fused (the "gat" variant): the kernel reads node rows
+through the plan and writes no edge-sized tensor.  On the card both work
+from a :class:`SegmentPlan`, the destination-sorted CSR of the edge
+list, which :func:`segment_plan` builds once per graph: a forward passes
+the same plan to every call it makes (``GraphBatch.plan``).  The plan
+also orders the rows by in-degree, largest first, and counts the hub
+rows, whose in-degree is above ``HUB_DEGREE``: the kernel gives each hub
+row a block of its own, and the other rows to lane groups in that
+order.
 
 The tensor's device decides the path.  A CUDA tensor launches the
 kernel or raises — there is no fallback — and each launch adds one to
-:data:`launches`, so a run can show that its main path went through the
-kernel.  A CPU tensor runs :func:`segment_spmm_plain`.
+:data:`launches` and to its variant's count in
+:data:`launches_by_variant`, so a run can show that its main path went
+through the kernel.  A CPU tensor runs the plain version
+(:func:`segment_spmm_plain`, :func:`gat_aggregate_plain`).
 """
 from __future__ import annotations
 
@@ -18,22 +27,49 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels.segment_spmm.ref import segment_sum_dense
+from repro_torch.kernels.segment_spmm.ref import segment_max, segment_sum_dense
 
 launches = 0    # kernel launches since the count was last set to 0
+VARIANTS = ("sum", "gat")
+launches_by_variant = dict.fromkeys(VARIANTS, 0)   # the same, by variant
 DTYPES = (torch.float32, torch.bfloat16)
 INDEX_DTYPES = (torch.int32, torch.int64)
 MAX_INDEX = 2 ** 31 - 1     # the kernel's edge and node ids are int32
+# rows with more in-edges than this get a block of the kernel each (on the
+# products-sized graph 16,885 rows, the largest of 16,961 edges; chip_smoke
+# phase 9's hub_sweep times other thresholds and none, by setting a plan's
+# n_heavy)
+HUB_DEGREE = 128
+# the "gat" kernel's limits: a lane owns one vector of a row (16 bytes, or
+# one value when the row is not a multiple of 16 bytes), so a row has at
+# most 32 vectors, and a vector touches at most 2 heads
+GAT_MAX_VECTORS = 32
+GAT_MAX_HEADS_PER_VECTOR = 2
 
 
 @dataclass(frozen=True)
 class SegmentPlan:
     """The destination-sorted CSR of one edge list: destination ``v``
-    owns the edges ``perm[rowptr[v]:rowptr[v + 1]]``, in edge order."""
+    owns the edges ``perm[rowptr[v]:rowptr[v + 1]]``, in edge order.
+    ``spans`` lists the rows by in-degree, largest first (ties by id),
+    each as ``(row, rowptr[row], rowptr[row + 1], 0)``, the kernel's view
+    of the CSR (``order`` is its first column); the first ``n_heavy`` are
+    the hub rows, with more than :data:`HUB_DEGREE` edges.  Built from the
+    sources and the mask too, it holds them in the edges' sorted order
+    (``src_sorted``, ``live_sorted``) and keeps the edge list it was
+    built from (``src``, ``dst``, ``mask``, not copied)."""
 
     perm: torch.Tensor      # (E,) int32: edge ids sorted stably by dst
     rowptr: torch.Tensor    # (n + 1,) int32
+    spans: torch.Tensor     # (n, 4) int32: rows by in-degree, descending
+    n_heavy: int
+    dst: torch.Tensor                       # (E,) as given
+    src: torch.Tensor | None = None         # (E,) as given
+    mask: torch.Tensor | None = None        # (E,) bool as given
+    src_sorted: torch.Tensor | None = None  # (E,) int32: src[perm]
+    live_sorted: torch.Tensor | None = None  # (E,) bool: mask[perm]
 
     @property
     def n(self) -> int:
@@ -43,26 +79,54 @@ class SegmentPlan:
     def n_edges(self) -> int:
         return self.perm.numel()
 
+    @property
+    def order(self) -> torch.Tensor:
+        """The rows by in-degree, largest first."""
+        return self.spans[:, 0]
 
-def segment_plan(dst: torch.Tensor, n: int) -> SegmentPlan:
+    @property
+    def heavy(self) -> torch.Tensor:
+        """The hub rows, largest first."""
+        return self.order[:self.n_heavy]
+
+
+def segment_plan(dst: torch.Tensor, n: int, src: torch.Tensor | None = None,
+                 mask: torch.Tensor | None = None) -> SegmentPlan:
     """The :class:`SegmentPlan` of ``dst`` (E,) int32/int64 ids in
-    ``[0, n)``: a stable sort of the edges by destination and the row
-    pointers from a ``bincount`` and a ``cumsum``.  Preprocessing, run
-    once per graph; it reads the counts' length, so it waits for the
-    device."""
+    ``[0, n)``: a stable sort of the edges by destination, the row
+    pointers from a ``bincount`` and a ``cumsum``, the rows by in-degree
+    and the count of those above :data:`HUB_DEGREE`; with ``src`` (E,)
+    ids and ``mask`` (E,) bool, also both in the sorted order (GAT's
+    kernel needs both).
+    Preprocessing, run once per graph; it reads the counts' length, so
+    it waits for the device."""
     if dst.dim() != 1 or dst.dtype not in INDEX_DTYPES:
         raise ValueError(f"segment_plan wants dst (E,) int32 or int64, got "
                          f"{tuple(dst.shape)} {dst.dtype}")
     if dst.numel() > MAX_INDEX or not 0 <= n <= MAX_INDEX:
         raise ValueError(f"segment_plan takes E and n below 2**31, got "
                          f"E={dst.numel()}, n={n}")
+    for name, t, dtypes in (("src", src, INDEX_DTYPES),
+                            ("mask", mask, (torch.bool,))):
+        if t is not None and (t.shape != dst.shape or t.dtype not in dtypes
+                              or t.device != dst.device):
+            raise ValueError(f"segment_plan wants {name} like dst "
+                             f"{tuple(dst.shape)} on {dst.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
     counts = torch.bincount(dst, minlength=n)     # raises on ids < 0
     if counts.numel() != n:
         raise ValueError(f"segment_plan: dst holds ids >= n = {n}")
     perm = torch.sort(dst, stable=True).indices.to(torch.int32)
     rowptr = torch.zeros(n + 1, dtype=torch.int32, device=dst.device)
     rowptr[1:] = counts.cumsum(0)
-    return SegmentPlan(perm, rowptr)
+    order = torch.sort(counts, descending=True, stable=True).indices
+    spans = torch.stack([order.to(torch.int32), rowptr[order],
+                         rowptr[order + 1], torch.zeros_like(rowptr[1:])], 1)
+    n_heavy = int((counts > HUB_DEGREE).sum())
+    return SegmentPlan(
+        perm, rowptr, spans, n_heavy, dst, src, mask,
+        None if src is None else src.index_select(0, perm).to(torch.int32),
+        None if mask is None else mask.index_select(0, perm))
 
 
 def _check(msgs: torch.Tensor, dst: torch.Tensor, n: int,
@@ -91,6 +155,12 @@ def _check(msgs: torch.Tensor, dst: torch.Tensor, n: int,
                          f"fit n={n}, E={msgs.shape[0]}, {msgs.device}")
 
 
+def _count(variant: str) -> None:
+    global launches
+    launches += 1
+    launches_by_variant[variant] += 1
+
+
 def segment_spmm_plain(msgs: torch.Tensor, dst: torch.Tensor, n: int,
                        plan: SegmentPlan | None = None,
                        out_dtype: torch.dtype = torch.float32
@@ -111,7 +181,6 @@ def segment_spmm(msgs: torch.Tensor, dst: torch.Tensor, n: int,
     ``out[v] = sum of msgs[e] over the edges e with dst[e] == v``, summed
     in float32; a node with no edge gets 0.  ``plan`` is
     ``segment_plan(dst, n)``, built here when it is not given."""
-    global launches
     if msgs.device.type == "cpu":
         return segment_spmm_plain(msgs, dst, n, plan, out_dtype)
     _check(msgs, dst, n, plan, out_dtype)
@@ -127,6 +196,127 @@ def segment_spmm(msgs: torch.Tensor, dst: torch.Tensor, n: int,
     out = torch.empty((n, flat.shape[1]), dtype=out_dtype,
                       device=msgs.device)
     if out.numel():
-        segment_spmm_cuda(flat, plan.perm, plan.rowptr, out)
-        launches += 1
+        segment_spmm_cuda(flat, plan, out)
+        _count("sum")
     return out.reshape(n, *tail)
+
+
+def _check_gat(hw, s_src, s_dst, plan: SegmentPlan, edge_mask,
+               acc_dtype) -> None:
+    if hw.dim() != 3 or s_src.shape != hw.shape[:2] \
+            or s_dst.shape != hw.shape[:2]:
+        raise ValueError(f"gat_aggregate wants hw (N, H, dout) and s_src, "
+                         f"s_dst (N, H), got {tuple(hw.shape)}, "
+                         f"{tuple(s_src.shape)}, {tuple(s_dst.shape)}")
+    if hw.dtype not in DTYPES or s_src.dtype != hw.dtype \
+            or s_dst.dtype != hw.dtype or acc_dtype not in DTYPES:
+        raise TypeError(f"gat_aggregate wants hw, s_src, s_dst of one dtype "
+                        f"and acc_dtype, each float32 or bfloat16, got "
+                        f"{hw.dtype}, {s_src.dtype}, {s_dst.dtype}, "
+                        f"{acc_dtype}")
+    if plan.src is None or plan.n != hw.shape[0] \
+            or edge_mask.shape != (plan.n_edges,) \
+            or edge_mask.dtype != torch.bool:
+        raise ValueError(f"gat_aggregate wants the plan of the graph's "
+                         f"edges (built with src) over N = {hw.shape[0]} "
+                         f"nodes and edge_mask ({plan.n_edges},) bool, got "
+                         f"a plan over {plan.n} nodes and a mask "
+                         f"{tuple(edge_mask.shape)} {edge_mask.dtype}")
+    if not (hw.device == s_src.device == s_dst.device == edge_mask.device
+            == plan.perm.device):
+        raise ValueError("gat_aggregate wants every tensor on one device")
+
+
+def gat_shape_fits(heads: int, dout: int, dtype: torch.dtype) -> bool:
+    """Whether the "gat" kernel takes rows of ``heads * dout`` values of
+    ``dtype`` (contiguous, 16-byte aligned): at most
+    :data:`GAT_MAX_VECTORS` vectors a row, each touching at most
+    :data:`GAT_MAX_HEADS_PER_VECTOR` heads."""
+    d = heads * dout
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    if d % vec:
+        return d <= GAT_MAX_VECTORS          # one value a vector
+    return d // vec <= GAT_MAX_VECTORS and all(
+        (c + vec - 1) // dout - c // dout < GAT_MAX_HEADS_PER_VECTOR
+        for c in range(0, d, vec))
+
+
+def gat_messages_plain(hw: torch.Tensor, s_src: torch.Tensor,
+                       s_dst: torch.Tensor, plan: SegmentPlan,
+                       edge_mask: torch.Tensor,
+                       acc_dtype: torch.dtype) -> torch.Tensor:
+    """The (E, H, dout) ``acc_dtype`` messages that
+    :func:`gat_aggregate_plain` sums by destination: SDDMM edge scores
+    and the segment softmax as edge-sized tensors, in the reference's
+    order of operations, each dropped as soon as that order allows (at
+    ogbn-products' size the messages are 7.9 GB in bf16 and 15.8 GB in
+    f32)."""
+    _check_gat(hw, s_src, s_dst, plan, edge_mask, acc_dtype)
+    N, dt = hw.shape[0], hw.dtype
+    src, dst = plan.src, plan.dst
+    dropped = ~edge_mask[:, None]
+    score = F.leaky_relu(s_src.index_select(0, src)
+                         + s_dst.index_select(0, dst), 0.2).float()
+    score.masked_fill_(dropped, -math.inf)
+    smax = segment_max(score, dst.long(), N)        # (N, H) f32
+    ex = torch.exp(score.sub_(smax.index_select(0, dst))).to(acc_dtype)
+    del score, smax
+    ex.masked_fill_(dropped, 0)
+    den = segment_spmm_plain(ex, dst, N, plan, out_dtype=ex.dtype)
+    alpha = (ex.float()
+             / torch.clamp_min(den.float().index_select(0, dst), 1e-9)
+             ).to(dt)
+    del ex, den
+    return (alpha[..., None] * hw.index_select(0, src)).to(acc_dtype)
+
+
+def gat_aggregate_plain(hw: torch.Tensor, s_src: torch.Tensor,
+                        s_dst: torch.Tensor, plan: SegmentPlan,
+                        edge_mask: torch.Tensor,
+                        acc_dtype: torch.dtype) -> torch.Tensor:
+    """The plain version of :func:`gat_aggregate`, on any device: the
+    messages of :func:`gat_messages_plain` summed by
+    :func:`segment_spmm_plain`."""
+    msg = gat_messages_plain(hw, s_src, s_dst, plan, edge_mask, acc_dtype)
+    return segment_spmm_plain(msg, plan.dst, hw.shape[0], plan,
+                              out_dtype=acc_dtype)
+
+
+def gat_aggregate(hw: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
+                  plan: SegmentPlan, edge_mask: torch.Tensor,
+                  acc_dtype: torch.dtype) -> torch.Tensor:
+    """One GAT layer's aggregation: hw (N, H, dout), s_src and s_dst (N,
+    H) float32 or bfloat16 (the model dtype ``dt``), ``plan`` the
+    :func:`segment_plan` of the edges built with their sources and
+    ``edge_mask``, which marks the live edge slots -> (N, H, dout)
+    ``acc_dtype``.  For destination v and its live edges e, per head:
+    ``score_e = leaky_relu(s_src[src_e] + s_dst[v], 0.2)`` in ``dt``,
+    ``alpha_e = dt(acc(exp(score_e - max)) / max(acc(sum), 1e-9))`` and
+    ``out_v = acc(sum of acc(dt(alpha_e * hw[src_e])))``, every sum in
+    float32; a row without a live edge gets 0.  On the card the kernel
+    computes it in three passes over the row's edges and raises for rows
+    it does not take (:func:`gat_shape_fits`)."""
+    if hw.device.type == "cpu":
+        return gat_aggregate_plain(hw, s_src, s_dst, plan, edge_mask,
+                                   acc_dtype)
+    _check_gat(hw, s_src, s_dst, plan, edge_mask, acc_dtype)
+    if hw.device.type != "cuda":
+        raise ValueError(f"gat_aggregate runs on cuda or cpu, not "
+                         f"{hw.device}")
+    if plan.mask is not edge_mask:
+        raise ValueError("gat_aggregate: the plan was built from another "
+                         "edge_mask")
+    N, H, dout = hw.shape
+    if not gat_shape_fits(H, dout, hw.dtype):
+        raise ValueError(f"gat_aggregate's kernel takes rows of at most "
+                         f"{GAT_MAX_VECTORS} vectors of 16 bytes, each over "
+                         f"at most {GAT_MAX_HEADS_PER_VECTOR} heads; H={H}, "
+                         f"dout={dout} in {hw.dtype} does not fit")
+    from repro_torch.kernels.segment_spmm.kernel import gat_aggregate_cuda
+
+    out = torch.empty((N, H, dout), dtype=acc_dtype, device=hw.device)
+    if out.numel():
+        gat_aggregate_cuda(hw.contiguous(), s_src.contiguous(),
+                           s_dst.contiguous(), plan, out)
+        _count("gat")
+    return out

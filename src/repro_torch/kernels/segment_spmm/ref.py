@@ -1,6 +1,9 @@
 """Plain PyTorch versions of the segment_spmm kernel: the reference's two
 oracles (the CPU path, and what the CUDA kernel is held against on the
-card).  Both return float32, as the TPU kernel does."""
+card), both float32 as the TPU kernel returns, and the segment max of
+GAT's softmax and PNA's max and min."""
+import math
+
 import torch
 
 
@@ -26,3 +29,12 @@ def segment_sum_dense(msgs: torch.Tensor, dst: torch.Tensor,
     out = torch.zeros((n, msgs.shape[1]), dtype=torch.float32,
                       device=msgs.device)
     return out.index_add_(0, dst, msgs.float())
+
+
+def segment_max(x: torch.Tensor, idx64: torch.Tensor, n: int) -> torch.Tensor:
+    """Max of ``x`` (E, ...) by the int64 ``idx64`` into (n, ...); a node
+    with no edge gets ``-inf``, as ``jax.ops.segment_max`` gives."""
+    out = torch.full((n, *x.shape[1:]), -math.inf, dtype=x.dtype,
+                     device=x.device)
+    index = idx64.view(-1, *([1] * (x.dim() - 1))).expand_as(x)
+    return out.scatter_reduce_(0, index, x, "amax", include_self=False)

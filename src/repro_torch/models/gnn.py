@@ -5,12 +5,15 @@ GraphCast (encode-process-decode interaction network), SchNet
 
 Message passing is a gather of node rows along the edges, per-edge
 arithmetic, and a segment sum of the messages by destination node.
-Every segment sum goes through :func:`segment_spmm`: on a CUDA tensor
-the hand-written kernel (``kernels.segment_spmm``), on a CPU tensor its
-plain version.  The kernel works from the batch's destination-sorted
-CSR plan, which :meth:`GraphBatch.plan` builds once per batch and every
-layer reuses.  The segment max (GAT's softmax shift, PNA's max and min)
-is plain PyTorch, as the reference leaves it to XLA.
+Every segment sum of GraphCast, SchNet and PNA goes through
+:func:`segment_spmm`, and each GAT layer's scores, segment softmax and
+sum through :func:`gat_aggregate`: on a CUDA tensor the hand-written
+kernel (``kernels.segment_spmm``, its "sum" and "gat" variants), on a
+CPU tensor its plain version.  The kernel works from the batch's
+destination-sorted CSR plan, which :meth:`GraphBatch.plan` (GAT's:
+:meth:`GraphBatch.gat_plan`) builds once per batch and every layer
+reuses.  PNA's segment max and min are plain
+PyTorch, as the reference leaves them to XLA.
 
 Parameters are nested dicts and lists of tensors.  Where the reference
 stacks per-layer weights for ``lax.scan``, the port keeps a list of
@@ -30,6 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import ctx
 from repro_torch.kernels.segment_spmm import ops as spmm_ops
 from repro_torch.kernels.segment_spmm.ops import SegmentPlan, segment_plan
+from repro_torch.kernels.segment_spmm.ref import segment_max
 from repro_torch.models.layers import _init
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -57,17 +61,26 @@ class GraphBatch:
         return self.node_feats.shape[0]
 
     def _memoized(self, name: str, build):
-        key, val = self._memo.get(name, (None, None))
-        if key is not self.edge_dst:
+        edges = (self.edge_src, self.edge_dst, self.edge_mask)
+        key, val = self._memo.get(name, ((None,) * 3, None))
+        if any(k is not t for k, t in zip(key, edges)):
             val = build()
-            self._memo[name] = (self.edge_dst, val)
+            self._memo[name] = (edges, val)
         return val
 
     def plan(self) -> SegmentPlan:
         """The destination-sorted CSR of the edges, built at first use
-        and kept until ``edge_dst`` is replaced."""
+        and kept until an edge field is replaced."""
         return self._memoized(
             "plan", lambda: segment_plan(self.edge_dst, self.n_nodes))
+
+    def gat_plan(self) -> SegmentPlan:
+        """:meth:`plan` with the edges' sources and mask also in its
+        order, which GAT's kernel reads (two more E-sized gathers, so the
+        other models do not build it)."""
+        return self._memoized("gat_plan", lambda: segment_plan(
+            self.edge_dst, self.n_nodes, src=self.edge_src,
+            mask=self.edge_mask))
 
     def dst_index(self) -> torch.Tensor:
         """``edge_dst`` as int64, the index ``scatter_reduce_`` takes,
@@ -108,15 +121,6 @@ def _seg_mean(x: torch.Tensor, idx: torch.Tensor, n: int,
     s = _seg_sum(x, idx, n, plan)
     c = _seg_sum(mask.to(x.dtype)[:, None], idx, n, plan)
     return s / torch.clamp_min(c, 1)
-
-
-def _seg_max(x: torch.Tensor, idx64: torch.Tensor, n: int) -> torch.Tensor:
-    """Max of ``x`` (E, ...) by the int64 ``idx64`` into (n, ...); a node
-    with no edge gets ``-inf``, as ``jax.ops.segment_max`` gives."""
-    out = torch.full((n, *x.shape[1:]), -math.inf, dtype=x.dtype,
-                     device=x.device)
-    index = idx64.view(-1, *([1] * (x.dim() - 1))).expand_as(x)
-    return out.scatter_reduce_(0, index, x, "amax", include_self=False)
 
 
 # =========================================================================== #
@@ -231,12 +235,12 @@ def pna_forward(params: dict, cfg: GNNConfig, gb: GraphBatch,
             if a == "mean":
                 aggs.append(mean)
             elif a == "max":
-                mx = _seg_max(torch.where(mcol, msg, -1e9).float(),
-                              gb.dst_index(), N)
+                mx = segment_max(torch.where(mcol, msg, -1e9).float(),
+                                 gb.dst_index(), N)
                 aggs.append(torch.where(has_in, mx, 0).to(dt))
             elif a == "min":
-                mn = -_seg_max(torch.where(mcol, -msg, -1e9).float(),
-                               gb.dst_index(), N)
+                mn = -segment_max(torch.where(mcol, -msg, -1e9).float(),
+                                  gb.dst_index(), N)
                 aggs.append(torch.where(has_in, mn, 0).to(dt))
             elif a == "std":
                 sq = _seg_mean(msg * msg, dst, N, mask, plan)
@@ -273,18 +277,15 @@ def init_gat(gen: torch.Generator, cfg: GNNConfig, d_feat: int, n_out: int,
 
 
 def gat_forward(params: dict, cfg: GNNConfig, gb: GraphBatch) -> torch.Tensor:
-    """SDDMM edge scores -> segment softmax -> SpMM.  The last layer
-    averages heads (classification head), earlier layers concat + ELU.
+    """SDDMM edge scores -> segment softmax -> SpMM, one
+    :func:`gat_aggregate` a layer (on the card one fused kernel launch,
+    with no edge-sized tensor).  The last layer averages heads
+    (classification head), earlier layers concat + ELU.
 
     ``ctx.CURRENT.gnn_bf16_msgs`` keeps the softmax denominators and the
-    messages, and their segment sums, in bf16.  Each edge-sized
-    temporary is dropped as soon as the reference's order of operations
-    allows: at ogbn-products' size the (E, H, dout) messages are 7.9 GB
-    in bf16 and 15.8 GB in f32."""
+    messages, and their segment sums, in bf16."""
     acc_dt = torch.bfloat16 if ctx.CURRENT.gnn_bf16_msgs else torch.float32
-    N, dt = gb.n_nodes, _dt(cfg)
-    src, dst, plan = gb.edge_src, gb.edge_dst, gb.plan()
-    dropped = ~gb.edge_mask[:, None]
+    N, dt, plan = gb.n_nodes, _dt(cfg), gb.gat_plan()
     h = gb.node_feats.to(dt)
     n_layers = len(params["layers"])
     for i, lyr in enumerate(params["layers"]):
@@ -292,22 +293,8 @@ def gat_forward(params: dict, cfg: GNNConfig, gb: GraphBatch) -> torch.Tensor:
         hw = (h @ lyr["w"]).reshape(N, H, dout)
         s_src = (hw * lyr["a_src"]).sum(-1)             # (N, H)
         s_dst = (hw * lyr["a_dst"]).sum(-1)
-        score = F.leaky_relu(s_src.index_select(0, src)
-                             + s_dst.index_select(0, dst), 0.2).float()
-        score.masked_fill_(dropped, -math.inf)
-        smax = _seg_max(score, gb.dst_index(), N)       # (N, H) f32
-        ex = torch.exp(score.sub_(smax.index_select(0, dst))).to(acc_dt)
-        del score, smax
-        ex.masked_fill_(dropped, 0)
-        den = _seg_sum(ex, dst, N, plan)
-        alpha = (ex.float()
-                 / torch.clamp_min(den.float().index_select(0, dst), 1e-9)
-                 ).to(dt)
-        del ex, den
-        msg = (alpha[..., None] * hw.index_select(0, src)).to(acc_dt)
-        del alpha
-        out = _seg_sum(msg, dst, N, plan)
-        del msg
+        out = spmm_ops.gat_aggregate(hw, s_src, s_dst, plan, gb.edge_mask,
+                                     acc_dt)
         if i < n_layers - 1:
             h = F.elu(out.float()).to(dt).reshape(N, H * dout)
         else:

@@ -216,9 +216,19 @@ def decode_step(model: TransformerLM, cache: dict, tokens: torch.Tensor,
                 length: int):
     """One decode step. tokens (B,) int; ``length`` = current cache fill
     (int): this step's k/v go to position ``length``.  Returns
-    ``(logits (B, V), cache)``, the cache updated in place."""
+    ``(logits (B, V), cache)``, the cache updated in place.
+
+    A full cache (``length >= max_len``, the cache's sequence axis)
+    raises ``ValueError`` before any slot is written.  The reference
+    writes through ``jax.lax.dynamic_update_slice``, which clamps the
+    start index, so there it silently overwrites the last slot and
+    attends to the overwritten key; the port refuses instead."""
     cfg = model.cfg
     length = int(length)
+    max_len = cache["k"].shape[2]
+    if not 0 <= length < max_len:
+        raise ValueError(f"decode_step: length = {length} does not fit a "
+                         f"cache of max_len = {max_len}")
     B = tokens.shape[0]
     x = model.embed[tokens][:, None, :]                  # (B, 1, d)
     positions = torch.full((B, 1), length, dtype=torch.int32,

@@ -9,6 +9,10 @@ import numpy as np
 SPMM_SWEEP = [(300, 50, 8, 16, 64), (1000, 128, 32, 32, 128),
               (64, 7, 4, 8, 32)]
 SPMM_TOL = 1e-5
+# gat_aggregate with bf16 anywhere, on the card: each element within 3 bf16
+# steps of its row's sum of |msg| (a weight's rounding can go the other way
+# after a denominator one step off, and the message's with it)
+GAT_BF16_TOL = 3 * 2.0 ** -7
 SPMM_EDGE_CASES = ["d1", "d75", "no_edges", "empty_rows", "one_node",
                    "masked"]
 
@@ -66,3 +70,51 @@ def graph_arrays(kind, seed=0):
         edge_mask=rng.random(E) >= MASKED_SHARE,
         labels=labels, label_mask=np.ones(N, bool),
         positions=(2.0 * rng.normal(size=(N, 3))).astype(np.float32))
+
+
+# GAT graphs beyond the seeded one: "hub" adds HUB_SLOTS live-or-masked
+# slots into node 5, above the kernel's hub threshold (HUB_DEGREE = 128),
+# so the card splits that row; the reference's bfloat16 segment sums
+# under gnn_bf16_msgs drift as the in-degree grows (ROADMAP C3), so the
+# hub stays just above the threshold.  "all_masked" adds ALL_MASKED_SLOTS
+# slots into node 9 and masks every slot into it.
+GAT_GRAPHS = ["hub", "all_masked"]
+HUB_NODE, HUB_SLOTS = 5, 150
+ALL_MASKED_NODE, ALL_MASKED_SLOTS = 9, 6
+GAT_HEAD_SHAPES = [(2, 4), (8, 8), (8, 7)]   # reduced, full layers 1 and 2
+
+
+def gat_graph_arrays(case, seed=0):
+    """``graph_arrays("gat")`` with the extra slots of ``case``."""
+    arrays = graph_arrays("gat", seed)
+    rng = np.random.default_rng(seed + 1)
+    node, k = {"hub": (HUB_NODE, HUB_SLOTS),
+               "all_masked": (ALL_MASKED_NODE, ALL_MASKED_SLOTS)}[case]
+    src = rng.integers(0, N_NODES, k).astype(np.int32)
+    arrays["edge_src"] = np.concatenate([arrays["edge_src"], src])
+    arrays["edge_dst"] = np.concatenate([arrays["edge_dst"],
+                                         np.full(k, node, np.int32)])
+    arrays["edge_mask"] = np.concatenate([arrays["edge_mask"],
+                                          rng.random(k) >= MASKED_SHARE])
+    if case == "all_masked":
+        arrays["edge_mask"][arrays["edge_dst"] == node] = False
+    return arrays
+
+
+def gat_kernel_inputs(H, dout, seed=0, N=300, E=6000, hub=600):
+    """Inputs of one ``gat_aggregate`` as float32 numpy arrays: hw (N, H,
+    dout), s_src, s_dst (N, H), and src, dst (E + hub,) int32, mask bool:
+    E uniform slots, 10% masked, and ``hub`` slots into node 5 (above
+    the threshold); node 7 has no in-edge, every slot into node 9 is
+    masked."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, N, E + hub).astype(np.int32)
+    dst = np.concatenate([rng.integers(0, N, E),
+                          np.full(hub, HUB_NODE)]).astype(np.int32)
+    dst[dst == 7] = 8
+    mask = rng.random(E + hub) >= MASKED_SHARE
+    mask[dst == ALL_MASKED_NODE] = False
+    return dict(hw=rng.normal(size=(N, H, dout)).astype(np.float32),
+                s_src=rng.normal(size=(N, H)).astype(np.float32),
+                s_dst=rng.normal(size=(N, H)).astype(np.float32),
+                src=src, dst=dst, mask=mask)

@@ -67,6 +67,24 @@ def test_unported_configurations_raise(setup, mode, wire):
                        device="cpu")
 
 
+def test_wire_auto_two_runs_match_reference(tmp_path):
+    """``wire_format="auto"`` with a priors file per package: run 0 takes
+    the heuristic (raw, in ``sim``), run 1 explores the other codec
+    (varint).  Neither reads a wall time, so each run equals the
+    reference's, wire bytes included.  (Run 2 would compare the two
+    recorded wall times: it may differ between runs of either package.)"""
+    pg, tpg = small_partitions()
+    for run, (fmt, reason) in enumerate((("raw", "heuristic"),
+                                         ("varint", "explore"))):
+        want = reference_run(pg, "q1", wire_format="auto",
+                             priors_path=str(tmp_path / "ref.json"))
+        got = port_run(tpg, "q1", wire_format="auto",
+                       priors_path=str(tmp_path / "port.json"))
+        assert_same_result(got, want)
+        assert (got.stats["wire_format"], got.stats["wire_auto_reason"]) \
+            == (fmt, reason), run
+
+
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys; import repro_torch.core, repro_torch.convert, "
             "repro_torch.launch.enumerate, "

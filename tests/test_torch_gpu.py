@@ -1,8 +1,9 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA kernels
-(membership, intersect, delta_vlen, flash_attn, moe_gemm, segment_spmm)
-against their plain PyTorch versions, the whole engine on the card —
-dense and bucketed storage, raw and varint wire — the reduced OLMoE
-serving path and the four reduced GNNs, against the port's CPU path.
+(membership, intersect, delta_vlen, flash_attn, moe_gemm, segment_spmm
+in both its variants) against their plain PyTorch versions, the whole
+engine on the card — dense and bucketed storage, raw and varint wire —
+the reduced OLMoE serving path and the four reduced GNNs, against the
+port's CPU path.
 They skip without a CUDA card, and import no JAX, so they run where
 only PyTorch is installed:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``."""
@@ -11,8 +12,10 @@ import dataclasses
 import pytest
 import torch
 
-from _gnn_cases import (D_FEAT, GNN_ARCHS, N_OUT, SPMM_EDGE_CASES,
-                        SPMM_SWEEP, SPMM_TOL, graph_arrays)
+from _gnn_cases import (ALL_MASKED_NODE, D_FEAT, GAT_BF16_TOL,
+                        GAT_HEAD_SHAPES, GNN_ARCHS, HUB_NODE, N_OUT,
+                        SPMM_EDGE_CASES, SPMM_SWEEP, SPMM_TOL,
+                        gat_kernel_inputs, graph_arrays)
 from _gnn_cases import edge_inputs as spmm_edge_inputs
 from _gnn_cases import sweep_inputs as spmm_sweep_inputs
 from _codec_cases import (DELTA_VLEN_SWEEP, INTERSECT_CASES,
@@ -277,6 +280,18 @@ def test_serving_on_card_matches_cpu(cuda, arch):
                                    atol=1e-4)
 
 
+def _f64_segment_sum(msgs, dst, n):
+    """The plain version's function (``segment_spmm_plain``) in float64:
+    the reference for the kernel's float32 sums.  ``segment_spmm_plain``
+    itself adds in float32 with ``index_add_``'s atomics, in an order
+    that changes from run to run: on a row of a thousand edges its own
+    error can pass 1e-5, so it cannot be the yardstick of the kernel's
+    (fixed-order) float32 sums."""
+    out = torch.zeros((n, msgs.shape[1]), dtype=torch.float64,
+                      device=msgs.device)
+    return out.index_add_(0, dst.long(), msgs.double())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind,arg", [
@@ -284,8 +299,10 @@ def test_serving_on_card_matches_cpu(cuda, arch):
     *[("edge", case) for case in SPMM_EDGE_CASES]])
 def test_segment_spmm_kernel_matches_plain_on_card(cuda, kind, arg, dtype):
     """float32 sums of float32 or bfloat16 messages, elementwise at the
-    sweep's 1e-5; with bfloat16 out, the float32 sum rounded once, so
-    the two may differ by one bfloat16 step (2**-7 of the value)."""
+    sweep's 1e-5 against the plain version's sums in float64
+    (``_f64_segment_sum``); with bfloat16 out, the float32 sum rounded
+    once, so the two may differ by one bfloat16 step (2**-7 of the
+    value)."""
     if kind == "sweep":
         msgs, dst = spmm_sweep_inputs(*arg)
         n = arg[1]
@@ -298,35 +315,103 @@ def test_segment_spmm_kernel_matches_plain_on_card(cuda, kind, arg, dtype):
     got = spmm_ops.segment_spmm(msgs, dst, n, plan)
     torch.cuda.synchronize()
     assert spmm_ops.launches == before + 1
-    want = spmm_ops.segment_spmm_plain(msgs, dst, n)
-    torch.testing.assert_close(got, want, rtol=SPMM_TOL, atol=SPMM_TOL)
+    want = _f64_segment_sum(msgs, dst, n)
+    torch.testing.assert_close(got.double(), want, rtol=SPMM_TOL,
+                               atol=SPMM_TOL)
     assert torch.equal(got, spmm_ops.segment_spmm(msgs, dst, n, plan))
     if dtype == "bfloat16":
         got16 = spmm_ops.segment_spmm(msgs, dst, n, plan,
                                       out_dtype=torch.bfloat16)
-        torch.testing.assert_close(got16.float(), want, rtol=2 ** -7,
+        torch.testing.assert_close(got16.double(), want, rtol=2 ** -7,
                                    atol=SPMM_TOL)
 
 
-GNN_LAUNCHES = {"graphcast": lambda L: L, "schnet": lambda L: L,
-                "pna": lambda L: 1 + 4 * L, "gat": lambda L: 2 * L}
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_spmm_hub_row_on_card(cuda, dtype):
+    """The existing checks on a row above the hub threshold, which the
+    kernel sums with a block of its own: elementwise at 1e-5 against a
+    float64 sum, two launches bit-identical."""
+    msgs, dst, n = spmm_edge_inputs("one_node")
+    msgs = torch.as_tensor(msgs, device=cuda).to(DTYPES[dtype])
+    dst = torch.as_tensor(dst, device=cuda)
+    plan = spmm_ops.segment_plan(dst, n)
+    assert plan.n_heavy == 1 and int(plan.heavy[0]) == 3
+    before = spmm_ops.launches_by_variant["sum"]
+    got = spmm_ops.segment_spmm(msgs, dst, n, plan)
+    torch.cuda.synchronize()
+    assert spmm_ops.launches_by_variant["sum"] == before + 1
+    want = _f64_segment_sum(msgs, dst, n)
+    torch.testing.assert_close(got.double(), want, rtol=SPMM_TOL,
+                               atol=SPMM_TOL)
+    assert torch.equal(got, spmm_ops.segment_spmm(msgs, dst, n, plan))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("acc", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,dout", GAT_HEAD_SHAPES)
+def test_gat_aggregate_kernel_matches_plain_on_card(cuda, H, dout, dtype,
+                                                    acc):
+    """The "gat" variant against ``gat_aggregate_plain`` on a graph with
+    masked slots, an empty row, an all-masked row and a hub above the
+    threshold.  Each element within 1e-5 (f32) or ``GAT_BF16_TOL`` (bf16
+    anywhere) of its row's sum of |msg| against a float64 sum of the
+    plain version's messages (the kernel sums in another order, so a
+    bf16 rounding of a weight may go the other way), plus one bf16 step
+    of its value where the output is bf16.  Two launches are
+    bit-identical."""
+    x = gat_kernel_inputs(H, dout)
+    hw, s_src, s_dst = (torch.as_tensor(x[k], device=cuda).to(DTYPES[dtype])
+                        for k in ("hw", "s_src", "s_dst"))
+    src, dst, mask = (torch.as_tensor(x[k], device=cuda)
+                      for k in ("src", "dst", "mask"))
+    n, acc_dt = hw.shape[0], DTYPES[acc]
+    plan = spmm_ops.segment_plan(dst, n, src=src, mask=mask)
+    assert HUB_NODE in plan.heavy.tolist()
+    args = (hw, s_src, s_dst, plan, mask, acc_dt)
+    before = spmm_ops.launches_by_variant["gat"]
+    got = spmm_ops.gat_aggregate(*args)
+    again = spmm_ops.gat_aggregate(*args)
+    torch.cuda.synchronize()
+    assert spmm_ops.launches_by_variant["gat"] == before + 2
+    assert got.dtype == acc_dt and got.shape == (n, H, dout)
+    assert torch.equal(got, again)
+    assert not got[7].any() and not got[ALL_MASKED_NODE].any()
+    msg = spmm_ops.gat_messages_plain(*args).reshape(dst.shape[0], -1)
+    s = torch.zeros((n, H * dout), dtype=torch.float64, device=cuda)
+    a = torch.zeros_like(s)
+    s.index_add_(0, dst, msg.double())
+    a.index_add_(0, dst, msg.double().abs())
+    bound = (SPMM_TOL if dtype == acc == "float32" else GAT_BF16_TOL) * a
+    if acc == "bfloat16":
+        bound += 2.0 ** -7 * s.abs()
+    diff = (got.reshape(n, -1).double() - s).abs()
+    assert bool((diff <= bound).all()), float(
+        (diff / bound.clamp_min(1e-300)).max())
+
+
+GNN_LAUNCHES = {"graphcast": lambda L: {"sum": L, "gat": 0},
+                "schnet": lambda L: {"sum": L, "gat": 0},
+                "pna": lambda L: {"sum": 1 + 4 * L, "gat": 0},
+                "gat": lambda L: {"sum": 0, "gat": L}}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", GNN_ARCHS)
 def test_gnn_on_card_matches_cpu(cuda, arch):
     """Reduced model in float32: ``gnn_forward`` on the card (every
-    segment sum through the kernel) against the port's CPU run of the
-    same weights and graph."""
+    segment sum through the kernel: "gat" a layer for GAT, "sum" for the
+    others) against the port's CPU run of the same weights and graph."""
     cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
     params = init_gnn(torch.Generator().manual_seed(0), cfg, D_FEAT, N_OUT,
                       device="cpu")
     card = {k: _to(v, cuda) for k, v in params.items()}
     arrays = graph_arrays(cfg.kind)
-    before = spmm_ops.launches
+    before = dict(spmm_ops.launches_by_variant)
     got = gnn_forward(card, cfg, graph_batch_from_arrays(arrays, cuda))
     torch.cuda.synchronize()
-    assert (spmm_ops.launches - before
+    assert ({k: n - before[k] for k, n in spmm_ops.launches_by_variant.items()}
             == GNN_LAUNCHES[cfg.kind](cfg.n_layers))
     want = gnn_forward(params, cfg, graph_batch_from_arrays(arrays, "cpu"))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

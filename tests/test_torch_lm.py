@@ -111,3 +111,22 @@ def test_mla_and_mtp_raise():
         init_lm_params(torch.Generator(), cfg, device="cpu")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+
+
+def test_decode_step_on_full_cache_raises():
+    """A step at ``length == max_len`` raises ``ValueError`` naming both
+    and writes no cache slot.  (The reference clamps the write through
+    ``dynamic_update_slice`` and overwrites the last slot.)"""
+    cfg = dataclasses.replace(get_reduced("qwen3-4b"), dtype="float32")
+    model = init_lm_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (B, 8),
+                           generator=torch.Generator().manual_seed(1))
+    logits, cache = prefill(model, tokens, max_len=8)
+    before = {k: v.clone() for k, v in cache.items()}
+    with pytest.raises(ValueError, match=r"length = 8.*max_len = 8"):
+        decode_step(model, cache, logits[:, -1].argmax(-1), 8)
+    for k in cache:
+        assert torch.equal(cache[k], before[k]), k
+    logits, _ = decode_step(model, cache, logits[:, -1].argmax(-1), 7)
+    assert bool(torch.isfinite(logits).all())

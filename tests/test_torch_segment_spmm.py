@@ -1,9 +1,10 @@
 """The port's segment_spmm module: the kernel's plain PyTorch version (the
 wrapper on a CPU tensor) against the reference's Pallas pipeline in
 interpret mode and its dense oracle, at the reference's sweep shapes and
-at edge cases, to rtol = atol = 1e-5; the CSR plan and its reuse; input
-checks.  The CUDA kernel is held against the plain version on the card
-in ``test_torch_gpu.py``."""
+at edge cases, to rtol = atol = 1e-5; the CSR plan (with the GAT
+variant's fields and the hub rows) and its reuse; input checks, and the
+"gat" variant's shape limits.  The CUDA kernel is held against the plain
+version on the card in ``test_torch_gpu.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +15,8 @@ from repro.kernels.segment_spmm.ops import (pack_messages, segment_spmm_tiled,
                                             tile_edges)
 from repro.kernels.segment_spmm.ref import segment_sum_dense
 
-from _gnn_cases import (SPMM_EDGE_CASES, SPMM_SWEEP, SPMM_TOL, edge_inputs,
+from _gnn_cases import (GAT_HEAD_SHAPES, SPMM_EDGE_CASES, SPMM_SWEEP,
+                        SPMM_TOL, edge_inputs, gat_kernel_inputs,
                         sweep_inputs)
 from repro_torch.kernels.segment_spmm import ops
 from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
@@ -128,3 +130,81 @@ def test_cpu_path_launches_nothing():
     msgs, dst = sweep_inputs(64, 7, 4)
     ops.segment_spmm(torch.from_numpy(msgs), torch.from_numpy(dst), 7)
     assert ops.launches == before
+
+
+@pytest.mark.parametrize("hub", [0, 100, 200])
+def test_plan_gat_fields_and_hub_rows(hub):
+    """``src_sorted``, ``live_sorted``, the row order with each row's
+    edge span, and the hub rows against a numpy construction, on graphs
+    whose hub node has ``hub`` slots more than the others (above
+    ``HUB_DEGREE`` at 200 only)."""
+    x = gat_kernel_inputs(2, 4, N=60, E=600, hub=hub)
+    src, dst, mask = (torch.from_numpy(x[k]) for k in ("src", "dst", "mask"))
+    plan = ops.segment_plan(dst, 60, src=src, mask=mask)
+    perm = np.argsort(x["dst"], kind="stable")
+    counts = np.bincount(x["dst"], minlength=60)
+    np.testing.assert_array_equal(plan.perm.numpy(), perm)
+    np.testing.assert_array_equal(plan.src_sorted.numpy(), x["src"][perm])
+    np.testing.assert_array_equal(plan.live_sorted.numpy(), x["mask"][perm])
+    order = np.argsort(-counts, kind="stable")
+    rowptr = np.concatenate([[0], np.cumsum(counts)])
+    np.testing.assert_array_equal(plan.spans.numpy(), np.stack(
+        [order, rowptr[order], rowptr[order + 1], 0 * order], 1))
+    np.testing.assert_array_equal(plan.order.numpy(), order)
+    heavy = np.flatnonzero(counts > ops.HUB_DEGREE)
+    assert plan.n_heavy == len(heavy) == (hub == 200)
+    np.testing.assert_array_equal(np.sort(plan.heavy.numpy()), heavy)
+    assert plan.src_sorted.dtype == plan.spans.dtype == torch.int32
+    assert plan.live_sorted.dtype == torch.bool
+    assert plan.src is src and plan.dst is dst and plan.mask is mask
+    bare = ops.segment_plan(dst, 60)
+    assert bare.src_sorted is None and bare.live_sorted is None
+    assert bare.n_heavy == int((counts > ops.HUB_DEGREE).sum())
+
+
+def test_gat_aggregate_rejects_bad_inputs():
+    x = gat_kernel_inputs(2, 4, N=20, E=100, hub=0)
+    hw, s_src, s_dst = (torch.from_numpy(x[k])
+                        for k in ("hw", "s_src", "s_dst"))
+    dst, src, mask = (torch.from_numpy(x[k]) for k in ("dst", "src", "mask"))
+    plan = ops.segment_plan(dst, 20, src=src, mask=mask)
+    f32 = torch.float32
+    assert ops.gat_aggregate(hw, s_src, s_dst, plan, mask, f32).shape == (
+        20, 2, 4)
+    with pytest.raises(ValueError):               # a plan without sources
+        ops.gat_aggregate(hw, s_src, s_dst, ops.segment_plan(dst, 20), mask,
+                          f32)
+    with pytest.raises(ValueError):               # s_src of other heads
+        ops.gat_aggregate(hw, s_src[:, :1], s_dst, plan, mask, f32)
+    with pytest.raises(ValueError):               # a mask of other edges
+        ops.gat_aggregate(hw, s_src, s_dst, plan, mask[1:], f32)
+    with pytest.raises(TypeError):                # mixed dtypes
+        ops.gat_aggregate(hw, s_src.bfloat16(), s_dst, plan, mask, f32)
+    with pytest.raises(TypeError):
+        ops.gat_aggregate(hw, s_src, s_dst, plan, mask, torch.float64)
+    with pytest.raises(ValueError):               # ids like dst, not float
+        ops.segment_plan(dst, 20, src=src.float())
+
+
+def test_gat_shape_limits():
+    """The kernel's limits: at most 32 vectors a row, each over at most 2
+    heads.  GAT's reduced and full head shapes fit in both dtypes."""
+    for dt in (torch.float32, torch.bfloat16):
+        for H, dout in GAT_HEAD_SHAPES + [(2, 7), (8, 16)]:
+            assert ops.gat_shape_fits(H, dout, dt), (H, dout, dt)
+        assert not ops.gat_shape_fits(8, 33 if dt == torch.float32 else 65,
+                                      dt)                    # > 32 vectors
+    assert not ops.gat_shape_fits(8, 5, torch.bfloat16)      # 3 heads
+    assert not ops.gat_shape_fits(3, 11, torch.float32)      # 33 values
+    assert ops.gat_shape_fits(8, 5, torch.float32)
+
+
+def test_gat_cpu_path_launches_nothing():
+    before = dict(ops.launches_by_variant), ops.launches
+    x = gat_kernel_inputs(2, 4, N=20, E=100, hub=0)
+    dst, src, mask = (torch.from_numpy(x[k]) for k in ("dst", "src", "mask"))
+    ops.gat_aggregate(*(torch.from_numpy(x[k])
+                        for k in ("hw", "s_src", "s_dst")),
+                      ops.segment_plan(dst, 20, src=src, mask=mask), mask,
+                      torch.float32)
+    assert (dict(ops.launches_by_variant), ops.launches) == before

@@ -270,3 +270,41 @@ def test_stream_caps_match_reference():
                                                                         D)
     for vcap in (1024, 131072, 5):
         assert wire.verify_stream_caps(vcap) == ref.verify_stream_caps(vcap)
+
+
+def _trial(s):
+    return {"pipeline_s": s, "wire_bytes": 100}
+
+
+# (requested, mode, prior): every branch of the auto selection, the
+# hysteresis anchor on either side of its 5% band included
+WIRE_PRIORS = [
+    ("varint", "sim", None),                                    # explicit
+    ("auto", "sim", None),                                      # heuristic
+    ("auto", "spmd", {}),
+    ("auto", "dist", {"wire_trials": {}}),
+    ("auto", "sim", {"wire_trials": {"sim:raw": _trial(1.0)}}),  # explore
+    ("auto", "sim", {"wire_trials": {"sim:varint": _trial(1.0)}}),
+    ("auto", "sim", {"wire_trials": {"spmd:raw": _trial(1.0)}}),
+    ("auto", "sim", {"wire_trials": {"sim:raw": _trial(1.0),    # measured
+                                     "sim:varint": _trial(2.0)}}),
+    ("auto", "sim", {"wire_trials": {"sim:raw": _trial(3.0),
+                                     "sim:varint": _trial(2.0)}}),
+    ("auto", "sim", {"wire_trials": {"sim:raw": _trial(1.0),    # hysteresis
+                                     "sim:varint": _trial(0.97)},
+                     "wire_choice": {"sim": "raw"}}),
+    ("auto", "sim", {"wire_trials": {"sim:raw": _trial(1.0),
+                                     "sim:varint": _trial(0.90)},
+                     "wire_choice": {"sim": "raw"}}),
+    ("auto", "sim", {"wire_trials": {"sim:raw": _trial(0.98),
+                                     "sim:varint": _trial(1.0)},
+                     "wire_choice": {"sim": "varint"}}),
+]
+
+
+@pytest.mark.parametrize("requested,mode,prior", WIRE_PRIORS)
+def test_resolve_wire_format_matches_reference(requested, mode, prior):
+    """On the same fixed priors both packages pick the same codec for the
+    same reason; only recorded wall times can make two runs differ."""
+    assert (wire.resolve_wire_format(requested, mode, prior)
+            == ref.resolve_wire_format(requested, mode, prior))
