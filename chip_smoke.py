@@ -14,7 +14,17 @@ every phase holds:
 3. kernels  — each kernel's wrapper against its plain PyTorch version on
               the card, bit-exact, at the test sweep shapes, edge cases and
               the full-scale engine shapes, with its time beside its bound,
-              the plain version's and the library yardstick's;
+              the plain version's and the library yardstick's.  Membership
+              runs the back-edge shape twice: on random rows with half its
+              queries members (``backedge``), and on the filter's own
+              inputs (``backedge_engine``: sentinel-padded windows of the
+              full graph's degrees, mostly sentinel), each also beside a
+              data-aware bound (``bound_data_ms``: per row the sector of
+              its last value and the sectors of its live prefix that its
+              queries' searches touch); then both of its paths at K = 1,
+              4, 16, 64 and M, which places the constant
+              ``ops.ROW_PATH_MIN_K``.  Intersect's bound counts its ``b``
+              rows by the same rule;
 4. small    — ``rads_enumerate`` on a small graph, q1..q8: embeddings equal
               the brute-force oracle, every stat equals the port's own CPU
               run, cache on/off conserves fetch bytes, depth 1 == depth 2;
@@ -26,6 +36,12 @@ every phase holds:
               (``sim``, default ``EngineConfig``: dense, raw wire, cache
               on, depth 2), then bucketed storage with the varint wire,
               whose raw-equivalent byte counts must equal the first run's;
+              each prints membership's and intersect's launches by shape
+              and their device ms estimated from phase 3's per-row times.
+              The dense/raw run is repeated under ``torch.profiler``
+              (the timed run stays unprofiled): the card's busy time, idle
+              share, membership's and intersect's device ms and launches,
+              and the top 8 other kernels;
 6. lm_kernels — flash_attn and moe_gemm against their plain versions on
               the card in float32 and bfloat16, at the test sweep shapes,
               the bf16 variants' edges and the serving shapes, each row
@@ -290,7 +306,7 @@ def engine_shapes(max_degree: int) -> dict:
     }
 
 
-def phase_kernels(full_shapes):
+def phase_kernels(full_shapes, degrees):
     import torch
     from repro_torch.kernels.membership import ops
     from repro_torch.kernels.membership.ref import membership_ref
@@ -337,41 +353,134 @@ def phase_kernels(full_shapes):
             torch.gather(rows, 1, pick),
             torch.randint(0, n + 1, (B, K), generator=gen, device=dev,
                           dtype=torch.int32))
-        got = ops.membership(rows, vals)
-        want = membership_ref(rows, vals)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"membership {name} disagrees")
-        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-        del got, want
-        kernel_ms = cuda_ms(lambda: ops.membership(rows, vals))
-        plain_ms = cuda_ms(lambda: membership_ref(rows, vals), iters=3)
-        library_ms = cuda_ms(lambda: torch.gather(
-            rows, 1, torch.searchsorted(rows, vals).clamp_(max=M - 1))
-            == vals, iters=3)
-        bound_ms, bound_by = _membership_bound_ms(B, M, K)
-        results[name] = dict(B=B, M=M, K=K, max_abs_err=err,
-                             kernel_ms=kernel_ms, plain_ms=plain_ms,
-                             library_ms=library_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
-        emit(phase="kernels", kernel="membership", shape=name,
-             **results[name])
-        del rows, vals, pick
+        del pick
+        results[name] = _time_membership(name, rows, vals)
+        del rows, vals
         torch.cuda.empty_cache()
+    # the back-edge filter's own inputs: both the candidate windows and the
+    # rows are sorted adjacency windows padded with the sentinel n past a
+    # degree of the full graph, so nearly every query is the sentinel
+    B, M, K, n = full_shapes["backedge"]
+    vals, rows = _intersect_inputs(gen, B, M, n, dev, torch.as_tensor(
+        degrees, device=dev, dtype=torch.int32))
+    results["backedge_engine"] = _time_membership(
+        "backedge_engine", rows, vals,
+        live_share=float((vals != n).float().mean()))
+    _sweep_row_path(rows, vals)
+    del rows, vals
+    torch.cuda.empty_cache()
     return results
 
 
-def _intersect_bound_ms(a, sentinel: int) -> tuple[float, str]:
+def _sweep_row_path(rows, vals):
+    """Both membership paths on the back-edge rows with the first K
+    columns of the candidate windows as queries, at K = 1, 4, 16, 64 and
+    M: where the constant ``ops.ROW_PATH_MIN_K`` should split them."""
+    import torch
+    from repro_torch.kernels.membership import ops
+    from repro_torch.kernels.membership.kernel import membership_cuda
+    from repro_torch.kernels.membership.ref import membership_ref
+    sweep = []
+    for K in (1, 4, 16, 64, rows.shape[1]):
+        q = vals[:, :K].contiguous()
+        want = membership_ref(rows, q)
+        out = torch.empty_like(want)
+        row = dict(K=K, picked="row" if K >= ops.ROW_PATH_MIN_K else "query")
+        for path, min_k in (("row", 1), ("query", K + 1)):
+            out.zero_()
+            membership_cuda(rows, q, out, min_k)
+            torch.cuda.synchronize()
+            check(torch.equal(out, want),
+                  f"membership {path} path disagrees at K = {K}")
+            row[f"{path}_ms"] = cuda_ms(
+                lambda: membership_cuda(rows, q, out, min_k), iters=5)
+        sweep.append(row)
+        del q, want, out
+    emit(phase="kernels", kernel="membership", sweep="row_path_min_k",
+         row_path_min_k=ops.ROW_PATH_MIN_K, B=rows.shape[0], M=rows.shape[1],
+         rows=sweep)
+
+
+def _final_run_starts(rows):
+    """Per row, the start of its final run: the lower_bound of its last
+    value (the degree, for a sentinel-padded adjacency window)."""
+    import torch
+    return torch.searchsorted(rows, rows[:, -1:].contiguous(),
+                              out_int32=True).view(-1)
+
+
+def _row_bytes_needed(rows, vals, sentinel=None) -> int:
+    """Of each sorted row, the bytes that answering its queries ``vals``
+    needs by the final-run rule (``sorted_search.cuh``): the 32-byte
+    sector that holds the row's last value, where the row has a query
+    other than ``sentinel`` (intersect answers the sentinel without the
+    row); and of its live prefix row[0:L) the sectors touched by the
+    queries below the last value, one binary search over its ceil(L / 8)
+    sectors each, and no more than all of them.  No search for L is
+    counted, and a row counts no more than its own bytes."""
+    import torch
+    M = rows.shape[1]
+    below = vals < rows[:, -1:]
+    asks = None
+    if sentinel is not None:
+        asks = vals != sentinel
+        below &= asks
+    below = below.sum(dim=1, dtype=torch.int64)
+    sectors = (_final_run_starts(rows).to(torch.int64) + 7) // 8
+    search = torch.where(
+        sectors > 0,
+        torch.ceil(torch.log2(sectors.clamp(min=1).double())).long() + 1, 0)
+    prefix = torch.minimum(sectors, below * search)
+    head = 1 if asks is None else asks.any(dim=1).to(torch.int64)
+    return int(torch.clamp(32 * (head + prefix), max=4 * M).sum())
+
+
+def _membership_bound_data_ms(rows, vals) -> float:
+    """Least time for the membership function on these inputs: queries
+    read once, answers written once, and of each row what its answers
+    need (:func:`_row_bytes_needed`), at the HBM rate."""
+    return ((vals.numel() * 5 + _row_bytes_needed(rows, vals))
+            / HBM_BYTES_PER_S * 1e3)
+
+
+def _time_membership(name, rows, vals, **extra) -> dict:
+    """Hold the membership kernel bit-exact against its plain version on
+    ``rows``/``vals``, then time it beside its bounds, the plain version
+    and the searchsorted+gather yardstick."""
+    import torch
+    from repro_torch.kernels.membership import ops
+    from repro_torch.kernels.membership.ref import membership_ref
+    (B, M), K = rows.shape, vals.shape[1]
+    got = ops.membership(rows, vals)
+    want = membership_ref(rows, vals)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"membership {name} disagrees")
+    err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+    del got, want
+    kernel_ms = cuda_ms(lambda: ops.membership(rows, vals))
+    plain_ms = cuda_ms(lambda: membership_ref(rows, vals), iters=3)
+    library_ms = cuda_ms(lambda: torch.gather(
+        rows, 1, torch.searchsorted(rows, vals).clamp_(max=M - 1))
+        == vals, iters=3)
+    bound_ms, bound_by = _membership_bound_ms(B, M, K)
+    row = dict(B=B, M=M, K=K, max_abs_err=err, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by,
+               bound_data_ms=_membership_bound_data_ms(rows, vals), **extra)
+    emit(phase="kernels", kernel="membership", shape=name, **row)
+    return row
+
+
+def _intersect_bound_ms(a, b, sentinel: int) -> tuple[float, str]:
     """Least time for the intersect function on these inputs: ``a`` read
     once, the mask and the counts written once, and of each ``b`` row what
-    the searches of its non-sentinel queries must read (the whole row at
-    most); compares counted at the 32-bit ALU rate."""
+    the answers to its ``a`` row need (:func:`_row_bytes_needed`);
+    compares counted at the 32-bit ALU rate."""
     import torch
     B, M = a.shape
-    probes = _sorted_probes(M)
     live = (a != sentinel).sum(dim=1, dtype=torch.int64)
-    b_bytes = int(torch.clamp(live * (probes * 32), max=4 * M).sum())
-    nbytes = B * M * 4 + B * M + B * 4 + b_bytes
-    ops = int(live.sum()) * probes
+    nbytes = B * M * 4 + B * M + B * 4 + _row_bytes_needed(b, a, sentinel)
+    ops = int(live.sum()) * _sorted_probes(M)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ALU_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -464,7 +573,7 @@ def phase_intersect(degrees, n: int, max_degree: int):
         plain_ms = cuda_ms(lambda: intersect_ref(a, b, n), iters=3)
         library_ms = cuda_ms(lambda: torch.gather(
             b, 1, torch.searchsorted(b, a).clamp_(max=M - 1)) == a, iters=3)
-        bound_ms, bound_by = _intersect_bound_ms(a, n)
+        bound_ms, bound_by = _intersect_bound_ms(a, b, n)
         results[name] = dict(B=B, M=M, max_abs_err=err, kernel_ms=kernel_ms,
                              plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
@@ -631,11 +740,29 @@ def _triangles(g) -> int:
     return int((low @ low).multiply(low).sum())
 
 
+def _shape_counts(shapes: dict) -> dict:
+    """Launches by shape, keyed ``"BxM[xK]"`` for JSON."""
+    return {"x".join(map(str, k)): v for k, v in sorted(shapes.items())}
+
+
+def _est_device_ms(shapes: dict, per_row_ms: dict) -> float:
+    """Device ms of a run's launches estimated from phase 3: each launch's
+    rows times the per-row time of the phase 3 shape of its kind
+    ("backedge", "verify" (K = 1) or "intersect")."""
+    total = 0.0
+    for (B, _, *K), count in shapes.items():
+        kind = "intersect" if not K else "verify" if K[0] == 1 else "backedge"
+        total += count * B * per_row_ms[kind]
+    return total
+
+
 def phase_full(g, pg, expect: int, setup_s: float, storage: str,
-               wire: str):
+               wire: str, per_row_ms: dict, profile: bool = False):
     """One full-scale q1 run in the given storage and wire formats, with
-    every kernel's launch count set to 0 just before it and read just
-    after.  Returns ``(launches, stats, max_memory_allocated)``."""
+    every kernel's launch count and launch shapes set to 0 just before it
+    and read just after.  With ``profile``, q1 runs once more under
+    ``torch.profiler`` (the timed run stays unprofiled) for the card's
+    time by kernel.  Returns ``(launches, stats)``."""
     import dataclasses
 
     import torch
@@ -655,12 +782,16 @@ def phase_full(g, pg, expect: int, setup_s: float, storage: str,
     tracer = TraceRecorder(capacity=1 << 20)
     for mod in kernels.values():
         mod.launches = 0
+    memb.shapes.clear()
+    inter.shapes.clear()
     t0 = time.perf_counter()
     res = rads_enumerate(pg, pat, cfg, return_embeddings=False,
                          tracer=tracer, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in kernels.items()}
+    shapes = {"membership": dict(memb.shapes),
+              "intersect": dict(inter.shapes)}
     peak = torch.cuda.max_memory_allocated()
     # host time per span kind: stages only enqueue work, so the time the
     # card needs shows up in the retire spans (the one copy per wave)
@@ -698,8 +829,40 @@ def phase_full(g, pg, expect: int, setup_s: float, storage: str,
          bytes_saved_cache=st["bytes_saved_cache"],
          cache_hit_rate=st["cache_hit_rate"],
          peak_adj_bytes=st["peak_adj_bytes"], max_memory_allocated=peak,
-         host_span_count_ms=spans)
+         host_span_count_ms=spans,
+         launch_shapes={k: _shape_counts(v) for k, v in shapes.items()},
+         est_kernel_device_ms={
+             k: _est_device_ms(v, per_row_ms) for k, v in shapes.items()})
+    if profile:
+        _profile_full(pg, pat, cfg, expect, tag, launches)
     return launches, st
+
+
+def _profile_full(pg, pat, cfg, expect: int, tag: str, launches: dict):
+    """q1 once more under ``torch.profiler`` (device activity only): the
+    card's busy time and idle share, membership's and intersect's device
+    ms and launches (which must be the timed run's), and the top 8 other
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import rads_enumerate
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        res = rads_enumerate(pg, pat, cfg, return_embeddings=False,
+                             device=DEVICE)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    check(res.count == expect, f"profiled q1 ({tag}) count {res.count} != "
+                               f"scipy triangles {expect}")
+    split = _kernel_times(prof, wall, named=("membership", "intersect"))
+    for name, row in split["named"].items():
+        check(row["count"] == launches[name],
+              f"profiled q1 ({tag}) shows {row['count']} {name} kernels, "
+              f"the timed run launched {launches[name]}")
+    emit(phase="full_profile", storage=cfg.storage_format,
+         wire=cfg.wire_format, added_s=time.perf_counter() - t0, **split)
 
 
 # --------------------------------------------------------------------------- #
@@ -1193,10 +1356,13 @@ def _serve_once(model, prompts):
                 peak=torch.cuda.max_memory_allocated())
 
 
-def _kernel_times(prof, wall_ms: float, top: int = 8) -> dict:
+def _kernel_times(prof, wall_ms: float, top: int = 8,
+                  named: tuple = ()) -> dict:
     """Device time by kernel from a ``torch.profiler`` run: the card's
     busy time (the sum of kernel times; one stream, so they do not
-    overlap), its idle share of the wall time, and the top kernels."""
+    overlap), its idle share of the wall time, and the top kernels.  The
+    kernels whose names hold one of ``named`` are summed under that name
+    and left out of the top."""
     from torch.autograd import DeviceType
     kern = []
     for e in prof.key_averages():
@@ -1205,13 +1371,19 @@ def _kernel_times(prof, wall_ms: float, top: int = 8) -> dict:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        kern.append((e.key[:80], us / 1e3, e.count))
+        kern.append((e.key, us / 1e3, e.count))
     kern.sort(key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in kern)
-    return dict(wall_ms=wall_ms, busy_ms=busy if kern else None,
-                idle_share=1 - busy / wall_ms if kern else None,
-                top=[dict(kernel=k, ms=ms, count=n)
-                     for k, ms, n in kern[:top]])
+    out = dict(wall_ms=wall_ms, busy_ms=busy if kern else None,
+               idle_share=1 - busy / wall_ms if kern else None)
+    if named:
+        out["named"] = {w: dict(ms=sum(ms for k, ms, _ in kern if w in k),
+                                count=sum(n for k, _, n in kern if w in k))
+                        for w in named}
+        kern = [r for r in kern if not any(w in r[0] for w in named)]
+    out["top"] = [dict(kernel=k[:80], ms=ms, count=n)
+                  for k, ms, n in kern[:top]]
+    return out
 
 
 def _profile_serve(model, prompts, steps: int = 3):
@@ -2063,7 +2235,7 @@ def main():
     if args.full_n == SMOKE_N:
         check(g.max_degree == SMOKE_MAX_DEGREE,
               f"max degree {g.max_degree} != {SMOKE_MAX_DEGREE}")
-    timing = phase_kernels(engine_shapes(g.max_degree))
+    timing = phase_kernels(engine_shapes(g.max_degree), g.degrees)
     inter = phase_intersect(g.degrees, pg.n, g.max_degree)
     # the default fetch cap, and the cap after the run's three escalations
     fcaps = (DEFAULT_ENGINE.fetch_cap, DEFAULT_ENGINE.fetch_cap << 3)
@@ -2074,9 +2246,15 @@ def main():
     t0 = time.perf_counter()
     expect = _triangles(g)
     setup_s += time.perf_counter() - t0
-    main_launches, dense = phase_full(g, pg, expect, setup_s, "dense", "raw")
+    # phase 3's device ms per row: the back-edge filter on its own inputs,
+    # verifyE, and intersect on padded windows
+    per_row_ms = {kind: r["kernel_ms"] / r["B"] for kind, r in (
+        ("backedge", timing["backedge_engine"]), ("verify", timing["verify"]),
+        ("intersect", inter["backedge_padded"]))}
+    main_launches, dense = phase_full(g, pg, expect, setup_s, "dense", "raw",
+                                      per_row_ms, profile=True)
     new_launches, coded = phase_full(g, pg, expect, setup_s, "bucketed",
-                                     "varint")
+                                     "varint", per_row_ms)
     for key in ("bytes_fetch", "bytes_verify", "bytes_saved_cache"):
         check(coded[key] == dense[key],
               f"full-scale {key}: bucketed/varint {coded[key]} != "
@@ -2114,7 +2292,12 @@ def main():
     gnn_launches = phase_gnn_serve(products)
     del products
 
-    t, ti, td = timing["backedge"], inter["backedge_padded"], dvl[fcaps[-1]]
+    # membership on the back-edge filter's own inputs, against the bound
+    # of what those inputs need
+    t = dict(timing["backedge_engine"],
+             bound_ms=timing["backedge_engine"]["bound_data_ms"],
+             bound_by="bytes")
+    ti, td = inter["backedge_padded"], dvl[fcaps[-1]]
     rows = [
         ("membership", "src/repro_torch/kernels/membership/csrc/membership.cu",
          "src/repro/kernels/membership/kernel.py:40",

@@ -29,9 +29,9 @@ def _launcher():
 
 def intersect_cuda(a: torch.Tensor, b: torch.Tensor, sentinel: int,
                    mask: torch.Tensor, count: torch.Tensor) -> None:
-    """Launch the kernel on the current stream of ``a``'s device.  The
-    caller has checked shapes, dtypes, device and contiguity, and zeroed
-    ``count``."""
+    """Launch the kernel on the current stream of ``a``'s device; it writes
+    every element of ``mask`` and ``count``.  The caller has checked
+    shapes, dtypes, device and contiguity."""
     B, M = a.shape
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -4,15 +4,19 @@ version on the CPU.
 The tensor's device decides.  A CUDA tensor launches the kernel or
 raises — there is no fallback — and each launch adds one to
 :data:`launches`, so a run can show that its main path went through the
-kernel.  A CPU tensor runs :func:`intersect_ref`.
+kernel, and :data:`shapes` counts the launches by ``(B, M)``.  A CPU
+tensor runs :func:`intersect_ref`.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from repro_torch.kernels.intersect.ref import intersect_ref
 
 launches = 0    # kernel launches since the count was last set to 0
+shapes: Counter = Counter()   # launches by (B, M), reset with launches
 
 
 def intersect(a: torch.Tensor, b: torch.Tensor, sentinel: int):
@@ -39,8 +43,9 @@ def intersect(a: torch.Tensor, b: torch.Tensor, sentinel: int):
     from repro_torch.kernels.intersect.kernel import intersect_cuda
 
     mask = torch.empty(a.shape, dtype=torch.bool, device=a.device)
-    count = torch.zeros(a.shape[0], dtype=torch.int32, device=a.device)
+    count = torch.empty(a.shape[0], dtype=torch.int32, device=a.device)
     if mask.numel():
         intersect_cuda(a, b, int(sentinel), mask, count)
         launches += 1
+        shapes[tuple(a.shape)] += 1
     return mask, count

@@ -22,21 +22,29 @@ def _launcher():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def membership_cuda(rows: torch.Tensor, vals: torch.Tensor,
-                    out: torch.Tensor) -> None:
-    """Launch the kernel on the current stream of ``rows``' device.  The
-    caller has checked shapes, dtypes, device and contiguity."""
+                    out: torch.Tensor, row_min_k: int) -> None:
+    """Launch the kernel on the current stream of ``rows``' device: a
+    block per row where ``K >= row_min_k``, else a thread per row.  The
+    caller has checked shapes, dtypes, device and contiguity.
+
+    ``row_min_k`` is an argument rather than a constant of the source
+    only so that a caller can force either path: the wrapper always
+    passes ``ops.ROW_PATH_MIN_K``, while ``chip_smoke.py``'s sweep, which
+    places that constant, and the card test of both paths pass 1 or
+    ``K + 1``."""
     B, M = rows.shape
     K = vals.shape[1]
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher()(rows.data_ptr(), vals.data_ptr(), out.data_ptr(),
-                          B, M, K, stream)
+                          B, M, K, row_min_k, stream)
     if err != 0:
         raise RuntimeError(f"membership kernel launch failed: CUDA error "
                            f"{err} (B={B}, M={M}, K={K})")

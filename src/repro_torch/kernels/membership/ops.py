@@ -4,15 +4,24 @@ version on the CPU.
 The tensor's device decides.  A CUDA tensor launches the kernel or
 raises — there is no fallback — and each launch adds one to
 :data:`launches`, so a run can show that its main path went through the
-kernel.  A CPU tensor runs :func:`membership_ref`.
+kernel, and :data:`shapes` counts the launches by ``(B, M, K)``.  A CPU
+tensor runs :func:`membership_ref`.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from repro_torch.kernels.membership.ref import membership_ref
 
+# queries per row from which the kernel takes a block per row (staging the
+# row's live prefix in shared memory) instead of a thread per row: in
+# chip_smoke.py's sweep of both paths on the back-edge rows the thread
+# path wins at K = 1 and 4, the block path from K = 16 up
+ROW_PATH_MIN_K = 16
 launches = 0    # kernel launches since the count was last set to 0
+shapes: Counter = Counter()   # launches by (B, M, K), reset with launches
 
 
 def membership(rows: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -39,6 +48,7 @@ def membership(rows: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
 
     out = torch.empty(vals.shape, dtype=torch.bool, device=rows.device)
     if out.numel():
-        membership_cuda(rows, vals, out)
+        membership_cuda(rows, vals, out, ROW_PATH_MIN_K)
         launches += 1
+        shapes[(*rows.shape, vals.shape[1])] += 1
     return out

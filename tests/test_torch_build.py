@@ -2,17 +2,21 @@
 library is named by the hash of its source, of every local header the
 source includes (beside it or in the common header directory) and of
 the flags, so editing ``hopper.cuh`` rebuilds both tensor-core
-kernels.  Works on copies under ``tmp_path`` and never runs ``nvcc``."""
+kernels, and editing ``sorted_search.cuh`` membership and intersect.
+Works on copies under ``tmp_path`` and never runs ``nvcc``."""
 import shutil
 
 import pytest
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attn import kernel as flash_kernel
+from repro_torch.kernels.intersect import kernel as inter_kernel
+from repro_torch.kernels.membership import kernel as memb_kernel
 from repro_torch.kernels.moe_gemm import kernel as moe_kernel
 from repro_torch.kernels.segment_spmm import kernel as spmm_kernel
 
 HOPPER = build.COMMON_DIR / "hopper.cuh"
+SORTED_SEARCH = build.COMMON_DIR / "sorted_search.cuh"
 
 
 @pytest.fixture
@@ -61,3 +65,26 @@ def test_package_sources_find_the_shared_header():
     assert "-I" in build.NVCC_FLAGS
     assert build.NVCC_FLAGS[build.NVCC_FLAGS.index("-I") + 1] == str(
         build.COMMON_DIR)
+
+
+def test_sorted_search_edit_changes_both_libraries(tmp_path, monkeypatch):
+    """membership and intersect share ``sorted_search.cuh``: an edit to it
+    renames both libraries and no other."""
+    (tmp_path / "inc").mkdir()
+    (tmp_path / "src").mkdir()
+    header = tmp_path / "inc" / SORTED_SEARCH.name
+    shutil.copy(SORTED_SEARCH, header)
+    shutil.copy(HOPPER, tmp_path / "inc" / HOPPER.name)
+    sources = []
+    for kern in (memb_kernel, inter_kernel, flash_kernel):
+        dst = tmp_path / "src" / kern.SOURCE.name
+        shutil.copy(kern.SOURCE, dst)
+        sources.append(dst)
+    monkeypatch.setattr(build, "COMMON_DIR", tmp_path / "inc")
+    for src in sources[:2]:
+        assert build.local_headers(src) == [header.resolve()]
+    before = [build.library_path(src) for src in sources]
+    header.write_text(header.read_text() + "\n// an edit\n")
+    after = [build.library_path(src) for src in sources]
+    assert after[0] != before[0] and after[1] != before[1]
+    assert after[2] == before[2]

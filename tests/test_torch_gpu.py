@@ -9,6 +9,7 @@ only PyTorch is installed:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``."""
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,11 +19,12 @@ from _gnn_cases import (ALL_MASKED_NODE, D_FEAT, GAT_BF16_TOL,
                         gat_kernel_inputs, graph_arrays)
 from _gnn_cases import edge_inputs as spmm_edge_inputs
 from _gnn_cases import sweep_inputs as spmm_sweep_inputs
-from _codec_cases import (DELTA_VLEN_SWEEP, INTERSECT_CASES,
-                          delta_vlen_inputs, intersect_inputs)
+from _codec_cases import (DELTA_VLEN_SWEEP, INTERSECT_CARD_CASES,
+                          INTERSECT_CASES, delta_vlen_inputs,
+                          intersect_inputs)
 from _lm_cases import (FLASH_SWEEP, FLASH_TOL, MOE_ROW_CHECK, MOE_SWEEP,
                        MOE_TOL, flash_inputs, moe_inputs)
-from _membership_cases import CASES, edge_inputs, sweep_inputs
+from _membership_cases import CARD_CASES, CASES, edge_inputs, sweep_inputs
 from repro_torch.configs import get_reduced
 from repro_torch.configs.rads import QUERIES, EngineConfig
 from repro_torch.convert import graph_batch_from_arrays
@@ -30,8 +32,10 @@ from repro_torch.core import Pattern, rads_enumerate
 from repro_torch.graph import erdos_graph, partition
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.kernels.intersect import ops as intersect_ops
+from repro_torch.kernels.intersect.kernel import intersect_cuda
 from repro_torch.kernels.intersect.ref import intersect_ref
 from repro_torch.kernels.membership import ops
+from repro_torch.kernels.membership.kernel import membership_cuda
 from repro_torch.kernels.membership.ref import membership_ref
 from repro_torch.kernels.moe_gemm import kernel as moe_kernel
 from repro_torch.kernels.moe_gemm import ops as moe_ops
@@ -58,7 +62,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind,arg", CASES)
+@pytest.mark.parametrize("kind,arg", CASES + CARD_CASES)
 def test_kernel_matches_plain_on_card(cuda, kind, arg):
     rows, vals = sweep_inputs(*arg) if kind == "sweep" else edge_inputs(arg)
     rows = torch.as_tensor(rows, device=cuda)
@@ -71,7 +75,30 @@ def test_kernel_matches_plain_on_card(cuda, kind, arg):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind,shape", INTERSECT_CASES)
+@pytest.mark.parametrize("kind,arg", CASES + CARD_CASES)
+@pytest.mark.parametrize("path", ["row", "query"])
+def test_membership_paths_match_plain_on_card(cuda, kind, arg, path):
+    """Each case through both of the kernel's paths, whatever K is, on
+    windows at an offset that breaks 16-byte alignment too."""
+    rows, vals = sweep_inputs(*arg) if kind == "sweep" else edge_inputs(arg)
+    K = vals.shape[1]
+    for offset in (0, 1):
+        r, v, out = (_at_offset(torch.as_tensor(x, device=cuda), offset)
+                     for x in (rows, vals, np.zeros(vals.shape, bool)))
+        membership_cuda(r, v, out, 1 if path == "row" else K + 1)
+        torch.cuda.synchronize()
+        assert torch.equal(out, membership_ref(r, v)), offset
+
+
+def _at_offset(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into its
+    allocation: at 1, no longer 16-byte aligned."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,shape", INTERSECT_CASES + INTERSECT_CARD_CASES)
 def test_intersect_kernel_matches_plain_on_card(cuda, kind, shape):
     a, b, sent = intersect_inputs(kind, *shape)
     a = torch.as_tensor(a, device=cuda)
@@ -82,6 +109,45 @@ def test_intersect_kernel_matches_plain_on_card(cuda, kind, shape):
     assert intersect_ops.launches == before + 1
     want_mask, want_count = intersect_ref(a, b, sent)
     assert torch.equal(mask, want_mask) and torch.equal(count, want_count)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,shape", INTERSECT_CASES)
+def test_intersect_unaligned_matches_plain_on_card(cuda, kind, shape):
+    a, b, sent = intersect_inputs(kind, *shape)
+    a = _at_offset(torch.as_tensor(a, device=cuda), 1)
+    b = _at_offset(torch.as_tensor(b, device=cuda), 1)
+    mask, count = intersect_ops.intersect(a, b, sent)
+    torch.cuda.synchronize()
+    want_mask, want_count = intersect_ref(a, b, sent)
+    assert torch.equal(mask, want_mask) and torch.equal(count, want_count)
+
+
+@pytest.mark.gpu
+def test_intersect_writes_every_count_on_card(cuda):
+    """``count`` comes from ``torch.empty``, so the kernel must write every
+    row, 0 where it has no hit: into outputs filled with garbage, and
+    through the wrapper into the very block that a dirty ``count`` of the
+    same shape has just handed back to the caching allocator."""
+    a, b, sent = intersect_inputs("padded", 300, 16)   # most rows: no hit
+    a = torch.as_tensor(a, device=cuda)
+    b = torch.as_tensor(b, device=cuda)
+    want_mask, want_count = intersect_ref(a, b, sent)
+    assert int((want_count == 0).sum()) > 200
+    mask = torch.ones(a.shape, dtype=torch.bool, device=cuda)
+    count = torch.full((a.shape[0],), -1, dtype=torch.int32, device=cuda)
+    intersect_cuda(a, b, sent, mask, count)
+    torch.cuda.synchronize()
+    assert torch.equal(mask, want_mask) and torch.equal(count, want_count)
+    for _ in range(3):
+        mask.fill_(True)
+        count.fill_(-1)
+        dirty = count.data_ptr()
+        del mask, count
+        mask, count = intersect_ops.intersect(a, b, sent)
+        torch.cuda.synchronize()
+        assert count.data_ptr() == dirty
+        assert torch.equal(mask, want_mask) and torch.equal(count, want_count)
 
 
 @pytest.mark.gpu
