@@ -6,7 +6,8 @@ every phase holds:
 1. device   — the card's name and power limit (``nvidia-smi``), torch and
               CUDA versions;
 2. build    — every CUDA kernel of the port (membership, intersect,
-              delta_vlen, flash_attn, moe_gemm, segment_spmm), compiled
+              varint_encode, varint_decode, flash_attn, moe_gemm,
+              segment_spmm), compiled
               from the repository's sources (one ``nvcc`` per source, all
               started together); each library's ``HGMMA`` and ``UTMALDG``
               instructions counted (``cuobjdump -sass``), and flash_attn's
@@ -24,7 +25,15 @@ every phase holds:
               queries' searches touch); then both of its paths at K = 1,
               4, 16, 64 and M, which places the constant
               ``ops.ROW_PATH_MIN_K``.  Intersect's bound counts its ``b``
-              rows by the same rule;
+              rows by the same rule.  delta_vlen (the "ids" encoder's
+              sizing-only epilogue) at the reference sweep and the
+              request lanes; the varint fetch codec's encoders ("ids",
+              "rows") and row decoder (compacted and onto the slots) at
+              every lane case of ``tests/_codec_cases.py``, then timed at
+              the full cell's top capacity (64 request lanes; one
+              responder chunk of 16 lanes x 32,768 x 1,780) with no valid
+              row (q1) and rows of the full graph's degrees at 1% and
+              100% of the slots valid;
 4. small    — ``rads_enumerate`` on a small graph, q1..q8: embeddings equal
               the brute-force oracle, every stat equals the port's own CPU
               run, cache on/off conserves fetch bytes, depth 1 == depth 2;
@@ -37,11 +46,14 @@ every phase holds:
               on, depth 2), then bucketed storage with the varint wire,
               whose raw-equivalent byte counts must equal the first run's;
               each prints membership's and intersect's launches by shape
-              and their device ms estimated from phase 3's per-row times.
-              The dense/raw run is repeated under ``torch.profiler``
-              (the timed run stays unprofiled): the card's busy time, idle
-              share, membership's and intersect's device ms and launches,
-              and the top 8 other kernels;
+              and their device ms estimated from phase 3's per-row times,
+              and the varint codec's launches by variant (the
+              bucketed/varint run must launch "encode_ids", "encode_rows"
+              and "decode_rows").  Each run is repeated under
+              ``torch.profiler`` (the timed run stays unprofiled): the
+              card's busy time, idle share, membership's, intersect's and
+              the varint codec's device ms and kernels, and the top 8
+              other kernels;
 6. lm_kernels — flash_attn and moe_gemm against their plain versions on
               the card in float32 and bfloat16, at the test sweep shapes,
               the bf16 variants' edges and the serving shapes, each row
@@ -226,8 +238,9 @@ def phase_build():
     from repro_torch.kernels.moe_gemm import kernel as moe_kernel
     from repro_torch.kernels.segment_spmm import kernel as spmm_kernel
     from repro_torch.kernels.varint import kernel as varint_kernel
-    sources = [memb_kernel.SOURCE, inter_kernel.SOURCE, varint_kernel.SOURCE,
-               flash_kernel.SOURCE, moe_kernel.SOURCE, spmm_kernel.SOURCE]
+    sources = [memb_kernel.SOURCE, inter_kernel.SOURCE,
+               *varint_kernel.SOURCES, flash_kernel.SOURCE, moe_kernel.SOURCE,
+               spmm_kernel.SOURCE]
     t0 = time.perf_counter()
     took = build.build(sources)
     wall = time.perf_counter() - t0
@@ -658,6 +671,180 @@ def phase_delta_vlen(n: int, fetch_caps: tuple):
     return results
 
 
+def _codec_cases():
+    """``tests/_codec_cases.py`` (numpy only): the wire tests' lane shapes
+    and the row codec's edge cases."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _codec_cases
+    return _codec_cases
+
+
+def _held(name: str, got, want) -> None:
+    """Every output of a codec equal to its plain version's, bit for bit
+    and of one dtype."""
+    import torch
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w),
+              f"{name}: output {i} disagrees with the plain version")
+
+
+def _graph_rows(gen, L, m, D, n, degrees):
+    """Adjacency windows ``(L, m, D)`` like the owners' answers: a degree
+    drawn from the full graph's ``degrees``, that many ascending ids below
+    ``n`` about n / degree apart (the graph's LEB128 sizes), then the
+    sentinel ``n``."""
+    import torch
+    dev = degrees.device
+    deg = degrees[torch.randint(0, degrees.numel(), (L, m, 1), generator=gen,
+                                device=dev)].clamp_(1, D)
+    gaps = torch.rand((L, m, D), generator=gen, device=dev)
+    gaps.mul_((2 * (n // (deg + 1)) - 1).clamp_(min=1).float()).add_(1)
+    rows = torch.cumsum(gaps.to(torch.int32), dim=-1, dtype=torch.int32)
+    del gaps
+    rows.clamp_(max=n - 1)
+    rows.masked_fill_(torch.arange(D, device=dev) >= deg, n)
+    return rows
+
+
+def _bytes_bound(nbytes: float) -> tuple[float, str]:
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_varint_codec(degrees, n: int, fcap: int, max_degree: int):
+    """The varint fetch codec's kernels against their plain versions on
+    the card, bit for bit over whole streams, lengths, flags and decoded
+    rows: every lane case of ``tests/_codec_cases.py`` (the wire tests'
+    shapes, an interior sentinel, a lane with no valid row, D = 1,780 rows
+    of ids >= 2^28, overflowing and raw-escape lanes), each row case
+    decoded both compacted and onto the slots, and streams no encoder
+    writes (cut values, degrees past m·D, lengths out of range).  Then timed at the full
+    cell's top capacity: the request lanes (ndev^2 = 64 of ``fcap`` ids)
+    and one responder chunk (16 lanes of ``fcap`` slots of ``max_degree``
+    ids), with no valid row (what q1 feeds) and with rows of the full
+    graph's degrees at 1% and 100% of the slots valid.  The plain
+    versions run in lane groups, as the CPU path and the parent's card
+    path do.  Bounds count the bytes that must move: zeroed stream
+    capacity, written output, and the valid rows and live bytes read.  No
+    one PyTorch call computes these functions: ``library_ms`` is None."""
+    import torch
+    from repro_torch.core import wire
+    from repro_torch.core.engine import _device_chunks
+    from repro_torch.kernels.varint import ops, ref
+    cases = _codec_cases()
+    dev = torch.device("cuda")
+    names = []
+    for name, fn in sorted(cases.CODEC_ID_CASES.items()):
+        ids, sent, cap = fn(np.random.default_rng(0))
+        ids = torch.as_tensor(ids.reshape(-1, ids.shape[-1]), device=dev)
+        _held(f"encode_ids {name}", ops.encode_ids(ids, sent, cap),
+              ref.encode_ids_ref(ids, sent, cap))
+        names.append(f"ids:{name}")
+    for name, fn in sorted(cases.CODEC_ROW_CASES.items()):
+        rows, valid, sent, dcap, icap = fn(np.random.default_rng(2))
+        m, D = rows.shape[-2:]
+        rows = torch.as_tensor(rows.reshape(-1, m, D), device=dev)
+        valid = torch.as_tensor(valid.reshape(-1, m), device=dev)
+        want = ref.encode_rows_ref(rows, valid, sent, dcap, icap)
+        _held(f"encode_rows {name}",
+              ops.encode_rows(rows, valid, sent, dcap, icap), want)
+        _held(f"decode_rows {name}",
+              (ops.decode_rows(*want[:5], m, D, sent),
+               ops.decode_rows(*want[:5], m, D, sent, valid=valid)),
+              (ref.decode_rows_ref(*want[:5], m, D, sent),
+               ref.decode_rows_ref(*want[:5], m, D, sent, valid=valid)))
+        names.append(f"rows:{name}")
+    for seed in cases.ARBITRARY_STREAM_SEEDS:
+        streams, valid, m, D = cases.arbitrary_row_streams(seed)
+        enc = [torch.as_tensor(x[0], device=dev) for x in streams]
+        valid = torch.as_tensor(valid[0], device=dev)
+        _held(f"decode_rows arbitrary streams {seed}",
+              [ops.decode_rows(*enc, m, D, 77, valid=v) for v in (None, valid)],
+              [ref.decode_rows_ref(*enc, m, D, 77, valid=v)
+               for v in (None, valid)])
+        names.append(f"streams:{seed}")
+    emit(phase="kernels", kernel="varint_codec", exact_cases=names)
+
+    ndev = 8
+    _, degs_cap, ids_cap = wire.fetch_stream_caps(fcap, max_degree)
+    t0, t1 = _device_chunks(ndev, ndev * fcap * max_degree)[0]
+    L, m, D = (t1 - t0) * ndev, fcap, max_degree
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    results = {"encode_ids": {}, "encode_rows": {}, "decode_rows": {}}
+
+    def row(kernel, mix, shape, kernel_ms, plain_ms, nbytes, **extra):
+        bound_ms, bound_by = _bytes_bound(nbytes)
+        results[kernel][mix] = dict(
+            shape=shape, max_abs_err=0, kernel_ms=kernel_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, **extra)
+        emit(phase="kernels", kernel=kernel, mix=mix, **results[kernel][mix])
+
+    # the request lanes: every slot a hole (q1), or 70% live ids
+    req_cap = wire.fetch_stream_caps(fcap, max_degree)[0]
+    for mix, hole_p in (("none", 1.0), ("70pct", 0.3)):
+        ids = _id_lanes(gen, ndev * ndev, fcap, n, dev, hole_p=hole_p)
+        want = wire._by_lane_groups(
+            lambda i: ref.encode_ids_ref(i, n, req_cap), max(fcap, req_cap),
+            ids)
+        _held(f"encode_ids {mix}", ops.encode_ids(ids, n, req_cap), want)
+        row("encode_ids", mix, f"{ids.shape[0]}x{fcap}",
+            cuda_ms(lambda: ops.encode_ids(ids, n, req_cap), iters=20),
+            cuda_ms(lambda: wire._by_lane_groups(
+                lambda i: ref.encode_ids_ref(i, n, req_cap),
+                max(fcap, req_cap), ids), warmup=1, iters=3),
+            ids.numel() * 4 + ids.shape[0] * (req_cap + 14))
+        del ids, want
+
+    # one responder chunk of rows
+    deg_t = torch.as_tensor(degrees, device=dev, dtype=torch.int32)
+    rows = _graph_rows(gen, L, m, D, n, deg_t)
+    del deg_t
+    lane = max(ids_cap, m * D)
+
+    def plain_encode(v):
+        return wire._by_lane_groups(
+            lambda r, v: ref.encode_rows_ref(r, v, n, degs_cap, ids_cap),
+            lane, rows, v)
+
+    def plain_decode(enc, v):
+        return wire._by_lane_groups(
+            lambda *a: (ref.decode_rows_ref(*a[:5], m, D, n, valid=a[5]),),
+            lane, *enc, v)[0]
+
+    for mix, p in (("none", 0.0), ("1pct", 0.01), ("all", 1.0)):
+        valid = torch.rand((L, m), generator=gen, device=dev) < p
+        nvalid = int(valid.sum())
+        enc = ops.encode_rows(rows, valid, n, degs_cap, ids_cap)
+        want = plain_encode(valid)
+        _held(f"encode_rows {mix}", enc, want)
+        del want
+        row("encode_rows", mix, f"{L}x{m}x{D}",
+            cuda_ms(lambda: ops.encode_rows(rows, valid, n, degs_cap,
+                                            ids_cap), warmup=1, iters=5),
+            cuda_ms(lambda: plain_encode(valid), warmup=1, iters=1),
+            L * m + nvalid * D * 4 + L * (degs_cap + ids_cap + 10),
+            valid_rows=nvalid, raw_lanes=int(enc[4].sum()),
+            stream_bytes=int(enc[1].sum() + enc[3].sum()))
+        enc = enc[:5]
+        live = int(enc[1].clamp(0, degs_cap).sum()
+                   + enc[3].clamp(0, ids_cap).sum())
+        got = ops.decode_rows(*enc, m, D, n, valid=valid)
+        _held(f"decode_rows {mix}", (got,), (plain_decode(enc, valid),))
+        del got
+        row("decode_rows", mix, f"{L}x{m}x{D}",
+            cuda_ms(lambda: ops.decode_rows(*enc, m, D, n, valid=valid),
+                    warmup=1, iters=5),
+            cuda_ms(lambda: plain_decode(enc, valid), warmup=1, iters=1),
+            live + L * m + L * m * D * 4 + L * 9, live_bytes=live)
+        del enc, valid
+        torch.cuda.empty_cache()
+    del rows
+    torch.cuda.empty_cache()
+    return results
+
+
 # --------------------------------------------------------------------------- #
 # phase 4: small graph, oracle parity on the card
 # --------------------------------------------------------------------------- #
@@ -772,7 +959,7 @@ def phase_full(g, pg, expect: int, setup_s: float, storage: str,
     from repro_torch.kernels.membership import ops as memb
     from repro_torch.kernels.varint import ops as varint
     from repro_torch.obs import TraceRecorder
-    kernels = {"membership": memb, "intersect": inter, "delta_vlen": varint}
+    kernels = {"membership": memb, "intersect": inter, "varint": varint}
     cfg = dataclasses.replace(DEFAULT_ENGINE, storage_format=storage,
                               wire_format=wire)
     pat = Pattern.from_edges(QUERIES["q1"])
@@ -782,6 +969,7 @@ def phase_full(g, pg, expect: int, setup_s: float, storage: str,
     tracer = TraceRecorder(capacity=1 << 20)
     for mod in kernels.values():
         mod.launches = 0
+    varint.launches_by_variant = dict.fromkeys(varint.VARIANTS, 0)
     memb.shapes.clear()
     inter.shapes.clear()
     t0 = time.perf_counter()
@@ -790,6 +978,8 @@ def phase_full(g, pg, expect: int, setup_s: float, storage: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in kernels.items()}
+    launches.update({f"varint.{v}": k
+                     for v, k in varint.launches_by_variant.items()})
     shapes = {"membership": dict(memb.shapes),
               "intersect": dict(inter.shapes)}
     peak = torch.cuda.max_memory_allocated()
@@ -811,7 +1001,9 @@ def phase_full(g, pg, expect: int, setup_s: float, storage: str,
     if storage == "bucketed":
         check(launches["intersect"] > 0, "intersect kernel never launched")
     if wire == "varint":
-        check(launches["delta_vlen"] > 0, "delta_vlen kernel never launched")
+        for v in ("encode_ids", "encode_rows", "decode_rows"):
+            check(launches[f"varint.{v}"] > 0,
+                  f"varint {v} kernel never launched ({tag})")
     n = g.n
     emit(phase="full", storage=storage, wire=wire, n=n, published_n=FULL_N,
          cut=n != FULL_N, cut_reason=CUT_REASON if n == SMOKE_N else None,
@@ -838,10 +1030,18 @@ def phase_full(g, pg, expect: int, setup_s: float, storage: str,
     return launches, st
 
 
+# each varint variant's passes, by the name its kernels share: a launch
+# enqueues that many kernels
+VARINT_PASSES = {"varint_ids": {"encode_ids": 3, "delta_vlen": 2},
+                 "varint_rows": {"encode_rows": 3},
+                 "varint_decode": {"decode_rows": 3}}
+
+
 def _profile_full(pg, pat, cfg, expect: int, tag: str, launches: dict):
     """q1 once more under ``torch.profiler`` (device activity only): the
-    card's busy time and idle share, membership's and intersect's device
-    ms and launches (which must be the timed run's), and the top 8 other
+    card's busy time and idle share, membership's, intersect's and the
+    varint codec's device ms and kernels (which must be the timed run's
+    launches, times each varint variant's passes), and the top 8 other
     kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -856,11 +1056,16 @@ def _profile_full(pg, pat, cfg, expect: int, tag: str, launches: dict):
         wall = (time.perf_counter() - t1) * 1e3
     check(res.count == expect, f"profiled q1 ({tag}) count {res.count} != "
                                f"scipy triangles {expect}")
-    split = _kernel_times(prof, wall, named=("membership", "intersect"))
+    split = _kernel_times(prof, wall, named=("membership", "intersect",
+                                             *VARINT_PASSES))
+    want = dict(launches)
+    for name, passes in VARINT_PASSES.items():
+        want[name] = sum(k * launches[f"varint.{v}"]
+                         for v, k in passes.items())
     for name, row in split["named"].items():
-        check(row["count"] == launches[name],
+        check(row["count"] == want[name],
               f"profiled q1 ({tag}) shows {row['count']} {name} kernels, "
-              f"the timed run launched {launches[name]}")
+              f"the timed run's launches give {want[name]}")
     emit(phase="full_profile", storage=cfg.storage_format,
          wire=cfg.wire_format, added_s=time.perf_counter() - t0, **split)
 
@@ -2239,7 +2444,8 @@ def main():
     inter = phase_intersect(g.degrees, pg.n, g.max_degree)
     # the default fetch cap, and the cap after the run's three escalations
     fcaps = (DEFAULT_ENGINE.fetch_cap, DEFAULT_ENGINE.fetch_cap << 3)
-    dvl = phase_delta_vlen(pg.n, fcaps)
+    phase_delta_vlen(pg.n, fcaps)
+    codec = phase_varint_codec(g.degrees, pg.n, fcaps[-1], g.max_degree)
     phase_small()
     if args.skip_full:
         return
@@ -2254,7 +2460,7 @@ def main():
     main_launches, dense = phase_full(g, pg, expect, setup_s, "dense", "raw",
                                       per_row_ms, profile=True)
     new_launches, coded = phase_full(g, pg, expect, setup_s, "bucketed",
-                                     "varint", per_row_ms)
+                                     "varint", per_row_ms, profile=True)
     for key in ("bytes_fetch", "bytes_verify", "bytes_saved_cache"):
         check(coded[key] == dense[key],
               f"full-scale {key}: bucketed/varint {coded[key]} != "
@@ -2297,7 +2503,7 @@ def main():
     t = dict(timing["backedge_engine"],
              bound_ms=timing["backedge_engine"]["bound_data_ms"],
              bound_by="bytes")
-    ti, td = inter["backedge_padded"], dvl[fcaps[-1]]
+    ti = inter["backedge_padded"]
     rows = [
         ("membership", "src/repro_torch/kernels/membership/csrc/membership.cu",
          "src/repro/kernels/membership/kernel.py:40",
@@ -2305,9 +2511,13 @@ def main():
         ("intersect", "src/repro_torch/kernels/intersect/csrc/intersect.cu",
          "src/repro/kernels/intersect/kernel.py:38",
          new_launches["intersect"], ti),
-        ("delta_vlen", "src/repro_torch/kernels/varint/csrc/delta_vlen.cu",
-         "src/repro/kernels/varint/kernel.py:67",
-         new_launches["delta_vlen"], td),
+        # the varint fetch codec, the redesign of delta_vlen_pallas, at
+        # the full cell's top capacity with what q1 feeds it: no valid row
+        *((f"varint_{v}",
+           f"src/repro_torch/kernels/varint/csrc/varint_{v.split('_')[0]}.cu",
+           "src/repro/kernels/varint/kernel.py:67",
+           new_launches[f"varint.{v}"], codec[v]["none"])
+          for v in ("encode_ids", "encode_rows", "decode_rows")),
         ("flash_attn", "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
          "src/repro/kernels/flash_attn/kernel.py:62",
          lm_launches["flash_attn"], lm_rows["flash_attn", "bfloat16"]),

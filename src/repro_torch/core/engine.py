@@ -39,8 +39,10 @@ version on the CPU):
   (:func:`repro_torch.kernels.membership.ops.membership`);
 * intersect — the back-edge filter on the bucketed layout
   (:func:`repro_torch.kernels.intersect.ops.intersect`);
-* delta_vlen — the sizing pass of the varint fetchV id encoder
-  (:func:`repro_torch.kernels.varint.ops.delta_vlen`).
+* varint_encode / varint_decode — the varint fetchV codecs: request
+  ids out, response rows out, response rows back onto the requesters'
+  slots (:mod:`repro_torch.kernels.varint.ops`, through
+  :mod:`repro_torch.core.wire`).
 """
 from __future__ import annotations
 
@@ -271,13 +273,12 @@ def fetch_exchange(g: DeviceGraph, exch: SimExchange, pivots, need,
                 wire_codec.encode_rows_lanes(resp, dec_mask[p0:p1], n,
                                              degs_cap, rows_cap)
             del resp
-            rows_c = wire_codec.decode_rows_lanes(
+            # decoded straight onto the requesters' slots of this chunk
+            wire_codec.decode_rows_lanes(
                 *exch.a2a_tree((dg_s, dg_len, ri_s, ri_len, resp_raw)),
-                fcap, D, n)                             # (ndev, d, fcap, D)
+                fcap, D, n, valid=wire[:, p0:p1] < n,
+                out=fetched[:, p0:p1])                  # (ndev, d, fcap, D)
             del dg_s, ri_s
-            fetched[:, p0:p1] = wire_codec.scatter_compacted_lanes(
-                rows_c, wire[:, p0:p1] < n, n)
-            del rows_c
             resp_len[p0:p1] = dg_len + ri_len
             wire_ov = wire_ov | r_ov
         wire_ov = wire_ov | e_ov

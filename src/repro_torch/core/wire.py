@@ -42,38 +42,39 @@ split/escalate loop.
 
 How the port computes them
 --------------------------
-Every codec works on a batch of lanes ``(L, ...)`` at once; the
-``*_lanes`` wrappers flatten the ``(ndev, peer)`` lane grid and run it in
-groups of at most :data:`CODEC_CHUNK_ELEMS` payload elements, because at
-the escalated fetch capacity one response lane alone is 4 · 1,780 · 32,768
-bytes.  The reference's ``.at[...].set/add(mode="drop")`` scatters become
-``scatter_`` into a buffer with one private dump slot per source element
-past the ``cap`` real ones (so dropped writes never contend for one
-address), cut back to ``cap``; bit ORs are accumulated in int32 and cast
-to ``uint8`` once.  Running sums along a lane go through one flat scan
+Every codec works on a batch of lanes ``(L, ...)`` at once.  The fetch
+path's three codecs (request ids out, response rows out, response rows
+back) are :mod:`repro_torch.kernels.varint.ops`: on the card, hand-written
+CUDA kernels that take every lane of a call in one launch, read only the
+live ids, rows and bytes, and write each output byte once (the row
+decoder straight onto the requester's slots); on the CPU, their plain
+versions (:mod:`repro_torch.kernels.varint.ref`), which the lane wrappers
+run in groups of at most :data:`CODEC_CHUNK_ELEMS` payload elements,
+because at the escalated fetch capacity one response lane alone is
+4 · 1,780 · 32,768 bytes.  The request id decoder and the verifyE codecs
+are plain PyTorch on both paths, grouped the same way; they share the
+plain versions' byte-level helpers (dropped writes, LEB128 write and
+parse, raw int32 words).  Bit ORs are accumulated in int32 and cast to
+``uint8`` once; running sums along a lane go through one flat scan
 (:func:`repro_torch.core.exchange.row_cumsum`) and keep the reference's
-int32 wrap-around.  The LEB128 parse finds each byte's position inside
-its value from the (at most four) continuation bytes before it, instead
-of a running maximum over value starts.  The raw escape writes and reads
-whole int32 words through a ``uint8``↔``int32`` view (both the CPU and
-the card are little-endian).  The delta/varint-size pass of the id
-encoder is :func:`repro_torch.kernels.varint.ops.delta_vlen`: a CUDA
-kernel on the card, its plain version on the CPU.
+int32 wrap-around.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.exchange import compact, masked, row_cumsum
-from repro_torch.kernels.varint.ops import delta_vlen
-from repro_torch.kernels.varint.ref import varint_size
+from repro_torch.core.exchange import row_cumsum
+# module objects, not names: the plain versions' module imports
+# core.exchange, so this module may be imported while it is half done
+from repro_torch.kernels.varint import ops as varint_ops
+from repro_torch.kernels.varint import ref as vref
 
 _U8 = torch.uint8
 _I32 = torch.int32
 
 # The lane wrappers run at most this many payload elements (ids or stream
-# bytes of a lane, whichever is larger) through a codec at once; each
-# element takes a few tens of bytes of temporaries.
+# bytes of a lane, whichever is larger) through a plain codec at once;
+# each element takes a few tens of bytes of temporaries.
 CODEC_CHUNK_ELEMS = 1 << 26
 
 
@@ -96,124 +97,9 @@ def verify_stream_caps(vcap: int) -> tuple[int, int, int]:
 
 
 # --------------------------------------------------------------------------- #
-# Byte-level helpers over a batch of lanes (L, ...)
+# Byte-level helpers over a batch of lanes (L, ...); the shared ones live
+# beside the fetch codec's plain versions (kernels/varint/ref.py)
 # --------------------------------------------------------------------------- #
-def _arange(k: int, like: torch.Tensor, dtype=_I32) -> torch.Tensor:
-    return torch.arange(k, dtype=dtype, device=like.device)
-
-
-def _drop_index(idx: torch.Tensor, keep: torch.Tensor,
-                cap: int) -> torch.Tensor:
-    """``idx (L, K)`` where ``keep``, else a private dump slot per source
-    element past ``cap``, as int64 for ``scatter_``; the caller's buffer
-    holds ``cap + K`` slots and is cut back to ``cap``."""
-    dump = cap + torch.arange(idx.shape[1], device=idx.device)
-    return torch.where(keep, idx.long(), dump)
-
-
-def _scatter_drop(buf_shape: tuple, idx: torch.Tensor, keep: torch.Tensor,
-                  src: torch.Tensor, dtype, add: bool = False
-                  ) -> torch.Tensor:
-    """``out[l, idx[l, k]] = src[l, k]`` (or ``+=``) where ``keep``, into a
-    zeroed ``(L, cap)`` buffer; dropped writes are cut off."""
-    L, cap = buf_shape
-    index = _drop_index(idx, keep, cap)
-    buf = torch.zeros((L, cap + idx.shape[1]), dtype=dtype, device=idx.device)
-    if add:
-        buf.scatter_add_(1, index, src.to(dtype))
-    else:
-        buf.scatter_(1, index, src.to(dtype))
-    return buf[:, :cap]
-
-
-def _write_varints(vals: torch.Tensor, vlen: torch.Tensor, cap: int):
-    """LEB128 codes of ``vals (L, K)`` (non-negative) with byte sizes
-    ``vlen (L, K)`` (0 = skip), laid out in order at the exclusive running
-    sum of ``vlen``; bytes past ``cap`` are dropped.  Returns ``(stream
-    (L, cap) u8, total (L,) int32)``."""
-    L, K = vals.shape
-    vals = vals.to(_I32)
-    vlen = vlen.to(_I32)
-    offs = row_cumsum(vlen) - vlen
-    total = vlen.sum(-1, dtype=_I32)
-    buf = torch.zeros((L, cap + K), dtype=_U8, device=vals.device)
-    for b in range(5):
-        pos = offs + b
-        index = _drop_index(pos, (vlen > b) & (pos < cap), cap)
-        byte = (vals >> (7 * b)) & 0x7F
-        byte |= (vlen > b + 1).to(_I32) << 7
-        buf.scatter_(1, index, byte.to(_U8))
-        del pos, index, byte
-    return buf[:, :cap], total
-
-
-def _shift_right(x: torch.Tensor, k: int) -> torch.Tensor:
-    """``out[:, i] = x[:, i - k]``, False for ``i < k``."""
-    L, n = x.shape
-    k = min(k, n)
-    return torch.cat([x.new_zeros((L, k)), x[:, :n - k]], dim=1)
-
-
-def _parse_varints(stream: torch.Tensor, length: torch.Tensor, m_out: int):
-    """Inverse of :func:`_write_varints`: ``(vals (L, m_out) int32, count
-    (L,) int32)``.
-
-    A clear high bit ends a value.  A byte's value index is the number of
-    terminators before it; its place inside the value is the number of
-    continuation bytes right before it, at most 4 (the reference's
-    ``clip(idx - last_value_start, 0, 4)``).  One scatter-add assembles
-    the 7-bit payloads."""
-    L, cap = stream.shape
-    inb = _arange(cap, stream) < length.view(L, 1)
-    cont = stream >= 0x80
-    term = inb & ~cont
-    place = torch.zeros((L, cap), dtype=_I32, device=stream.device)
-    run = torch.ones_like(cont)
-    for k in range(1, 5):
-        run &= _shift_right(cont, k)
-        place += run
-    del run, cont
-    contrib = (stream & 0x7F).to(_I32) << (7 * place)
-    del place
-    seg = row_cumsum(term) - term.to(_I32)
-    keep = inb & (seg < m_out)
-    vals = _scatter_drop((L, m_out), seg, keep,
-                         contrib.masked_fill_(~inb, 0), _I32, add=True)
-    return vals, term.sum(-1, dtype=_I32)
-
-
-def _write_raw32(words: torch.Tensor, cap: int) -> torch.Tensor:
-    """Little-endian int32 ``words (L, W)`` as a ``cap``-byte stream (the
-    raw escape): cut at ``cap``, zero-padded beyond ``4 W``."""
-    L, W = words.shape
-    data = words.to(_I32).contiguous().view(_U8)
-    if 4 * W >= cap:
-        return data[:, :cap].contiguous()
-    out = torch.zeros((L, cap), dtype=_U8, device=words.device)
-    out[:, :4 * W] = data
-    return out
-
-
-def _read_raw32(stream: torch.Tensor, k: int) -> torch.Tensor:
-    """The first ``k`` little-endian int32 words of each lane.  A word that
-    reaches past the stream reads ``stream[min(4 j + b, cap - 1)]`` for its
-    byte ``b``, as the reference's clipped gather does."""
-    L, cap = stream.shape
-    full = min(k, cap // 4)
-    s = stream[:, :4 * full]
-    if cap % 4:
-        s = s.contiguous()
-    words = s.view(_I32)
-    if k == full:
-        return words
-    j = _arange(k - full, stream, torch.int64) + full
-    pos = (4 * j[:, None] + torch.arange(4, device=stream.device)).clamp_(
-        max=cap - 1)
-    b = stream[:, pos].to(_I32)                       # (L, k - full, 4)
-    tail = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
-    return torch.cat([words, tail], dim=1)
-
-
 def _get_bit(stream: torch.Tensor, bitpos: torch.Tensor) -> torch.Tensor:
     cap = stream.shape[1]
     byte = torch.gather(stream, 1, (bitpos >> 3).clamp(0, cap - 1).long())
@@ -226,8 +112,8 @@ def _last_true(flag: torch.Tensor) -> torch.Tensor:
     built from a running count and one scatter."""
     L, m = flag.shape
     cs = row_cumsum(flag)
-    at = _scatter_drop((L, m), cs - 1, flag,
-                       _arange(m, flag).expand(L, m), _I32)
+    at = vref.scatter_drop((L, m), cs - 1, flag,
+                       vref.arange(m, flag).expand(L, m), _I32)
     last = torch.gather(at, 1, (cs - 1).clamp_(min=0).long())
     return last.masked_fill_(cs == 0, -1)
 
@@ -253,91 +139,20 @@ def _ef_lowbits(universe: int, count: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # Batched codecs: every argument carries a leading lane axis L
 # --------------------------------------------------------------------------- #
-def _encode_ids(ids, delta, vlen, cap: int):
-    valid = vlen > 0
-    count = valid.sum(-1, dtype=_I32)
-    coded, total = _write_varints(delta, vlen, cap)
-    raw_len = 4 * count
-    use_raw = (total > raw_len) | (total > cap)
-    packed = compact(valid, ids.shape[1], ids, fill=0)[2]
-    stream = torch.where(use_raw[:, None], _write_raw32(packed, cap), coded)
-    length = torch.where(use_raw, raw_len, total)
-    return stream, length, use_raw, length > cap
-
-
 def _decode_ids(stream, length, raw, m_out: int, sentinel: int):
-    deltas, count_c = _parse_varints(stream, length, m_out)
+    deltas, count_c = vref.parse_varints(stream, length, m_out)
     ids_c = row_cumsum(deltas)
-    ids_r = _read_raw32(stream, m_out)
+    ids_r = vref.read_raw32(stream, m_out)
     count = torch.where(raw, length // 4, count_c)
-    mask = _arange(m_out, stream) < count[:, None]
+    mask = vref.arange(m_out, stream) < count[:, None]
     ids = torch.where(raw[:, None], ids_r, ids_c).masked_fill_(~mask,
                                                                sentinel)
     return ids, mask
 
 
-def _scatter_compacted(rows_c, valid, fill):
-    L, m = valid.shape
-    rank = (row_cumsum(valid) - 1).clamp_(0, m - 1)
-    lane = torch.arange(L, device=valid.device)[:, None]
-    return masked(rows_c[lane, rank], valid, fill)
-
-
-def _encode_rows(rows, valid, sentinel: int, degs_cap: int, ids_cap: int):
-    L, m, D = rows.shape
-    deg = (rows < sentinel).sum(-1, dtype=_I32).masked_fill_(~valid, 0)
-    dvl = varint_size(deg).masked_fill_(~valid, 0)
-    degs_s, degs_total = _write_varints(deg, dvl, degs_cap)
-
-    ok = valid[..., None] & (_arange(D, rows) < deg[..., None])
-    dmat = rows.clone()
-    dmat[..., 1:] -= rows[..., :-1]
-    dmat = dmat.clamp_(min=0).masked_fill_(~ok, 0)
-    vl = varint_size(dmat).masked_fill_(~ok, 0)
-    del ok
-    ids_s, ids_total = _write_varints(dmat.view(L, -1), vl.view(L, -1),
-                                      ids_cap)
-    del dmat, vl
-
-    count = valid.sum(-1, dtype=_I32)
-    raw_len = 4 * D * count
-    use_raw = ((degs_total + ids_total > raw_len) | (ids_total > ids_cap)
-               | (degs_total > degs_cap))
-    packed = compact(valid, m, rows, fill=0)[2]
-    raw_s = _write_raw32(packed.view(L, -1), ids_cap)
-    del packed
-    ids_stream = torch.where(use_raw[:, None], raw_s, ids_s)
-    degs_stream = degs_s.masked_fill(use_raw[:, None], 0)
-    ids_len = torch.where(use_raw, raw_len, ids_total)
-    degs_len = degs_total.masked_fill(use_raw, 0)
-    overflow = (ids_len > ids_cap) | (degs_len > degs_cap)
-    return degs_stream, degs_len, ids_stream, ids_len, use_raw, overflow
-
-
-def _decode_rows(degs_s, degs_len, ids_s, ids_len, raw, m: int, D: int,
-                 sentinel: int):
-    L = degs_s.shape[0]
-    degs, count_c = _parse_varints(degs_s, degs_len, m)
-    rstart = row_cumsum(degs) - degs
-    flat, _ = _parse_varints(ids_s, ids_len, m * D)
-    col = _arange(D, degs)
-    f = (rstart[..., None] + col).clamp_(0, m * D - 1)
-    dmat = torch.gather(flat, 1, f.view(L, -1).long()).view(L, m, D)
-    del flat, f
-    row = _arange(m, degs)
-    ok = (col < degs[..., None]) & (row[:, None] < count_c.view(L, 1, 1))
-    rows_c = torch.cumsum(dmat.masked_fill_(~ok, 0), dim=-1, dtype=_I32)
-    rows_c.masked_fill_(~ok, sentinel)
-    del dmat, ok
-    count_r = ids_len // (4 * D)
-    rows_r = _read_raw32(ids_s, m * D).view(L, m, D)
-    rows_r = masked(rows_r, row < count_r[:, None], sentinel)
-    return torch.where(raw.view(L, 1, 1), rows_r, rows_c)
-
-
 def _encode_pairs(a, b, universe: int, a_cap: int, b_cap: int):
     L, m = a.shape
-    idx = _arange(m, a)
+    idx = vref.arange(m, a)
     valid = a < universe
     count = valid.sum(-1, dtype=_I32)
     l = _ef_lowbits(universe, count)[:, None]
@@ -349,7 +164,7 @@ def _encode_pairs(a, b, universe: int, a_cap: int, b_cap: int):
     def set_bits(bitpos, bit, sel):
         byte = bitpos >> 3
         keep = sel & (bit > 0) & (byte < a_cap)
-        bits.scatter_add_(1, _drop_index(byte, keep, a_cap),
+        bits.scatter_add_(1, vref.drop_index(byte, keep, a_cap),
                           bit << (bitpos & 7))
 
     for j in range(31):
@@ -367,15 +182,15 @@ def _encode_pairs(a, b, universe: int, a_cap: int, b_cap: int):
     prev_b = torch.cat([b.new_zeros((L, 1)), b[:, :-1]], dim=1)
     bv = torch.where(a != prev_a, b, (b - prev_b).clamp_(min=0))
     bv.masked_fill_(~valid, 0)
-    bvl = varint_size(bv).masked_fill_(~valid, 0)
-    b_s, b_total = _write_varints(bv, bvl, b_cap)
+    bvl = vref.varint_size(bv).masked_fill_(~valid, 0)
+    b_s, b_total = vref.write_varints(bv, bvl, b_cap)
 
     raw_len = 4 * count
     use_raw = ((a_total + b_total > 2 * raw_len) | (a_total > a_cap)
                | (b_total > b_cap))
     u = use_raw[:, None]
-    a_stream = torch.where(u, _write_raw32(av, a_cap), a_s)
-    b_stream = torch.where(u, _write_raw32(b.masked_fill(~valid, 0), b_cap),
+    a_stream = torch.where(u, vref.write_raw32(av, a_cap), a_s)
+    b_stream = torch.where(u, vref.write_raw32(b.masked_fill(~valid, 0), b_cap),
                            b_s)
     a_len = torch.where(use_raw, raw_len, a_total)
     b_len = torch.where(use_raw, raw_len, b_total)
@@ -387,7 +202,7 @@ def _decode_pairs(a_s, b_s, b_len, raw, count, m_out: int, universe: int,
                   sentinel: int):
     L, cap = a_s.shape
     count = count.to(_I32)
-    idx = _arange(m_out, a_s)
+    idx = vref.arange(m_out, a_s)
     l = _ef_lowbits(universe, count)[:, None]
 
     # -- a: EF decode ------------------------------------------------------ #
@@ -396,19 +211,19 @@ def _decode_pairs(a_s, b_s, b_len, raw, count, m_out: int, universe: int,
         bit = _get_bit(a_s, idx * l + j) << j
         low |= bit.masked_fill_(~(j < l), 0)
     nbits = cap * 8
-    bits = ((a_s[..., None].to(_I32) >> _arange(8, a_s)) & 1).view(L, nbits)
+    bits = ((a_s[..., None].to(_I32) >> vref.arange(8, a_s)) & 1).view(L, nbits)
     lo_end = count[:, None] * l
-    bidx = _arange(nbits, a_s)
+    bidx = vref.arange(nbits, a_s)
     in_high = (bidx >= lo_end) & (bits > 0)
     del bits
     r = row_cumsum(in_high) - in_high.to(_I32)
-    highs = _scatter_drop((L, m_out), r, in_high & (r < m_out),
+    highs = vref.scatter_drop((L, m_out), r, in_high & (r < m_out),
                           bidx - lo_end - r, _I32)
     del in_high, r
     a_c = (highs << l) | low
 
     # -- b: varint + running sum restarted at each equal-a run ------------- #
-    bv, _ = _parse_varints(b_s, b_len, m_out)
+    bv, _ = vref.parse_varints(b_s, b_len, m_out)
     prev_a = torch.cat([a_c.new_full((L, 1), -1), a_c[:, :-1]], dim=1)
     c0 = row_cumsum(bv)
     sidx = _last_true(a_c != prev_a)
@@ -417,8 +232,8 @@ def _decode_pairs(a_s, b_s, b_len, raw, count, m_out: int, universe: int,
 
     mask = idx < count[:, None]
     r = raw[:, None]
-    a_out = torch.where(r, _read_raw32(a_s, m_out), a_c)
-    b_out = torch.where(r, _read_raw32(b_s, m_out), b_c)
+    a_out = torch.where(r, vref.read_raw32(a_s, m_out), a_c)
+    b_out = torch.where(r, vref.read_raw32(b_s, m_out), b_c)
     return (a_out.masked_fill_(~mask, sentinel),
             b_out.masked_fill_(~mask, sentinel), mask)
 
@@ -426,11 +241,11 @@ def _decode_pairs(a_s, b_s, b_len, raw, count, m_out: int, universe: int,
 def _pack_bools(bits, count, cap: int):
     L, m = bits.shape
     count = count.to(_I32)
-    sel = bits & (_arange(m, bits) < count[:, None])
+    sel = bits & (vref.arange(m, bits) < count[:, None])
     nb = (m + 7) // 8
     pad = torch.zeros((L, nb * 8), dtype=_I32, device=bits.device)
     pad[:, :m] = sel
-    packed = (pad.view(L, nb, 8) << _arange(8, bits)).sum(-1, dtype=_I32)
+    packed = (pad.view(L, nb, 8) << vref.arange(8, bits)).sum(-1, dtype=_I32)
     stream = torch.zeros((L, cap), dtype=_U8, device=bits.device)
     w = min(nb, cap)
     stream[:, :w] = packed[:, :w]
@@ -438,7 +253,7 @@ def _pack_bools(bits, count, cap: int):
 
 
 def _unpack_bools(stream, count, m_out: int):
-    idx = _arange(m_out, stream)
+    idx = vref.arange(m_out, stream)
     bit = _get_bit(stream, idx.expand(stream.shape[0], m_out))
     return (bit > 0) & (idx < count.to(_I32)[:, None])
 
@@ -454,8 +269,8 @@ def encode_ids(ids: torch.Tensor, sentinel: int, cap: int):
     """One lane: sorted ids with sentinel holes -> compacted varint stream.
 
     Returns ``(stream (cap,) u8, length (), raw (), overflow ())``."""
-    delta, vlen = delta_vlen(ids[None].contiguous(), sentinel)
-    return _one(_encode_ids(ids[None], delta, vlen, cap))
+    return _one(varint_ops.encode_ids(ids[None].contiguous(), sentinel,
+                                      cap)[:4])
 
 
 def decode_ids(stream, length, raw, m_out: int, sentinel: int):
@@ -471,7 +286,7 @@ def scatter_compacted(rows_c: torch.Tensor, valid: torch.Tensor,
     """Spread compacted per-lane responses back onto the holed request
     slots: ``out[j] = rows_c[rank(j)]`` where ``valid[j]``, else ``fill``.
     ``rows_c``: (m, ...) compacted at the front; ``valid``: (m,)."""
-    return _scatter_compacted(rows_c[None], valid[None], fill)[0]
+    return vref.scatter_compacted_ref(rows_c[None], valid[None], fill)[0]
 
 
 def encode_rows(rows: torch.Tensor, valid: torch.Tensor, sentinel: int,
@@ -482,16 +297,18 @@ def encode_rows(rows: torch.Tensor, valid: torch.Tensor, sentinel: int,
     Returns ``(degs_stream, degs_len, ids_stream, ids_len, raw, overflow)``.
     The raw escape stores the padded int32 rows in the id stream (degree
     stream empty)."""
-    return _one(_encode_rows(rows[None], valid[None], sentinel, degs_cap,
-                             ids_cap))
+    return _one(varint_ops.encode_rows(rows[None].contiguous(),
+                                       valid[None].contiguous(), sentinel,
+                                       degs_cap, ids_cap))
 
 
 def decode_rows(degs_s, degs_len, ids_s, ids_len, raw, m: int, D: int,
                 sentinel: int) -> torch.Tensor:
     """Inverse of :func:`encode_rows`: ``(m, D)`` windows, compacted at the
     front, sorted-then-sentinel exactly as ``DeviceGraph.rows_at`` emits."""
-    return _decode_rows(degs_s[None], degs_len.view(1), ids_s[None],
-                        ids_len.view(1), raw.view(1), m, D, sentinel)[0]
+    return varint_ops.decode_rows(degs_s[None], degs_len.view(1),
+                                  ids_s[None], ids_len.view(1), raw.view(1),
+                                  m, D, sentinel)[0]
 
 
 def encode_pairs(a: torch.Tensor, b: torch.Tensor, universe: int,
@@ -555,22 +372,27 @@ def _lanes(x: torch.Tensor, tail: int) -> torch.Tensor:
     return x.reshape((-1,) + tuple(x.shape[x.dim() - tail:]))
 
 
+def _fetch_lanes(fn, lane_elems: int, *args) -> tuple:
+    """A fetch codec (:mod:`repro_torch.kernels.varint.ops`) over
+    lane-batched ``args``: the kernels take every lane in one launch,
+    the plain versions (CPU tensors) run in lane groups."""
+    if args[0].device.type == "cpu":
+        return _by_lane_groups(fn, lane_elems, *args)
+    return fn(*args)
+
+
 def encode_ids_lanes(wire: torch.Tensor, sentinel: int, cap: int):
-    """``wire`` (ndev, peer, m): :func:`encode_ids` per lane, with the
-    delta/varint-size pass (:func:`delta_vlen`) batched over all lanes.
+    """``wire`` (ndev, peer, m): :func:`encode_ids` per lane.
 
     Also returns the per-lane *modeled* byte matrix (varints capped at
     4 B — ``engine._varint_id_bytes`` semantics) from the same sizing
     pass, so the fetch stage never sizes the lanes twice."""
     ndev, p, m = wire.shape
-    flat = _lanes(wire, 1).contiguous()
-    delta, vlen = delta_vlen(flat, sentinel)
-    s, ln, rw, ov = _by_lane_groups(
-        lambda i, d, v: _encode_ids(i, d, v, cap), max(m, cap), flat, delta,
-        vlen)
-    model = vlen.clamp(max=4).sum(-1, dtype=_I32).view(ndev, p)
+    s, ln, rw, ov, model = _fetch_lanes(
+        lambda i: varint_ops.encode_ids(i, sentinel, cap), max(m, cap),
+        _lanes(wire, 1).contiguous())
     return (s.view(ndev, p, cap), ln.view(ndev, p), rw.view(ndev, p),
-            ov.any(), model)
+            ov.any(), model.view(ndev, p))
 
 
 def decode_ids_lanes(stream, length, raw, m_out: int, sentinel: int):
@@ -585,30 +407,45 @@ def decode_ids_lanes(stream, length, raw, m_out: int, sentinel: int):
 def encode_rows_lanes(rows, valid, sentinel: int, degs_cap: int,
                       ids_cap: int):
     lead = valid.shape[:-1]
-    dg, dl, ids, il, rw, ov = _by_lane_groups(
-        lambda r, v: _encode_rows(r, v, sentinel, degs_cap, ids_cap),
-        max(ids_cap, rows.shape[-2] * rows.shape[-1]), _lanes(rows, 2),
-        _lanes(valid, 1))
+    dg, dl, ids, il, rw, ov = _fetch_lanes(
+        lambda r, v: varint_ops.encode_rows(r, v, sentinel, degs_cap,
+                                            ids_cap),
+        max(ids_cap, rows.shape[-2] * rows.shape[-1]),
+        _lanes(rows, 2).contiguous(), _lanes(valid, 1).contiguous())
     return (dg.view(lead + (degs_cap,)), dl.view(lead),
             ids.view(lead + (ids_cap,)), il.view(lead), rw.view(lead),
             ov.any())
 
 
 def decode_rows_lanes(degs_s, degs_len, ids_s, ids_len, raw, m: int,
-                      D: int, sentinel: int):
+                      D: int, sentinel: int, valid=None, out=None):
+    """Inverse of :func:`encode_rows_lanes` over the lane grid ``lead =
+    degs_len.shape``: ``lead + (m, D)`` windows compacted at the front;
+    with ``valid (lead + (m,))`` spread onto the valid slots instead, as
+    :func:`scatter_compacted_lanes` does; written into ``out`` when given.
+    On the card the kernel reads the (transposed) streams and writes
+    ``out`` in place; on the CPU the lanes run in groups."""
+    if ids_s.device.type != "cpu":
+        return varint_ops.decode_rows(degs_s, degs_len, ids_s, ids_len, raw,
+                                      m, D, sentinel, valid=valid, out=out)
     lead = degs_len.shape
+    args = [_lanes(degs_s, 1), degs_len.reshape(-1), _lanes(ids_s, 1),
+            ids_len.reshape(-1), raw.reshape(-1)]
+    if valid is not None:
+        args.append(_lanes(valid, 1))
     rows = _by_lane_groups(
-        lambda ds, dl, is_, il, r: (_decode_rows(ds, dl, is_, il, r, m, D,
-                                                 sentinel),),
-        max(ids_s.shape[-1], m * D), _lanes(degs_s, 1), degs_len.reshape(-1),
-        _lanes(ids_s, 1), ids_len.reshape(-1), raw.reshape(-1))[0]
-    return rows.view(lead + (m, D))
+        lambda *a: (varint_ops.decode_rows(*a[:5], m, D, sentinel,
+                                           valid=a[5] if valid is not None
+                                           else None),),
+        max(ids_s.shape[-1], m * D), *args)[0].view(lead + (m, D))
+    return rows if out is None else out.copy_(rows)
 
 
 def scatter_compacted_lanes(rows_c, valid, fill):
     lead = valid.shape[:-1]
     tail = rows_c.dim() - valid.dim() + 1
-    out = _scatter_compacted(_lanes(rows_c, tail), _lanes(valid, 1), fill)
+    out = vref.scatter_compacted_ref(_lanes(rows_c, tail), _lanes(valid, 1),
+                                     fill)
     return out.view(lead + out.shape[1:])
 
 

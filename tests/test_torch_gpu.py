@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA kernels
-(membership, intersect, delta_vlen, flash_attn, moe_gemm, segment_spmm
-in both its variants) against their plain PyTorch versions, the whole
+(membership, intersect, the varint fetch codec's encoders and decoder
+with delta_vlen, flash_attn, moe_gemm, segment_spmm in both its
+variants) against their plain PyTorch versions, the whole
 engine on the card — dense and bucketed storage, raw and varint wire —
 the reduced OLMoE serving path and the four reduced GNNs, against the
 port's CPU path.
@@ -19,8 +20,10 @@ from _gnn_cases import (ALL_MASKED_NODE, D_FEAT, GAT_BF16_TOL,
                         gat_kernel_inputs, graph_arrays)
 from _gnn_cases import edge_inputs as spmm_edge_inputs
 from _gnn_cases import sweep_inputs as spmm_sweep_inputs
-from _codec_cases import (DELTA_VLEN_SWEEP, INTERSECT_CARD_CASES,
-                          INTERSECT_CASES, delta_vlen_inputs,
+from _codec_cases import (ARBITRARY_STREAM_SEEDS, CODEC_ID_CASES,
+                          CODEC_ROW_CASES, DELTA_VLEN_SWEEP,
+                          INTERSECT_CARD_CASES, INTERSECT_CASES,
+                          arbitrary_row_streams, delta_vlen_inputs,
                           intersect_inputs)
 from _lm_cases import (FLASH_SWEEP, FLASH_TOL, MOE_ROW_CHECK, MOE_SWEEP,
                        MOE_TOL, flash_inputs, moe_inputs)
@@ -44,6 +47,7 @@ from repro_torch.kernels.moe_gemm.ref import (bound_ratio, moe_down_ref,
                                               moe_hidden_ref)
 from repro_torch.kernels.segment_spmm import ops as spmm_ops
 from repro_torch.kernels.varint import ops as varint_ops
+from repro_torch.kernels.varint import ref as varint_ref
 from repro_torch.kernels.varint.ref import delta_vlen_ref
 from repro_torch.models import (decode_step, gnn_forward, init_gnn,
                                 init_lm_params, prefill)
@@ -156,15 +160,88 @@ def test_delta_vlen_kernel_matches_plain_on_card(cuda, B, M):
     ids, n = delta_vlen_inputs(B, M)
     ids = torch.as_tensor(ids, device=cuda)
     before = varint_ops.launches
-    delta, vlen = varint_ops.delta_vlen(ids, n)
-    torch.cuda.synchronize()
+    delta, vlen = _counted("delta_vlen", varint_ops.delta_vlen, ids, n)
     assert varint_ops.launches == before + 1
     want_delta, want_vlen = delta_vlen_ref(ids, n)
     assert torch.equal(delta, want_delta) and torch.equal(vlen, want_vlen)
 
 
+def _counted(variant, fn, *args, **kw):
+    """``fn(*args)`` on the card, checking that it launched ``variant``
+    once and nothing else."""
+    before = dict(varint_ops.launches_by_variant)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    want = dict(before, **{variant: before[variant] + 1})
+    assert varint_ops.launches_by_variant == want
+    return out
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CODEC_ID_CASES))
+def test_encode_ids_kernel_matches_plain_on_card(cuda, case):
+    ids, n, cap = CODEC_ID_CASES[case](np.random.default_rng(0))
+    ids = torch.as_tensor(ids.reshape(-1, ids.shape[-1]), device=cuda)
+    got = _counted("encode_ids", varint_ops.encode_ids, ids, n, cap)
+    _same(got, varint_ref.encode_ids_ref(ids, n, cap))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CODEC_ROW_CASES))
+def test_row_codec_kernels_match_plain_on_card(cuda, case):
+    """encode_rows, then decode_rows three ways: compacted, onto the
+    slots, and onto the slots of a transposed lane grid written into a
+    slice of a larger buffer (the engine's exchange and fetch buffer)."""
+    rows, valid, n, dcap, icap = CODEC_ROW_CASES[case](
+        np.random.default_rng(2))
+    T, S, m, D = rows.shape
+    rows = torch.as_tensor(rows.reshape(-1, m, D), device=cuda)
+    valid = torch.as_tensor(valid.reshape(-1, m), device=cuda)
+    got = _counted("encode_rows", varint_ops.encode_rows, rows, valid, n,
+                   dcap, icap)
+    want = varint_ref.encode_rows_ref(rows, valid, n, dcap, icap)
+    _same(got, want)
+    enc = want[:5]
+    _same([_counted("decode_rows", varint_ops.decode_rows, *enc, m, D, n)],
+          [varint_ref.decode_rows_ref(*enc, m, D, n)])
+    on_slots = varint_ref.decode_rows_ref(*enc, m, D, n, valid=valid)
+    _same([_counted("decode_rows", varint_ops.decode_rows, *enc, m, D, n,
+                    valid=valid)], [on_slots])
+    grid = [x.view((T, S) + x.shape[1:]).transpose(0, 1) for x in enc]
+    vt = valid.view(T, S, m).transpose(0, 1).contiguous()
+    big = torch.full((S, T + 2, m, D), 5, dtype=torch.int32, device=cuda)
+    _counted("decode_rows", varint_ops.decode_rows, *grid, m, D, n,
+             valid=vt, out=big[:, 1:T + 1])
+    assert torch.equal(big[:, 1:T + 1], varint_ref.decode_rows_ref(
+        *[x.reshape((-1,) + x.shape[2:]) for x in grid], m, D, n,
+        valid=vt.view(-1, m)).view(S, T, m, D))
+    assert bool((big[:, 0] == 5).all() and (big[:, T + 1] == 5).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", ARBITRARY_STREAM_SEEDS)
+def test_decode_rows_kernel_matches_plain_on_arbitrary_streams(cuda, seed):
+    """Streams no encoder writes: cut values, degrees past m·D or
+    wrapping, lengths out of range, raw lanes cut short."""
+    streams, valid, m, D = arbitrary_row_streams(seed)
+    enc = [torch.as_tensor(x[0], device=cuda) for x in streams]
+    valid = torch.as_tensor(valid[0], device=cuda)
+    for v in (None, valid):
+        got = _counted("decode_rows", varint_ops.decode_rows, *enc, m, D, 77,
+                       valid=v)
+        assert torch.equal(got, varint_ref.decode_rows_ref(*enc, m, D, 77,
+                                                           valid=v))
+
+
 def _launch_counts():
-    return (ops.launches, intersect_ops.launches, varint_ops.launches)
+    return (ops.launches, intersect_ops.launches,
+            *(varint_ops.launches_by_variant[v]
+              for v in ("encode_ids", "encode_rows", "decode_rows")))
 
 
 @pytest.mark.gpu
@@ -185,7 +262,7 @@ def test_engine_on_card_matches_cpu(cuda, q, fmt, wire):
     if fmt == "bucketed":
         assert after[1] > before[1]
     if wire == "varint":
-        assert after[2] > before[2]
+        assert all(a > b for a, b in zip(after[2:], before[2:]))
     want = rads_enumerate(pg, pat, cfg, device="cpu")
     assert got.count == want.count and got.embeddings == want.embeddings
     for k in set(want.stats) - TIMING_KEYS:
