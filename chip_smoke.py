@@ -7,7 +7,7 @@ every phase holds:
               CUDA versions;
 2. build    — every CUDA kernel of the port (membership, intersect,
               varint_encode, varint_decode, flash_attn, moe_gemm,
-              segment_spmm), compiled
+              segment_spmm, flash_attn_bwd, moe_gemm_bwd), compiled
               from the repository's sources (one ``nvcc`` per source, all
               started together); each library's ``HGMMA`` and ``UTMALDG``
               instructions counted (``cuobjdump -sass``), and flash_attn's
@@ -92,8 +92,30 @@ every phase holds:
               ``torch.profiler`` split with no edge-sized gather or
               scatter; PyTorch's edge gathers timed four ways; then
               GraphCast at full width (16 layers, d = 512, bf16) on the
-              Cora-sized graph.
+              Cora-sized graph;
+12. lm_train_kernels — the training path's backward kernels against
+              their plain versions on the card in float32 and bfloat16:
+              flash_attn's "delta", "dkdv" and "dq" (on the forward
+              kernel's own output and lse, which is held against the plain
+              forward's) and moe_gemm_bwd, at the test sweep, edge shapes
+              (ragged tiles, GQA 8/2, q_offset) and the training shapes,
+              each call made twice and bit-identical; the training shapes
+              timed beside the bound, the plain version and a library
+              yardstick;
+13. lm_train_parity — OLMoE-1B-7B at full width and 2 layers, one
+              training step's loss and every parameter's gradient: the
+              kernel path against the plain path in float32 and in
+              bfloat16 (experts pinned), launches by kernel;
+14. lm_train — the training cell: OLMoE-1B-7B at full width cut to 4
+              layers, 4 x 4,096 tokens a step, bf16 with f32 AdamW
+              moments; ``Trainer.run`` for 20 steps with a checkpoint
+              every 10 and a fault injected at step 15, then an
+              uninterrupted run from the same seed: the losses after the
+              restore equal bit for bit, the loss falls; step ms p50/p90,
+              tokens/s, peak memory, launches by kernel and variant, and
+              one step under ``torch.profiler`` split by kernel.
 
+``--lm-train-only`` runs phases 1, 2 and 12-14 and prints no result.
 Each phase prints one JSON line.  Then come the kernels line, the
 ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -105,6 +127,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -174,6 +197,17 @@ SMOKE_MAX_DEGREE = 1780       # max degree of powerlaw_graph(SMOKE_N, 6, 1)
 CUT_REASON = ("at n=317,080 the fourth capacity escalation (28 GiB fetch "
               "buffers held through 2^20-row leaf steps) runs out of device "
               "memory; 310,000 needs three escalations")
+# LM training (phases 12-14): OLMoE-1B-7B at full width, cut from 16 layers
+# to 4 (6.9 B parameters with bf16 weights and gradients and f32 moments,
+# 12 bytes each, take 83 GB) and LM_SHAPES' train_4k from global batch 256
+# to 4 sequences of 4,096 tokens
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LAYERS = 4, 4096, 4
+TRAIN_PARITY_SEQ = 512     # lm_train_parity: PARITY_BATCH x 512 tokens
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULT_AT = 20, 10, 15
+# a backward kernel's gradient against its plain version's: the largest
+# |difference| over the largest |plain| (f32: sums in another order; bf16:
+# the inputs and outputs rounded, sums in f32)
+TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DEVICE = "cuda"
 SASS_OPS = ("HGMMA", "UTMALDG")   # counted in each library's SASS
 TIMING_KEYS = {"compiles", "compile_s", "compile_cache_hits", "wave_s_total",
@@ -240,7 +274,8 @@ def phase_build():
     from repro_torch.kernels.varint import kernel as varint_kernel
     sources = [memb_kernel.SOURCE, inter_kernel.SOURCE,
                *varint_kernel.SOURCES, flash_kernel.SOURCE, moe_kernel.SOURCE,
-               spmm_kernel.SOURCE]
+               spmm_kernel.SOURCE, flash_kernel.BWD_SOURCE,
+               moe_kernel.BWD_SOURCE]
     t0 = time.perf_counter()
     took = build.build(sources)
     wall = time.perf_counter() - t0
@@ -1151,7 +1186,6 @@ def phase_lm_kernels():
     from repro_torch.kernels.moe_gemm.ref import (bound_ratio, moe_down_ref,
                                                   moe_gemm_f64, moe_gemm_ref,
                                                   moe_hidden_ref)
-    from repro_torch.models.layers import _flash_attention_chunked
     dev = torch.device(DEVICE)
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     gen = torch.Generator(device=dev)
@@ -1160,10 +1194,11 @@ def phase_lm_kernels():
     plains = {
         "naive": lambda q, k, v, causal, off: flash.flash_attention_plain(
             q, k, v, causal=causal, q_offset=off),
-        # the model's O(S) chunked online softmax: the naive version's
-        # (16, 32,768, 32,768) f32 scores would take 68.7 GB at 32k
-        "chunked": lambda q, k, v, causal, off: _flash_attention_chunked(
-            q, k, v, causal, 1024, 1024, off)}
+        # the same plain version, named apart at 32k: it works 1,024
+        # queries at a time, where whole (16, 32,768, 32,768) f32 scores
+        # would take 68.7 GB
+        "chunked": lambda q, k, v, causal, off: flash.flash_attention_plain(
+            q, k, v, causal=causal, q_offset=off)}
 
     def held(row, got, want, tol, per_row=False):
         ok, err, elem, rowr = _compare(got, want, tol, per_row)
@@ -1377,26 +1412,31 @@ def phase_lm_kernels():
 def _plain_kernels(active: bool):
     """While active, the kernel wrappers the models call (flash_attn,
     moe_gemm, segment_spmm and gat_aggregate) are swapped for their plain
-    versions, so the models run the port's plain path on the card.  Only
-    the parity checks of phases 7 and 10 turn it on."""
+    versions, so the models run the port's plain path on the card; the
+    training path's backward wrappers too.  Only the parity checks of
+    phases 7, 10 and 13 turn it on."""
     from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_ref
     from repro_torch.kernels.moe_gemm import ops as moe
-    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_bwd_ref, moe_gemm_ref
     from repro_torch.kernels.segment_spmm import ops as spmm
     if not active:
         yield
         return
-    saved = (flash.flash_attention_k, moe.moe_gemm, spmm.segment_spmm,
+    saved = (flash.flash_attention_k, flash.flash_attention_bwd_k,
+             moe.moe_gemm, moe.moe_gemm_bwd_k, spmm.segment_spmm,
              spmm.gat_aggregate)
     flash.flash_attention_k = flash.flash_attention_plain
+    flash.flash_attention_bwd_k = flash_attention_bwd_ref
     moe.moe_gemm = moe_gemm_ref
+    moe.moe_gemm_bwd_k = moe_gemm_bwd_ref
     spmm.segment_spmm = spmm.segment_spmm_plain
     spmm.gat_aggregate = spmm.gat_aggregate_plain
     try:
         yield
     finally:
-        (flash.flash_attention_k, moe.moe_gemm, spmm.segment_spmm,
-         spmm.gat_aggregate) = saved
+        (flash.flash_attention_k, flash.flash_attention_bwd_k, moe.moe_gemm,
+         moe.moe_gemm_bwd_k, spmm.segment_spmm, spmm.gat_aggregate) = saved
 
 
 def _lm_launches() -> dict:
@@ -2405,6 +2445,620 @@ def phase_gnn_serve(products: dict):
             "sum": gc[0]["launches"]["sum"]}
 
 
+# --------------------------------------------------------------------------- #
+# phases 12-14: LM training
+# --------------------------------------------------------------------------- #
+def _grad_ratio(got, want, tol: float) -> float:
+    """``max |got - want|`` over ``tol`` times ``max |want|``: a gradient
+    is held iff at most 1."""
+    g, w = got.float(), want.float()
+    return float((g - w).abs().max()
+                 / (tol * w.abs().max()).clamp_min(1e-30))
+
+
+def _flash_bwd_work(B, Sq, Skv, H, Hk, D, causal, dtype) -> dict:
+    """(bytes, flops) of each backward kernel, as ``_flash_work`` counts
+    the forward's: each input read once, each output written once; 8·D
+    flops per kept (query, key) pair in dkdv (S, dP, dV, dK), 6·D in dq
+    (S, dP, dQ)."""
+    e = 2 if dtype == "bfloat16" else 4
+    nq, nk = B * Sq * H * D, B * Skv * Hk * D
+    rows = B * H * Sq
+    pairs = B * H * Sq * Skv / (2 if causal else 1)
+    return {"delta": (e * 2 * nq + 4 * rows, 2 * nq),
+            "dkdv": (e * (2 * nq + 4 * nk) + 8 * rows, 8 * D * pairs),
+            "dq": (e * (3 * nq + 2 * nk) + 8 * rows, 6 * D * pairs)}
+
+
+def phase_lm_train_kernels():
+    """The training path's backward kernels against their plain versions
+    on the card, in float32 and bfloat16: flash_attn's "delta", "dkdv"
+    and "dq" (through ``flash_attention_bwd_k``, on the forward kernel's
+    own output and ``lse``, which is held against the plain forward's) and
+    moe_gemm's backward (the whole gradient through ``moe_gemm_bwd_k``,
+    and the kernel's own da, db and h against ``moe_bwd_hidden_ref``).
+    Shapes: the test sweep, edges (ragged tiles, GQA 8/2, q_offset 0 and
+    past a tile) and the training shapes (B·H = 64, S = 4,096, D = 128,
+    causal; E = 64, C = 2,560, d = 2,048, f = 1,024).  Each gradient is
+    held to ``TRAIN_TOL`` of its plain version's largest magnitude, and
+    each call is made twice and must give the same bits.  The training
+    shapes are timed: each kernel beside its bound, the plain version and
+    a library yardstick (autograd through ``scaled_dot_product_attention``;
+    three ``bmm`` for moe_gemm_bwd's products, and the six ``bmm`` of the
+    dense expert backward).  Returns the timed bfloat16 rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import kernel as flash_kernel
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_ref
+    from repro_torch.kernels.moe_gemm import kernel as moe_kernel
+    from repro_torch.kernels.moe_gemm import ops as moe
+    from repro_torch.kernels.moe_gemm.ref import (moe_bwd_hidden_ref,
+                                                  moe_gemm_bwd_ref)
+    dev = torch.device(DEVICE)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    rows = {}
+
+    def randn(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    def held(row, names, got, want, tol):
+        ratios = {n: _grad_ratio(g, w, tol) for n, g, w in
+                  zip(names, got, want)}
+        row.setdefault("ratio", {}).update(ratios)
+        row["max_abs_err"] = max(row.get("max_abs_err", 0.0), *(
+            float((g.float() - w.float()).abs().max())
+            for g, w in zip(got, want)))
+        for n, r in ratios.items():
+            check(r <= 1, f"{row['kernel']} {row['shape']} {row['dtype']} "
+                          f"{n}: |kernel - plain| / max|plain| is {r * tol} "
+                          f"> {tol}")
+
+    def flash_case(name, B, Sq, Skv, H, Hk, D, dtype, causal=True,
+                   q_offset=0, timed=False, iters=3):
+        dt, tol = dts[dtype], TRAIN_TOL[dtype]
+        want_variant = "mma" if dtype == "bfloat16" and D % 16 == 0 \
+            else "simt"
+        q, do = randn((B, Sq, H, D), dt), randn((B, Sq, H, D), dt)
+        k, v = randn((B, Skv, Hk, D), dt), randn((B, Skv, Hk, D), dt)
+        row = dict(kernel="flash_attn_bwd", shape=name, dtype=dtype, B=B,
+                   Sq=Sq, Skv=Skv, H=H, Hk=Hk, D=D, causal=causal,
+                   q_offset=q_offset, tol=tol)
+        o, lse = flash.flash_attention_k(q, k, v, causal=causal,
+                                         q_offset=q_offset, return_lse=True)
+        _, lse_plain = flash.flash_attention_plain(q, k, v, causal, q_offset,
+                                                   return_lse=True)
+        row["lse_max_abs_err"] = float((lse - lse_plain).abs().max())
+        check(row["lse_max_abs_err"]
+              <= 1e-4 * max(1.0, float(lse_plain.abs().max())),
+              f"flash {name} {dtype}: the forward's lse is "
+              f"{row['lse_max_abs_err']} from the plain forward's")
+        before = dict(flash.bwd_launches)
+        before_v = dict(flash.bwd_launches_by_variant)
+        args = (q, k, v, o, lse, do, causal, q_offset)
+        got = flash.flash_attention_bwd_k(*args)
+        again = flash.flash_attention_bwd_k(*args)
+        check(all(flash.bwd_launches[n] == before[n] + 2
+                  for n in flash.BWD_KERNELS),
+              f"flash {name}: backward launches {before} -> "
+              f"{flash.bwd_launches}")
+        row["variant"] = want_variant
+        check(flash.bwd_launches_by_variant[want_variant]
+              == before_v[want_variant] + 4,
+              f"flash {name} {dtype}: dkdv and dq did not run "
+              f"{want_variant}: {before_v} -> "
+              f"{flash.bwd_launches_by_variant}")
+        want = flash_attention_bwd_ref(*args)
+        torch.cuda.synchronize()
+        row["bit_stable"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(row["bit_stable"], f"flash {name} {dtype}: two backward calls "
+                                 f"differ")
+        held(row, ("dq", "dk", "dv"), got, want, tol)
+        del got, again, want
+        if timed:
+            delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            outs = {"delta": (), "dkdv": (dk, dv), "dq": (dq,)}
+            row["kernel_ms"] = {n: cuda_ms(
+                lambda n=n: flash_kernel.flash_attn_bwd_cuda(
+                    n, q, k, v, o, lse, do, delta, outs[n], causal,
+                    q_offset, want_variant), warmup=1, iters=iters)
+                for n in flash.BWD_KERNELS}
+            if want_variant != "simt":   # the first version, same inputs
+                row["simt_ms"] = {n: cuda_ms(
+                    lambda n=n: flash_kernel.flash_attn_bwd_cuda(
+                        n, q, k, v, o, lse, do, delta, outs[n], causal,
+                        q_offset, "simt"), warmup=1, iters=2)
+                    for n in ("dkdv", "dq")}
+            delta_plain = (do.float() * o.float()).sum(-1).transpose(1, 2)
+            row["delta_max_abs_err"] = float((delta - delta_plain).abs().max())
+            check(row["delta_max_abs_err"]
+                  <= 1e-4 * float(delta_plain.abs().max()),
+                  f"flash {name} {dtype}: delta is "
+                  f"{row['delta_max_abs_err']} from the plain rowsum")
+            row["plain_delta_ms"] = cuda_ms(
+                lambda: (do.float() * o.float()).sum(-1).transpose(1, 2),
+                warmup=1, iters=iters)
+            row["bwd_ms"] = cuda_ms(lambda: flash.flash_attention_bwd_k(
+                *args), warmup=1, iters=iters)
+            row["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_ref(*args),
+                                      warmup=1, iters=2)
+            row["library_ms"] = None
+            if H == Hk and q_offset == 0:
+                qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                              for t in (q, k, v))
+                out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=causal)
+                dot = do.transpose(1, 2).contiguous()
+                row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True), warmup=1,
+                    iters=iters)
+                del qt, kt, vt, out, dot
+            work = _flash_bwd_work(B, Sq, Skv, H, Hk, D, causal, dtype)
+            row["bound_ms"], row["bound_by"] = {}, {}
+            for n, (nbytes, flops) in work.items():
+                row["bound_ms"][n], row["bound_by"][n] = _bound(nbytes, flops,
+                                                                dtype)
+            row["library_covers"] = "dq, dk, dv (one SDPA backward)"
+            row["plain_covers"] = ("delta, dq, dk, dv; plain_delta_ms: "
+                                   "delta alone")
+            del delta, dq, dk, dv, delta_plain
+        emit(phase="lm_train_kernels", **row)
+        del q, k, v, o, lse, do, lse_plain
+        torch.cuda.empty_cache()
+        return row
+
+    def moe_case(name, E, C, d, f, dtype, w_scale, timed=False, iters=3,
+                 variant=None):
+        dt, tol = dts[dtype], TRAIN_TOL[dtype]
+        x, dy = randn((E, C, d), dt), randn((E, C, d), dt)
+        wg, wu = randn((E, d, f), dt, w_scale), randn((E, d, f), dt, w_scale)
+        wd = randn((E, f, d), dt, w_scale)
+        row = dict(kernel="moe_gemm_bwd", shape=name, dtype=dtype, E=E, C=C,
+                   d=d, f=f, tol=tol)
+        before = moe.bwd_launches
+        got = moe.moe_gemm_bwd_k(x, wg, wu, wd, dy)
+        again = moe.moe_gemm_bwd_k(x, wg, wu, wd, dy)
+        check(moe.bwd_launches == before + 2,
+              f"moe {name}: backward launches {before} -> "
+              f"{moe.bwd_launches}")
+        want = moe_gemm_bwd_ref(x, wg, wu, wd, dy)
+        torch.cuda.synchronize()
+        row["bit_stable"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(row["bit_stable"], f"moe {name} {dtype}: two backward calls "
+                                 f"differ")
+        held(row, ("dx", "dwg", "dwu", "dwd"), got, want, tol)
+        del got, again, want
+        # the kernel's own outputs against the plain version of its function
+        hid = [torch.empty((E, C, f), dtype=dt, device=dev) for _ in range(3)]
+        row["variant"] = moe.route_bwd(dt, d, f, [
+            t.data_ptr() for t in (x, wg, wu, wd, dy, *hid)])
+        check(variant is None or row["variant"] == variant,
+              f"moe {name} {dtype} routes to {row['variant']}, not "
+              f"{variant}")
+        moe_kernel.moe_gemm_bwd_cuda(x, wg, wu, wd, dy, *hid, row["variant"])
+        held(row, ("da", "db", "h"), hid,
+             moe_bwd_hidden_ref(x, wg, wu, wd, dy), tol)
+        if timed:
+            row["kernel_ms"] = cuda_ms(lambda: moe_kernel.moe_gemm_bwd_cuda(
+                x, wg, wu, wd, dy, *hid, row["variant"]), warmup=1,
+                iters=iters)
+            if row["variant"] != "simt":   # the first version, same inputs
+                row["simt_ms"] = cuda_ms(
+                    lambda: moe_kernel.moe_gemm_bwd_cuda(
+                        x, wg, wu, wd, dy, *hid, "simt"), warmup=1, iters=2)
+            row["bwd_ms"] = cuda_ms(lambda: moe.moe_gemm_bwd_k(
+                x, wg, wu, wd, dy), warmup=1, iters=iters)
+            row["plain_ms"] = cuda_ms(lambda: moe_bwd_hidden_ref(
+                x, wg, wu, wd, dy), warmup=1, iters=2)
+            row["library_ms"] = cuda_ms(lambda: (
+                torch.bmm(x, wg), torch.bmm(x, wu),
+                torch.bmm(dy, wd.transpose(1, 2))), warmup=1, iters=iters)
+            da, db, h = hid
+            row["dense_bwd_bmm6_ms"] = cuda_ms(lambda: (
+                torch.bmm(dy, wd.transpose(1, 2)),
+                torch.bmm(h.transpose(1, 2), dy),
+                torch.bmm(da, wg.transpose(1, 2)),
+                torch.bmm(db, wu.transpose(1, 2)),
+                torch.bmm(x.transpose(1, 2), da),
+                torch.bmm(x.transpose(1, 2), db)), warmup=1, iters=iters)
+            e = 2 if dtype == "bfloat16" else 4
+            row["bound_ms"], row["bound_by"] = _bound(
+                e * (2 * E * C * d + 3 * E * d * f + 3 * E * C * f),
+                6 * E * C * d * f, dtype)
+            row["library_covers"] = "x wg, x wu, dy wd^T (three bmm)"
+        emit(phase="lm_train_kernels", **row)
+        del x, dy, wg, wu, wd, hid
+        torch.cuda.empty_cache()
+        return row
+
+    for dtype in ("float32", "bfloat16"):
+        for S, H, Hk, D in [(64, 4, 2, 32), (128, 2, 2, 16)]:   # the sweep
+            flash_case(f"sweep_{S}x{H}x{Hk}x{D}", 2, S, S, H, Hk, D, dtype)
+        flash_case("ragged_100x150_non_causal", 1, 100, 150, 4, 1, 64, dtype,
+                   causal=False)
+        flash_case("ragged_333_gqa_8_2", 1, 333, 333, 8, 2, 128, dtype)
+        flash_case("q_offset_200", 1, 300, 500, 4, 4, 128, dtype,
+                   q_offset=200)
+        flash_case("d40_gqa_6_3", 2, 100, 100, 6, 3, 40, dtype)
+        for E, C, d, f in [(4, 64, 32, 64), (2, 128, 16, 128)]:  # the sweep
+            moe_case(f"sweep_{E}x{C}x{d}x{f}", E, C, d, f, dtype, 0.1)
+        moe_case("ragged_5x37x48x40", 5, 37, 48, 40, dtype, 0.1,
+                 variant="mma" if dtype == "bfloat16" else "simt")
+        moe_case("unaligned_3x37x36x20", 3, 37, 36, 20, dtype, 0.1,
+                 variant="simt")
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH).model
+    H, D, mo = cfg.n_heads, cfg.head_dim, cfg.moe
+    E, d, f = mo.n_experts, cfg.d_model, mo.d_expert
+    C = max(int(TRAIN_BATCH * TRAIN_SEQ * mo.top_k / E * mo.capacity_factor),
+            1)
+    for dtype in ("float32", "bfloat16"):
+        rows["flash_attn_bwd", dtype] = flash_case(
+            "train_4k", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, H, H, D, dtype,
+            timed=True)
+        rows["moe_gemm_bwd", dtype] = moe_case(
+            "train_4k", E, C, d, f, dtype, E ** -0.5, timed=True,
+            variant="mma" if dtype == "bfloat16" else "simt")
+    return rows
+
+
+def _train_launches() -> dict:
+    """Launches of the LM kernels, forward by variant and backward by
+    kernel."""
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.kernels.moe_gemm import ops as moe
+    return {"flash_attn": {k: n for k, n in flash.launches_by_variant.items()
+                           if n},
+            "flash_attn_bwd": {k: n for k, n in flash.bwd_launches.items()
+                               if n},
+            "flash_attn_bwd_by_variant": {
+                k: n for k, n in flash.bwd_launches_by_variant.items() if n},
+            "moe_gemm": {k: n for k, n in moe.launches_by_variant.items()
+                         if n},
+            "moe_gemm_bwd": {k: n for k, n in
+                             moe.bwd_launches_by_variant.items() if n}}
+
+
+def _zero_train_launches() -> None:
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.kernels.moe_gemm import ops as moe
+    _zero_lm_launches()
+    flash.bwd_launches = dict.fromkeys(flash.BWD_KERNELS, 0)
+    flash.bwd_launches_by_variant = dict.fromkeys(flash.BWD_VARIANTS, 0)
+    moe.bwd_launches = 0
+    moe.bwd_launches_by_variant = dict.fromkeys(moe.BWD_VARIANTS, 0)
+
+
+def _train_want(steps: int, n_layers: int, variant: str) -> dict:
+    """What ``_train_launches`` must read after ``steps`` training steps
+    with per-block recompute: each block's forward kernels twice a step,
+    each backward kernel once."""
+    fwd = {variant: 2 * n_layers * steps}
+    bwd = "mma" if variant == "wgmma" else "simt"
+    return {"flash_attn": fwd,
+            "flash_attn_bwd": {k: n_layers * steps
+                               for k in ("delta", "dkdv", "dq")},
+            "flash_attn_bwd_by_variant": {bwd: 2 * n_layers * steps},
+            "moe_gemm": dict(fwd), "moe_gemm_bwd": {bwd: n_layers * steps}}
+
+
+@contextlib.contextmanager
+def _train_router(choices: list, pin: bool):
+    """``_router`` for a training step: while active every ``moe_block``
+    records its router's experts into ``choices`` or, with ``pin``, takes
+    the next recorded ones, and its gates are then its own probabilities
+    of those experts (renormalised, as ``moe_route`` does), so the
+    router's gradient stays on the path that runs.  The calls come in the
+    same order on both paths: each block's forward, then the recompute
+    of each block in reverse during the backward."""
+    import torch
+    from repro_torch.models import layers
+    orig = layers.moe_route
+    pinned = iter(list(choices)) if pin else None
+
+    def route(p, cfg, xt):
+        sel, gates, probs_mean = orig(p, cfg, xt)
+        if pinned is None:
+            choices.append(sel.detach())
+            return sel, gates, probs_mean
+        sel = next(pinned)
+        probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+        gsel = torch.gather(probs, -1, sel)
+        return sel, gsel / (gsel.sum(-1, keepdim=True) + 1e-9), probs_mean
+
+    layers.moe_route = route
+    try:
+        yield
+    finally:
+        layers.moe_route = orig
+
+
+def phase_lm_train_parity():
+    """OLMoE-1B-7B at full width and PARITY_LAYERS layers, one training
+    step's loss and every parameter's gradient: the kernel path against
+    the plain path (``_plain_kernels``, forward and backward), same
+    weights and batch, through ``lm_loss`` with per-block recompute.  In
+    float32 (the simt variants and the backward kernels) each is held to
+    a relative 1e-3 (a gradient: max |diff| over max |plain| of its
+    tensor); in bfloat16 (the wgmma variants) to 5e-2, with the kernel
+    path's experts pinned to the plain path's (``_train_router``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm_params, lm_loss
+    from repro_torch.runtime import deterministic
+    dev = torch.device(DEVICE)
+    L = PARITY_LAYERS
+    for dtype, tol in (("float32", 1e-3), ("bfloat16", 5e-2)):
+        cfg = dataclasses.replace(get_config(LM_ARCH).model, dtype=dtype,
+                                  n_layers=L)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(13)
+        model = init_lm_params(gen, cfg, device=dev).requires_grad_(True)
+        tokens, labels = (torch.randint(0, cfg.vocab, (PARITY_BATCH,
+                                                       TRAIN_PARITY_SEQ),
+                                        generator=gen, device=dev)
+                          for _ in range(2))
+        params = dict(model.named_parameters())
+        chosen = [] if dtype == "bfloat16" else None
+
+        def run(plain, pin=False):
+            router = (_train_router(chosen, pin) if chosen is not None
+                      else contextlib.nullcontext())
+            with _plain_kernels(plain), router, deterministic():
+                _zero_train_launches()
+                loss = lm_loss(model, tokens, labels)
+                grads = torch.autograd.grad(loss, list(params.values()))
+                torch.cuda.synchronize()
+                return loss.detach(), grads, _train_launches()
+
+        lp, gp, launches_plain = run(True)
+        lk, gk, launches = run(False, pin=True)
+        variant = "simt" if dtype == "float32" else "wgmma"
+        want = _train_want(1, L, variant)
+        check(launches == want, f"lm_train_parity {dtype} kernel path "
+                                f"launches {launches} != {want}")
+        check(all(not n for n in launches_plain.values()),
+              f"lm_train_parity {dtype} plain path launched kernels: "
+              f"{launches_plain}")
+        rel = {"loss": _rel(lk, lp)}
+        rel.update({n: _rel(a, b) for n, a, b in zip(params, gk, gp)})
+        worst = max(rel, key=rel.get)
+        for key, val in rel.items():
+            check(val <= tol, f"lm_train_parity {dtype} {key}: kernel vs "
+                              f"plain rel {val} > {tol}")
+        emit(phase="lm_train_parity", arch=LM_ARCH, n_layers=L, dtype=dtype,
+             batch=PARITY_BATCH, seq=TRAIN_PARITY_SEQ, tol=tol,
+             loss={"kernel": float(lk), "plain": float(lp)},
+             rel_err_loss=rel["loss"], n_grads=len(gk),
+             rel_err_grad_max={"param": worst, "rel": rel[worst]},
+             rel_err=rel,
+             router="free" if chosen is None else
+             f"experts pinned to the plain path ({len(chosen)} router "
+             f"calls)", kernel_launches=launches)
+        del model, params, gp, gk
+        torch.cuda.empty_cache()
+
+
+_STEP_SPLIT = (  # (part, kernel-name substrings), matched in this order
+    ("flash_attn_bwd", ("flash_bwd",)),
+    ("flash_attn_fwd", ("flash_fwd",)),
+    ("moe_gemm_bwd", ("moe_bwd_hidden",)),
+    ("moe_gemm_fwd", ("moe_gemm_wgmma", "moe_gemm_stream", "tile_gemm")),
+    ("gemm_library", ("gemm", "xmma", "nvjet", "cutlass")))
+
+
+def _bwd_row(row: dict, kernel: str) -> dict:
+    """The kernels line's fields for one flash_attn backward kernel, from
+    phase 12's timed row: its own time and bound; beside "delta" the
+    plain rowsum and no library call, beside "dkdv" and "dq" the whole
+    plain backward and one SDPA backward (each computes all three
+    gradients)."""
+    delta = kernel == "delta"
+    return dict(max_abs_err=(row["delta_max_abs_err"] if delta
+                             else row["max_abs_err"]),
+                kernel_ms=row["kernel_ms"][kernel],
+                plain_ms=row["plain_delta_ms"] if delta else row["plain_ms"],
+                bound_ms=row["bound_ms"][kernel],
+                bound_by=row["bound_by"][kernel],
+                library_ms=None if delta else row["library_ms"])
+
+
+def _profile_train_step(tr, batch, top: int = 10) -> dict:
+    """One ``Trainer.train_step`` under ``torch.profiler``: the card's busy
+    time (its kernels' device time; the trainer's ranges, which the
+    profiler also puts on the device's timeline, are not kernels) and idle
+    share, and the device time split into flash_attn's and moe_gemm's
+    forward and backward kernels, the library's matrix products
+    (projections, head, the expert backward's ``bmm``), the optimizer (the
+    kernels inside the trainer's "trainer.adamw" range) and the rest,
+    whose top kernels are listed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events()
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+    ranges = [(e.time_range.start, e.time_range.end) for e in events
+              if e.name == "trainer.adamw"]
+    split = {part: 0.0 for part, _ in _STEP_SPLIT}
+    split.update(optimizer=0.0, other=0.0)
+    other, busy = {}, 0.0
+    for e in events:
+        if e.name.startswith("trainer."):
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        busy += ms
+        if any(a <= e.time_range.start < b for a, b in ranges):
+            part = "optimizer"
+        else:
+            part = next((p for p, keys in _STEP_SPLIT
+                         if any(k in e.name for k in keys)), "other")
+        split[part] += ms
+        if part == "other":
+            other[e.name[:80]] = other.get(e.name[:80], 0.0) + ms
+    if not ranges:   # no device-side range: the CPU range's kernel time
+        opt = sum(getattr(e, "device_time_total", 0.0) for e in prof.events()
+                  if e.name == "trainer.adamw"
+                  and getattr(e, "device_type", None) != DeviceType.CUDA)
+        split["optimizer"] = opt / 1e3
+        split["other"] -= opt / 1e3
+    top_other = sorted(other.items(), key=lambda kv: -kv[1])[:top]
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                device_ms=split, optimizer_found=bool(ranges),
+                top_other=[dict(kernel=k, ms=v) for k, v in top_other])
+
+
+def phase_lm_train():
+    """The training cell: OLMoE-1B-7B at full width cut to TRAIN_LAYERS
+    layers, bf16 weights with f32 AdamW moments, TRAIN_BATCH x TRAIN_SEQ
+    tokens a step from ``lm_token_stream``.  Run 1: ``Trainer.run`` for
+    TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT_EVERY (the
+    newest one kept) and a fault injected at step TRAIN_FAULT_AT
+    (restore, replay).  Run 2: the same seed, uninterrupted and without
+    checkpoints, with the launch counts set to 0 before it and read after
+    it.  The losses of the steps after the restored checkpoint
+    must be equal bit for bit, and the loss must fall.  Then one more step
+    under ``torch.profiler``.  Returns run 2's launches, as read right
+    after it."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import Prefetcher, lm_token_stream
+    from repro_torch.models import init_lm_params, lm_loss
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import FaultInjector, Trainer, TrainerConfig
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(get_config(LM_ARCH).model,
+                              n_layers=TRAIN_LAYERS)
+    ckpt_root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    t_phase = time.perf_counter()
+
+    def loss_fn(m, b):
+        return lm_loss(m, torch.as_tensor(b["tokens"], device=dev),
+                       torch.as_tensor(b["labels"], device=dev))
+
+    def run(tag, fault, ckpt_every):
+        """``Trainer.run`` with checkpoints every ``ckpt_every`` steps, or,
+        without (``ckpt_every`` None), the same steps through
+        ``train_step`` alone: ``run`` would first write a step-0 anchor
+        that an uninterrupted run never reads."""
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(14)
+        model = init_lm_params(gen, cfg, device=dev)
+        tr = Trainer(loss_fn, model,
+                     AdamWConfig(lr=1e-3, warmup_steps=5,
+                                 total_steps=TRAIN_STEPS),
+                     TrainerConfig(ckpt_dir=os.path.join(ckpt_root, tag),
+                                   ckpt_every=ckpt_every or 1 << 30,
+                                   ckpt_keep=1, log_every=TRAIN_STEPS))
+        # the host-blocking part of each save and each restore, and the
+        # wait for the last save's thread
+        io = {"save_s": [], "restore_s": []}
+        for name in ("save", "restore"):
+            def timed(*a, _f=getattr(tr, name), _k=f"{name}_s", **k):
+                t0 = time.perf_counter()
+                out = _f(*a, **k)
+                io[_k].append(time.perf_counter() - t0)
+                return out
+            setattr(tr, name, timed)
+        logs = []
+        data = Prefetcher(lm_token_stream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                          seed=1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_train_launches()
+        t0 = time.perf_counter()
+        if ckpt_every:
+            hist = tr.run(data, TRAIN_STEPS, fault=fault, log=logs.append)
+        else:
+            hist = [tr.train_step(next(data)) for _ in range(TRAIN_STEPS)]
+        t1 = time.perf_counter()
+        tr.finish()
+        io["finish_s"] = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        return dict(model=model, tr=tr, hist=hist, logs=logs, io=io,
+                    wall_s=time.perf_counter() - t0,
+                    peak=torch.cuda.max_memory_allocated(),
+                    launches=_train_launches())
+
+    r1 = run("faulted", FaultInjector({TRAIN_FAULT_AT}), TRAIN_CKPT_EVERY)
+    faults = [m for m in r1["logs"] if "fault at step" in m]
+    check(len(faults) == 1 and f"injected fault at step {TRAIN_FAULT_AT}"
+          in faults[0], f"lm_train run 1: expected one injected fault, got "
+                        f"{faults}")
+    losses1 = {h["step"]: h["loss"] for h in r1["hist"]}
+    n_params = sum(p.numel() for p in r1["model"].parameters())
+    del r1["model"], r1["tr"]
+    gc.collect()   # the timing wrappers above make a cycle through tr
+    torch.cuda.empty_cache()
+
+    # the uninterrupted run writes no checkpoint: its losses do not depend
+    # on checkpoints, and its step times then hold none
+    r2 = run("uninterrupted", None, None)
+    losses2 = {h["step"]: h["loss"] for h in r2["hist"]}
+    check(sorted(losses2) == list(range(1, TRAIN_STEPS + 1)),
+          f"lm_train run 2 steps {sorted(losses2)}")
+    check(all(math.isfinite(v) for v in losses2.values()),
+          "lm_train: a loss is not finite")
+    restored = TRAIN_FAULT_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+    replayed = list(range(restored + 1, TRAIN_STEPS + 1))
+    check(all(losses1[s] == losses2[s] for s in replayed),
+          f"lm_train: steps {replayed} after the restore differ: "
+          f"{[(s, losses1[s], losses2[s]) for s in replayed]}")
+    check(losses2[TRAIN_STEPS] < losses2[1],
+          f"lm_train: the loss did not fall ({losses2[1]} -> "
+          f"{losses2[TRAIN_STEPS]})")
+    want = _train_want(TRAIN_STEPS, TRAIN_LAYERS, "wgmma")
+    check(r2["launches"] == want,
+          f"lm_train run 2 launches {r2['launches']} != {want}")
+    check(r2["peak"] < 80e9, f"lm_train peak {r2['peak']} bytes")
+    batch = next(iter(lm_token_stream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                      seed=2, n_steps=1)))
+    profile_split = _profile_train_step(r2["tr"], batch)
+    r2["tr"].finish()
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    secs = [h["secs"] for h in r2["hist"]]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def pct(p):
+        return float(np.percentile(np.asarray(secs) * 1e3, p))
+
+    emit(phase="lm_train", arch=LM_ARCH, n_layers=TRAIN_LAYERS,
+         dtype=cfg.dtype, n_params=n_params, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+         fault_at=TRAIN_FAULT_AT, restored_from=restored,
+         losses_uninterrupted=[losses2[s] for s in sorted(losses2)],
+         losses_faulted={s: losses1[s] for s in sorted(losses1)},
+         replay_bit_equal=replayed,
+         step_ms_p50=pct(50), step_ms_p90=pct(90),
+         step_ms_first=secs[0] * 1e3,
+         tokens_per_s=tokens / (pct(50) / 1e3),
+         wall_s={"faulted": r1["wall_s"], "uninterrupted": r2["wall_s"]},
+         checkpoint_io={"faulted": r1["io"], "uninterrupted": r2["io"]},
+         peak_bytes={"faulted": r1["peak"], "uninterrupted": r2["peak"]},
+         launches=r2["launches"], faulted_run_launches=r1["launches"],
+         profile_step=profile_split,
+         cuts={"n_layers": "16 -> 4 (all 16 hold 6.9 B parameters: 83 GB "
+                           "of bf16 weights and gradients and f32 moments)",
+               "train_4k": "global batch 256 -> 4 (16,384 tokens a step)"},
+         phase_s=time.perf_counter() - t_phase)
+    launches = r2["launches"]
+    del r2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--full-n", type=int, default=SMOKE_N,
@@ -2413,6 +3067,9 @@ def main():
     ap.add_argument("--skip-full", action="store_true",
                     help="stop after the small-graph phase, printing no "
                          "result (a short check of the build and kernels)")
+    ap.add_argument("--lm-train-only", action="store_true",
+                    help="run the device and build phases, then only the LM "
+                         "training phases (12-14), printing no result")
     args = ap.parse_args()
     # growable segments instead of fixed blocks: the escalated stages
     # allocate and free tensors of several GB, which fragments fixed blocks
@@ -2432,6 +3089,11 @@ def main():
 
     smi_line = phase_device()
     phase_build()
+    if args.lm_train_only:
+        phase_lm_train_kernels()
+        phase_lm_train_parity()
+        phase_lm_train()
+        return
     # the full-scale graph: its shapes and degrees drive the kernel timings
     t0 = time.perf_counter()
     g = powerlaw_graph(args.full_n, 6, seed=1)
@@ -2498,6 +3160,13 @@ def main():
     gnn_launches = phase_gnn_serve(products)
     del products
 
+    # LM training: the backward kernels, then the training path, each
+    # launch count read around the uninterrupted run of the cell
+    torch.cuda.empty_cache()
+    train_rows = phase_lm_train_kernels()
+    phase_lm_train_parity()
+    train_launches = phase_lm_train()
+
     # membership on the back-edge filter's own inputs, against the bound
     # of what those inputs need
     t = dict(timing["backedge_engine"],
@@ -2531,7 +3200,19 @@ def main():
         ("segment_spmm_gat",
          "src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu",
          "src/repro/kernels/segment_spmm/kernel.py:35", gnn_launches["gat"],
-         gnn_rows["gat_products_l1"])]
+         gnn_rows["gat_products_l1"]),
+        # the backward kernels: no TPU kernel has a backward, so each names
+        # the TPU kernel whose gradient it computes
+        *((f"flash_attn_bwd_{k}",
+           "src/repro_torch/kernels/flash_attn/csrc/flash_attn_bwd.cu",
+           "src/repro/kernels/flash_attn/kernel.py:62",
+           train_launches["flash_attn_bwd"][k],
+           _bwd_row(train_rows["flash_attn_bwd", "bfloat16"], k))
+          for k in ("delta", "dkdv", "dq")),
+        ("moe_gemm_bwd", "src/repro_torch/kernels/moe_gemm/csrc/moe_gemm_bwd.cu",
+         "src/repro/kernels/moe_gemm/kernel.py:44",
+         sum(train_launches["moe_gemm_bwd"].values()),
+         train_rows["moe_gemm_bwd", "bfloat16"])]
     emit(kernels=[dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],

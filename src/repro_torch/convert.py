@@ -82,6 +82,44 @@ def lm_params_from_arrays(tree: dict, cfg: TransformerConfig, device=None):
         None if head is None else tensor_from_array(head, device))
 
 
+def _array(t: torch.Tensor, grad: bool):
+    """``t`` (or its gradient) as a float32 numpy array; a missing
+    gradient reads as zeros."""
+    if grad:
+        t = torch.zeros_like(t) if t.grad is None else t.grad
+    return t.detach().float().cpu().numpy()
+
+
+def lm_arrays_from_model(model, grad: bool = False) -> dict:
+    """The inverse of :func:`lm_params_from_arrays`: the reference's
+    parameter tree as float32 numpy arrays (``embed``, ``final_norm``,
+    ``lm_head`` when untied, ``dense_stack`` and ``moe_stack``, each a
+    dict of per-layer weights stacked on axis 0, or None), from the
+    model's parameters or, with ``grad``, from their ``.grad``; so a test
+    can hold parameters and gradients against the reference's leaf by
+    leaf."""
+    def stack(blocks):
+        if not blocks:
+            return None
+        out = {}
+        for key in ("attn", "ffn"):
+            names = list(getattr(blocks[0], key).keys())
+            out[key] = {n: np.stack([_array(getattr(b, key)[n], grad)
+                                     for b in blocks]) for n in names}
+        for key in ("ln1", "ln2"):
+            out[key] = np.stack([_array(getattr(b, key), grad)
+                                 for b in blocks])
+        return out
+
+    tree = dict(embed=_array(model.embed, grad),
+                dense_stack=stack([b for b in model.blocks if not b.moe]),
+                moe_stack=stack([b for b in model.blocks if b.moe]),
+                final_norm=_array(model.final_norm, grad))
+    if model.lm_head is not None:
+        tree["lm_head"] = _array(model.lm_head, grad)
+    return tree
+
+
 def _tensors(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _tensors(v, device) for k, v in tree.items()}

@@ -14,6 +14,10 @@
 // and reads the model's (B, S, H, D) layout in place.
 //
 // Two variants; ops.route picks one from dtype and shape before launch.
+// Either can also write each row's log-sum-exp (lse, (B, H, Sq) f32) from
+// the running max and denominator that scaled its output: the training
+// path's forward asks for it, and flash_attn_bwd.cu recomputes P from it.
+// Serving passes a null pointer and writes nothing more.
 //
 // What bounds it: at the serving prefill (B*H = 64, S = 4,096, D = 128,
 // causal) the work is 4*BH*S^2*D/2 = 0.27 TFLOP against 0.2 GB of q, k,
@@ -81,8 +85,9 @@ size_t smem_bytes(int D) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int H, int Hk, int Sq,
-          int Skv, int D, int causal, int q_offset, float scale) {
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int H, int Hk, int Sq, int Skv, int D,
+          int causal, int q_offset, float scale) {
   extern __shared__ float smem[];
   // padded rows: the 16 rows a half-warp reads in one column fall in 16
   // banks (D + 1 is odd for even D)
@@ -210,6 +215,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int s = q0 + ty + 16 * i;
     if (s >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // the row's log-sum-exp of its scaled scores, from the m and l that
+    // scaled o: the backward recomputes P = exp(s - lse) from it
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * H + h) * Sq + s] = m[i] + logf(denom);
 #pragma unroll
     for (int jj = 0; jj < kDPer; ++jj) {
       const int c = tx + 16 * jj;
@@ -219,9 +228,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hk, int Sq, int Skv, int D, int causal, int q_offset,
-           void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int H, int Hk, int Sq, int Skv, int D, int causal,
+           int q_offset, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0) return 0;
   if (D < 1 || D > kMaxD || Hk < 1 || H % Hk != 0 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
@@ -234,8 +243,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   flash_fwd<T><<<grid, kThreads, smem_bytes(D),
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hk, Sq, Skv, D, causal,
-      q_offset, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      H, Hk, Sq, Skv, D, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -264,8 +273,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-                int H, int Hk, int Sq, int Skv, int D, int causal,
-                int q_offset, float scale_log2) {
+                float* __restrict__ lse, int H, int Hk, int Sq, int Skv,
+                int D, int causal, int q_offset, float scale_log2) {
   using namespace hopper;
   constexpr int kP = kD / 64;
   extern __shared__ uint8_t smem_raw[];
@@ -416,6 +425,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       lt += __shfl_xor_sync(0xffffffffu, lt, 1);
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       denom[hh] = fmaxf(lt, 1e-30f);
+      // the row's natural log-sum-exp of its scaled scores, from the m
+      // (log2 domain) and l that scaled o
+      const int row = row0 + 8 * hh;
+      if (lse != nullptr && quad == 0 && row < Sq)
+        lse[((long long)b * H + h) * Sq + row] =
+            (m[hh] + log2f(denom[hh])) * 0.6931471805599453f;
     }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -435,8 +450,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 
 template <int kD>
 int run(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-        void* o, int B, int H, int Hk, int Sq, int Skv, int D, int causal,
-        int q_offset, cudaStream_t st) {
+        void* o, void* lse, int B, int H, int Hk, int Sq, int Skv, int D,
+        int causal, int q_offset, cudaStream_t st) {
   const int smem = (int)sizeof(Smem<kD>) + 1024;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_wgmma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -445,14 +460,14 @@ int run(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   flash_fwd_wgmma<kD><<<grid, kThreads, smem, st>>>(
-      tq, tk, tv, static_cast<bf16*>(o), H, Hk, Sq, Skv, D, causal, q_offset,
-      scale_log2);
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), H, Hk, Sq,
+      Skv, D, causal, q_offset, scale_log2);
   return (int)cudaGetLastError();
 }
 
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hk, int Sq, int Skv, int D, int causal, int q_offset,
-           void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int H, int Hk, int Sq, int Skv, int D, int causal,
+           int q_offset, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0) return 0;
   if (D < 16 || D > 128 || D % 16 != 0 || Hk < 1 || H % Hk != 0 ||
       q_offset < 0)
@@ -473,9 +488,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (!err) err = hopper::make_map_bf16(&tv, v, 4, kd, ks, kbox);
   if (err) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? run<64>(tq, tk, tv, o, B, H, Hk, Sq, Skv, D, causal,
+  return D <= 64 ? run<64>(tq, tk, tv, o, lse, B, H, Hk, Sq, Skv, D, causal,
                            q_offset, st)
-                 : run<128>(tq, tk, tv, o, B, H, Hk, Sq, Skv, D, causal,
+                 : run<128>(tq, tk, tv, o, lse, B, H, Hk, Sq, Skv, D, causal,
                             q_offset, st);
 }
 
@@ -484,35 +499,37 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q (B, Sq, H, D), k/v (B, Skv, Hk, D), o (B, Sq, H, D), contiguous, on
-// the current device; D <= 128, H % Hk == 0, B * H <= 65535.  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).  Does not
-// synchronise.
+// the current device; D <= 128, H % Hk == 0, B * H <= 65535.  lse, when
+// not null, receives each row's natural log-sum-exp of its scaled scores
+// as (B, H, Sq) float32 (the backward's input).  Launches on `stream` and
+// returns cudaGetLastError() (0 on success).  Does not synchronise.
 extern "C" int flash_attn_launch_f32(const void* q, const void* k,
-                                     const void* v, void* o, int B, int H,
-                                     int Hk, int Sq, int Skv, int D,
-                                     int causal, int q_offset, void* stream) {
-  return launch<float>(q, k, v, o, B, H, Hk, Sq, Skv, D, causal, q_offset,
-                       stream);
+                                     const void* v, void* o, void* lse,
+                                     int B, int H, int Hk, int Sq, int Skv,
+                                     int D, int causal, int q_offset,
+                                     void* stream) {
+  return launch<float>(q, k, v, o, lse, B, H, Hk, Sq, Skv, D, causal,
+                       q_offset, stream);
 }
 
 extern "C" int flash_attn_launch_bf16(const void* q, const void* k,
-                                      const void* v, void* o, int B, int H,
-                                      int Hk, int Sq, int Skv, int D,
-                                      int causal, int q_offset,
+                                      const void* v, void* o, void* lse,
+                                      int B, int H, int Hk, int Sq, int Skv,
+                                      int D, int causal, int q_offset,
                                       void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, H, Hk, Sq, Skv, D, causal,
+  return launch<__nv_bfloat16>(q, k, v, o, lse, B, H, Hk, Sq, Skv, D, causal,
                                q_offset, stream);
 }
 
 // The wgmma variant: bf16 q (B, Sq, H, D), k/v (B, Skv, Hk, D), o (B, Sq,
 // H, D), contiguous, 16-byte aligned, D % 16 == 0 and D <= 128, H % Hk ==
-// 0, B * H <= 65535.  Launches on `stream` and returns a cudaError_t (0
-// on success).  Does not synchronise.
+// 0, B * H <= 65535; lse as above.  Launches on `stream` and returns a
+// cudaError_t (0 on success).  Does not synchronise.
 extern "C" int flash_attn_launch_bf16_wgmma(const void* q, const void* k,
-                                            const void* v, void* o, int B,
-                                            int H, int Hk, int Sq, int Skv,
-                                            int D, int causal, int q_offset,
-                                            void* stream) {
-  return tc::launch(q, k, v, o, B, H, Hk, Sq, Skv, D, causal, q_offset,
+                                            const void* v, void* o, void* lse,
+                                            int B, int H, int Hk, int Sq,
+                                            int Skv, int D, int causal,
+                                            int q_offset, void* stream) {
+  return tc::launch(q, k, v, o, lse, B, H, Hk, Sq, Skv, D, causal, q_offset,
                     stream);
 }

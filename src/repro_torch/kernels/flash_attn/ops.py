@@ -1,5 +1,5 @@
-"""flash-attention entry point in the model's (B, S, H, D) layout: the
-CUDA kernel on the card, the plain PyTorch version on the CPU.
+"""flash-attention entry points in the model's (B, S, H, D) layout: the
+CUDA kernels on the card, the plain PyTorch versions on the CPU.
 
 The tensor's device decides.  A CUDA tensor launches the kernel or
 raises — there is no fallback — and each launch adds one to
@@ -13,16 +13,35 @@ the kv head of query head ``h`` as ``h // (H // Hk)``.  A CPU tensor
 takes the reference's ``ops.py`` route: GQA broadcast by ``repeat``, the
 (B·H, S, D) layout, and :func:`flash_attention_ref`; both give the same
 result.
+
+Training goes through :class:`FlashAttention`, a
+``torch.autograd.Function`` (:func:`flash_attention_ad` applies it when an
+input needs a gradient): its forward is :func:`flash_attention_k` with the
+row log-sum-exp ``lse`` written too, its backward
+:func:`flash_attention_bwd_k`, which on the card launches the three
+kernels of ``csrc/flash_attn_bwd.cu`` ("delta", "dkdv", "dq"; one launch
+each, counted in :data:`bwd_launches`; dkdv and dq through the variant
+:func:`route_bwd` picks, "mma" or "simt", counted in
+:data:`bwd_launches_by_variant`) and on the CPU runs
+:func:`flash_attention_bwd_ref`.  Both functions are looked up when the
+Function runs, so a caller that swaps them for their plain versions
+(``chip_smoke.py``'s plain path) swaps the training path too.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
+                                                flash_attention_ref)
 
 launches = 0    # kernel launches since the count was last set to 0
 VARIANTS = ("wgmma", "simt")
 launches_by_variant = dict.fromkeys(VARIANTS, 0)   # the same, by variant
+BWD_KERNELS = ("delta", "dkdv", "dq")
+bwd_launches = dict.fromkeys(BWD_KERNELS, 0)   # backward launches, by kernel
+BWD_VARIANTS = ("mma", "simt")
+# launches of dkdv and dq by the variant route_bwd picked (two a backward)
+bwd_launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 MAX_HEAD_DIM = 128
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -37,6 +56,18 @@ def route(dtype: torch.dtype, head_dim: int, ptrs=()) -> str:
             and 0 < head_dim <= MAX_HEAD_DIM
             and all(p % 16 == 0 for p in ptrs)):
         return "wgmma"
+    return "simt"
+
+
+def route_bwd(dtype: torch.dtype, head_dim: int, ptrs=()) -> str:
+    """The variant of the dkdv and dq backward kernels, from dtype, head
+    width and data pointers alone: "mma" (the tensor cores through
+    mma.sync) for bf16 with ``head_dim % 16 == 0``, ``head_dim <= 128``
+    and every pointer 16-byte aligned, else "simt"."""
+    if (dtype == torch.bfloat16 and head_dim % 16 == 0
+            and 0 < head_dim <= MAX_HEAD_DIM
+            and all(p % 16 == 0 for p in ptrs)):
+        return "mma"
     return "simt"
 
 
@@ -62,9 +93,10 @@ def _check(q, k, v, q_offset):
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, causal: bool = True,
-                          q_offset: int = 0) -> torch.Tensor:
+                          q_offset: int = 0, return_lse: bool = False):
     """The plain version in the (B, S, H, D) layout, on any device: the
-    reference ``ops.py``'s route through :func:`flash_attention_ref`."""
+    reference ``ops.py``'s route through :func:`flash_attention_ref`.
+    With ``return_lse`` also the rows' log-sum-exp, (B, H, Sq)."""
     B, Sq, H, D = q.shape
     Hk, Dv = k.shape[2], v.shape[-1]
     rep = H // Hk
@@ -73,21 +105,28 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     qf = q.transpose(1, 2).reshape(B * H, Sq, D)
     kf = kr.transpose(1, 2).reshape(B * H, -1, D)
     vf = vr.transpose(1, 2).reshape(B * H, -1, Dv)
-    out = flash_attention_ref(qf, kf, vf, causal=causal, q_offset=q_offset)
-    return out.reshape(B, H, Sq, Dv).transpose(1, 2)
+    out = flash_attention_ref(qf, kf, vf, causal=causal, q_offset=q_offset,
+                              return_lse=return_lse)
+    if not return_lse:
+        return out.reshape(B, H, Sq, Dv).transpose(1, 2)
+    out, lse = out
+    return out.reshape(B, H, Sq, Dv).transpose(1, 2), lse.reshape(B, H, Sq)
 
 
 def flash_attention_k(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                      causal: bool = True, q_offset: int = 0,
+                      return_lse: bool = False):
     """q (B, Sq, H, D), k/v (B, Skv, Hk, D|Dv) with H % Hk == 0 ->
     (B, Sq, H, Dv) in q's dtype: ``softmax(q kᵀ D^-0.5) v`` per head,
-    causal with query i at position ``q_offset + i``."""
+    causal with query i at position ``q_offset + i``.  With
+    ``return_lse`` also ``lse`` (B, H, Sq) float32, each row's
+    log-sum-exp of its scaled scores, written by the same launch."""
     global launches
     _check(q, k, v, q_offset)
     B, Sq, H, D = q.shape
     Hk, Dv = k.shape[2], v.shape[-1]
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, q_offset)
+        return flash_attention_plain(q, k, v, causal, q_offset, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_k runs on cuda or cpu, not "
                          f"{q.device}")
@@ -102,12 +141,95 @@ def flash_attention_k(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if B * H > 65535:
         raise ValueError(f"flash_attn kernel takes B*H <= 65535, got {B * H}")
     if out.numel():
         variant = route(q.dtype, D, (q.data_ptr(), k.data_ptr(),
                                      v.data_ptr(), out.data_ptr()))
-        flash_attn_cuda(q, k, v, out, causal, int(q_offset), variant)
+        flash_attn_cuda(q, k, v, out, causal, int(q_offset), variant, lse)
         launches += 1
         launches_by_variant[variant] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_k(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          o: torch.Tensor, lse: torch.Tensor,
+                          do: torch.Tensor, causal: bool = True,
+                          q_offset: int = 0):
+    """The gradient of :func:`flash_attention_k`: q, o, do (B, Sq, H, D);
+    k, v (B, Skv, Hk, D); ``lse`` (B, H, Sq) float32 from the forward
+    that gave ``o``.  Returns ``(dq, dk, dv)`` in q's dtype.  A CUDA tensor
+    launches the "delta", "dkdv" and "dq" kernels in turn (or raises); a
+    CPU tensor runs :func:`flash_attention_bwd_ref`."""
+    _check(q, k, v, q_offset)
+    B, Sq, H, D = q.shape
+    Skv, Hk = k.shape[1], k.shape[2]
+    if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
+            or do.dtype != q.dtype or tuple(lse.shape) != (B, H, Sq)
+            or lse.dtype != torch.float32):
+        raise ValueError(f"flash_attention_bwd_k: o {tuple(o.shape)} "
+                         f"{o.dtype}, do {tuple(do.shape)} {do.dtype}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype} do not fit q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
+                                       q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_k runs on cuda or cpu, not "
+                         f"{q.device}")
+    if v.shape[-1] != D or D > MAX_HEAD_DIM:
+        raise NotImplementedError(f"flash_attn backward kernels take Dv == D "
+                                  f"<= {MAX_HEAD_DIM}, got D={D}, "
+                                  f"Dv={v.shape[-1]}")
+    if B * H > 65535:
+        raise ValueError(f"flash_attn kernels take B*H <= 65535, got {B * H}")
+    from repro_torch.kernels.flash_attn.kernel import flash_attn_bwd_cuda
+
+    q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if not q.numel():        # no query: no gradient reaches k or v
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    variant = route_bwd(q.dtype, D, [t.data_ptr() for t in
+                                     (q, k, v, do, dq, dk, dv)])
+    for kernel, outs in (("delta", ()), ("dkdv", (dk, dv)), ("dq", (dq,))):
+        flash_attn_bwd_cuda(kernel, q, k, v, o, lse, do, delta, outs, causal,
+                            int(q_offset), variant)
+        bwd_launches[kernel] += 1
+        if kernel != "delta":
+            bwd_launches_by_variant[variant] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable :func:`flash_attention_k`: the forward saves q, k,
+    v, the output and ``lse``; the backward is
+    :func:`flash_attention_bwd_k`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int):
+        o, lse = flash_attention_k(q, k, v, causal=causal,
+                                   q_offset=q_offset, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_k(q, k, v, o, lse, do.contiguous(),
+                                           ctx.causal, ctx.q_offset)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_ad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """:func:`flash_attention_k`, differentiable: through
+    :class:`FlashAttention` when gradients are on and an input requires
+    one, else the plain call (serving asks for no ``lse``)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, q_offset)
+    return flash_attention_k(q, k, v, causal=causal, q_offset=q_offset)

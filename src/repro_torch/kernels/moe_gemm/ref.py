@@ -2,7 +2,9 @@
 ``moe_gemm_ref`` (the CPU path, and what the CUDA kernel is held against
 on the card), its two passes, which the card's checks also hold the
 kernel's two passes against, and :func:`moe_gemm_f64`, the function in
-float64 with a bound on the error of a rounded run of it."""
+float64 with a bound on the error of a rounded run of it.  Its backward:
+:func:`moe_gemm_bwd_ref`, and :func:`moe_bwd_hidden_ref`, what the
+backward kernel itself computes."""
 import torch
 import torch.nn.functional as F
 
@@ -29,6 +31,46 @@ def moe_gemm_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     dtype: ``(silu(x @ wg) * (x @ wu)) @ wd`` per expert, both products
     accumulated in float32 and ``h`` rounded to x's dtype in between."""
     return moe_down_ref(moe_hidden_ref(x, wg, wu), wd)
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """float64 inputs are computed in float64, everything else in float32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def moe_bwd_hidden_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                       wd: torch.Tensor, dy: torch.Tensor):
+    """What the backward kernel writes: ``(da, db, h)`` (E, C, f) in x's
+    dtype, from a = x wg, b = x wu and dh = dy wd^T summed in float32:
+    h = silu(a) * b, da = dh * b * silu'(a), db = dh * silu(a), with
+    silu'(a) = sigmoid(a) * (1 + a * (1 - sigmoid(a)))."""
+    acc = _acc(x.dtype)
+    xf, dyf = x.to(acc), dy.to(acc)
+    a = torch.einsum("ecd,edf->ecf", xf, wg.to(acc))
+    b = torch.einsum("ecd,edf->ecf", xf, wu.to(acc))
+    dh = torch.einsum("ecd,efd->ecf", dyf, wd.to(acc))
+    sig = torch.sigmoid(a)
+    s = F.silu(a)
+    da = dh * b * (sig * (1 + a * (1 - sig)))
+    return da.to(x.dtype), (dh * s).to(x.dtype), (s * b).to(x.dtype)
+
+
+def moe_gemm_bwd_ref(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                     wd: torch.Tensor, dy: torch.Tensor):
+    """The gradient of :func:`moe_gemm_ref` for the output gradient
+    ``dy`` (E, C, d): ``(dx, dwg, dwu, dwd)`` in x's dtype.  da, db and h
+    from :func:`moe_bwd_hidden_ref` (rounded to x's dtype as the forward
+    rounds h), then dwd = h^T dy, dx = da wg^T + db wu^T, dwg = x^T da and
+    dwu = x^T db, each summed in float32 and rounded once."""
+    acc = _acc(x.dtype)
+    da, db, h = (t.to(acc) for t in moe_bwd_hidden_ref(x, wg, wu, wd, dy))
+    xf = x.to(acc)
+    dwd = torch.einsum("ecf,ecd->efd", h, dy.to(acc))
+    dx = (torch.einsum("ecf,edf->ecd", da, wg.to(acc))
+          + torch.einsum("ecf,edf->ecd", db, wu.to(acc)))
+    dwg = torch.einsum("ecd,ecf->edf", xf, da)
+    dwu = torch.einsum("ecd,ecf->edf", xf, db)
+    return tuple(t.to(x.dtype) for t in (dx, dwg, dwu, dwd))
 
 
 def _gamma(n: int) -> float:

@@ -2,13 +2,15 @@
 each function of the reference's ``models/layers.py``.
 
 Parameters are dicts of tensors (an :class:`~torch.nn.ParameterDict`
-reads the same).  Two functions run a hand-written kernel on a CUDA
+reads the same).  Two functions run hand-written kernels on a CUDA
 tensor: :func:`flash_attention` (``kernels.flash_attn``) and the expert
 FFN of :func:`moe_block` (``kernels.moe_gemm``).  On a CPU tensor they
-run plain PyTorch: the reference's chunked online softmax, and the
-moe_gemm plain version.  The projections, norms, rope, the router and
-:func:`decode_attention` are plain PyTorch on both, as the reference
-leaves them to XLA.  The MLA functions come with the MLA slice.
+run the kernels' plain PyTorch versions.  Both are differentiable through
+a ``torch.autograd.Function`` whose backward is a kernel too (on the CPU
+its plain version), so training runs the same path as serving.  The
+projections, norms, rope, the router and :func:`decode_attention` are
+plain PyTorch with plain autograd on both, as the reference leaves them
+to XLA.  The MLA functions come with the MLA slice.
 """
 from __future__ import annotations
 
@@ -67,66 +69,16 @@ def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 # attention
 # --------------------------------------------------------------------------- #
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, q_chunk: int = 1024,
-                    kv_chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """q (B, Sq, H, D), k/v (B, Skv, Hk, D) with H % Hk == 0 (GQA).
 
-    On a CUDA tensor: the flash_attn kernel (its own tiling; ``q_chunk``
-    and ``kv_chunk`` are the CPU path's).  On a CPU tensor: the
-    reference's online softmax over kv chunks, O(S) memory.
-    ``q_offset`` is the absolute position of q[0] for the causal mask."""
-    if q.device.type == "cuda":
-        return flash_ops.flash_attention_k(q, k, v, causal=causal,
-                                           q_offset=q_offset)
-    return _flash_attention_chunked(q, k, v, causal, q_chunk, kv_chunk,
-                                    q_offset)
-
-
-def _flash_attention_chunked(q, k, v, causal, q_chunk, kv_chunk, q_offset):
-    """The reference's chunked online softmax, chunk for chunk."""
-    B, Sq, H, D = q.shape
-    _, Skv, Hk, _ = k.shape
-    Dv = v.shape[-1]
-    rep = H // Hk
-    scale = D ** -0.5
-    q_chunk = min(q_chunk, Sq)
-    kv_chunk = min(kv_chunk, Skv)
-    nq = -(-Sq // q_chunk)
-    nk = -(-Skv // kv_chunk)
-    qq = F.pad(q, (0, 0, 0, 0, 0, nq * q_chunk - Sq))
-    kk = F.pad(k, (0, 0, 0, 0, 0, nk * kv_chunk - Skv))
-    vv = F.pad(v, (0, 0, 0, 0, 0, nk * kv_chunk - Skv))
-    dev = q.device
-    k_pos_all = torch.arange(nk * kv_chunk, device=dev)
-    outs = []
-    for qi in range(nq):
-        qc = qq[:, qi * q_chunk:(qi + 1) * q_chunk].float()
-        qp = q_offset + torch.arange(qi * q_chunk, (qi + 1) * q_chunk,
-                                     device=dev)
-        m = torch.full((B, H, q_chunk), float("-inf"), device=dev)
-        l = torch.zeros((B, H, q_chunk), device=dev)
-        o = torch.zeros((B, H, q_chunk, Dv), device=dev)
-        for ki in range(nk):
-            sl = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
-            kr = kk[:, sl].repeat_interleave(rep, dim=2).float()
-            vr = vv[:, sl].repeat_interleave(rep, dim=2).float()
-            s = torch.einsum("bqhd,bkhd->bhqk", qc, kr) * scale
-            kp = k_pos_all[sl]
-            mask = (kp < Skv)[None, None, None, :]
-            if causal:
-                mask = mask & (qp[None, None, :, None]
-                               >= kp[None, None, None, :])
-            s = s.masked_fill(~mask, float("-inf"))
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            o = o * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vr)
-            m = m_new
-        out = o / torch.clamp(l[..., None], min=1e-30)
-        outs.append(out.permute(0, 2, 1, 3))
-    out = torch.cat(outs, dim=1)
-    return out[:, :Sq].to(q.dtype)
+    The flash_attn kernel on a CUDA tensor, its plain version on a CPU
+    tensor; differentiable (``flash_ops.flash_attention_ad``).  The
+    reference's ``q_chunk``/``kv_chunk`` tiling has no counterpart: the
+    kernel tiles itself.  ``q_offset`` is the absolute position of q[0]
+    for the causal mask."""
+    return flash_ops.flash_attention_ad(q, k, v, causal=causal,
+                                        q_offset=q_offset)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -253,14 +205,84 @@ def moe_slots(flat_e: torch.Tensor, C: int):
     return slot_e, slot_c, keep
 
 
+def _slot_owners(dest: torch.Tensor, keep: torch.Tensor,
+                 n_slots: int) -> torch.Tensor:
+    """(n_slots,) the (token, expert) pair that owns each slot of the
+    experts' buffer, or ``n_pairs`` for an empty slot.  Each dropped pair
+    writes a place of its own past the buffer, so no index repeats."""
+    n = dest.numel()
+    pair = torch.arange(n, device=dest.device)
+    owner = torch.full((n_slots + n,), n, dtype=torch.long,
+                       device=dest.device)
+    owner[torch.where(keep, dest, n_slots + pair)] = pair
+    return owner[:n_slots]
+
+
+def _pad_row(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (n, d) with a row of zeros after it."""
+    return torch.cat([t, t.new_zeros((1, t.shape[1]))])
+
+
+class _Dispatch(torch.autograd.Function):
+    """The dispatch of :func:`moe_block`: the experts' buffer (E*C, d) as a
+    gather of each slot's owner's token row (zeros for an empty slot),
+    whose backward is a gather too: each pair reads its slot's gradient
+    (``dest``: a kept pair's slot, the zero row past the buffer for a
+    dropped one) and each token sums its k pairs in order.  Autograd's
+    own backward of ``index_copy_`` (and, with deterministic algorithms
+    on, the copy itself) runs an index kernel that serialises on the dump
+    row that every dropped pair writes."""
+
+    @staticmethod
+    def forward(ctx, xt, owner, dest, k: int):
+        n = dest.numel()
+        token = torch.where(owner < n, owner // k, xt.shape[0])
+        ctx.save_for_backward(dest)
+        ctx.k = k
+        return _pad_row(xt)[token]
+
+    @staticmethod
+    def backward(ctx, grad):
+        dest, = ctx.saved_tensors
+        pairs = _pad_row(grad)[dest]                      # (T*k, d)
+        return (pairs.view(-1, ctx.k, pairs.shape[1]).sum(dim=1), None,
+                None, None)
+
+
+class _TakeSlots(torch.autograd.Function):
+    """The combine of :func:`moe_block`: ``y_flat[slot]``, each (token, expert)
+    pair's row of the experts' output, with a gather-shaped backward: each
+    slot gathers the gradient of the one pair that owns it (``owner``), or
+    zero.  Autograd's own backward of this gather adds every pair's
+    gradient into its slot with an index scatter, which serialises on the
+    slot (0, C - 1) that every dropped pair reads; the dropped pairs'
+    gradients are zero (``moe_block`` masks their rows), so both give the
+    same sums."""
+
+    @staticmethod
+    def forward(ctx, y_flat, slot, owner):
+        ctx.save_for_backward(owner)
+        return y_flat[slot]
+
+    @staticmethod
+    def backward(ctx, grad):
+        owner, = ctx.saved_tensors
+        return _pad_row(grad)[owner], None, None
+
+
 def moe_block(p, cfg: TransformerConfig, x: torch.Tensor):
     """Capacity-based top-k dispatch. x (B, S, d) -> (y, aux_loss).
     Dropped tokens (over capacity) fall back to 0 (plus the shared
     expert, if any) — standard capacity semantics.  The expert FFN over
     the (E, C, d) buffer is the moe_gemm kernel on a CUDA tensor and its
-    plain version on a CPU tensor.  Every step is deterministic: the
-    dispatch writes distinct slots and each token sums its k expert
-    outputs in slot order (no atomics)."""
+    plain version on a CPU tensor, differentiable
+    (``moe_ops.moe_gemm_ad``).  Every step is deterministic, its backward
+    too: the dispatch (:class:`_Dispatch`) gathers each slot's owner's
+    row, the combine (:class:`_TakeSlots`) gathers each pair's output
+    row, each with a gather for a backward, and each token sums its k
+    expert outputs in slot order.
+    The router's gradient flows through the gates and ``probs_mean``;
+    ``frac_tok`` counts and carries none, as in the reference."""
     fl = ctx.CURRENT
     mo = cfg.moe
     B, S, d = x.shape
@@ -274,15 +296,14 @@ def moe_block(p, cfg: TransformerConfig, x: torch.Tensor):
     flat_e = sel.reshape(-1)                                  # (T*k,)
     flat_g = gates.reshape(-1)
     slot_e, slot_c, keep = moe_slots(flat_e, C)
-    flat_t = torch.arange(T, device=x.device).repeat_interleave(k)
+    slot = slot_e * C + slot_c
     # kept pairs own distinct slots; dropped pairs go to a dump row past
     # the buffer, which the reference's add of 0 to slot (0, C-1) equals
-    dest = torch.where(keep, slot_e * C + slot_c, E * C)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_copy_(0, dest, xt[flat_t])
-    buf = buf[:E * C].view(E, C, d)
-    y_e = moe_ops.moe_gemm(buf, p["wg"], p["wu"], p["wd"])
-    y_tok = y_e.view(E * C, d)[slot_e * C + slot_c]           # (T*k, d)
+    dest = torch.where(keep, slot, E * C)
+    owner = _slot_owners(dest, keep, E * C)
+    buf = _Dispatch.apply(xt, owner, dest, k).view(E, C, d)
+    y_e = moe_ops.moe_gemm_ad(buf, p["wg"], p["wu"], p["wd"])
+    y_tok = _TakeSlots.apply(y_e.view(E * C, d), slot, owner)  # (T*k, d)
     y_tok = torch.where(keep[:, None], y_tok, 0) * flat_g[:, None].to(x.dtype)
     y = y_tok.view(T, k, d).sum(dim=1)
     # load-balance aux (Switch-style); for aux-free routing it is only

@@ -1,23 +1,33 @@
-"""LM transformer (dense GQA: the qwen family; MoE: olmoe) for serving:
-``prefill`` then ``decode_step`` over a KV cache, and ``lm_forward``.
+"""LM transformer (dense GQA: the qwen family; MoE: olmoe): serving with
+``prefill`` then ``decode_step`` over a KV cache, ``lm_forward``, and
+training with ``lm_loss``.
 
 The reference (``models/transformer.py``) scans over weights stacked on
 a layer axis; here :class:`TransformerLM` holds a list of
 :class:`Block` modules (dense layers first, then MoE layers, as the
 reference's two stacks) and runs them in a Python loop — PyTorch runs
-eagerly.  The weights are parameters without gradients: this slice
-serves, and the kernels of the path have no backward yet (the training
-slice adds them).  The KV cache is a dict ``{"k", "v"}`` of
-(L, B, max_len, Hk, Dh) tensors, which ``decode_step`` updates in place
-where the reference returns a new one.  MLA and MTP (DeepSeek-V3) come
-with their slice: a config with ``mla`` or ``mtp_depth`` raises.
+eagerly.  Every weight is an ``nn.Parameter``, built frozen
+(``requires_grad=False``), so serving builds no graph and asks the
+attention kernel for no ``lse``; ``prefill`` and ``decode_step`` also run
+under ``torch.no_grad()``.  Training turns the gradients on
+(``model.requires_grad_(True)``; the trainer does) and differentiates
+``lm_loss`` through ``lm_forward_hidden``, whose blocks
+are each recomputed in the backward (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint``), and through the kernels' backward
+``autograd.Function``s (``models/layers.py``).  The KV cache is a dict
+``{"k", "v"}`` of (L, B, max_len, Hk, Dh) tensors, which ``decode_step``
+updates in place where the reference returns a new one.  MLA and MTP
+(DeepSeek-V3) come with their slice: a config with ``mla`` or
+``mtp_depth`` raises.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import resolve_device
@@ -37,8 +47,8 @@ def check_supported(cfg: TransformerConfig) -> None:
     """Raise for the parts of the config the port does not run yet."""
     if cfg.mla is not None or cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: MLA and MTP are not ported yet (ROADMAP.md queue A "
-            f"item 11)")
+            f"{cfg.name}: MLA (mla) and multi-token prediction (mtp_depth) "
+            f"are not ported yet: ROADMAP.md queue A item 11")
 
 
 def _params(d: dict) -> nn.ParameterDict:
@@ -172,6 +182,12 @@ def _block_fwd(blk: Block, cfg: TransformerConfig, x, positions):
     return h + y, aux, k, v
 
 
+def _block_out(blk: Block, cfg: TransformerConfig, x, positions):
+    """One layer over the full sequence, for training: ``(out, aux)``."""
+    out, aux, _, _ = _block_fwd(blk, cfg, x, positions)
+    return out, aux
+
+
 def lm_forward(model: TransformerLM, tokens: torch.Tensor):
     """tokens (B, S) -> (logits (B, S, V), aux_loss, hidden)."""
     cfg = model.cfg
@@ -184,6 +200,110 @@ def lm_forward(model: TransformerLM, tokens: torch.Tensor):
         aux_total = aux_total + aux
     hidden = rms_norm(x, model.final_norm, cfg.norm_eps)
     return hidden @ model.head, aux_total, hidden
+
+
+def lm_forward_hidden(model: TransformerLM, tokens: torch.Tensor,
+                      remat: bool = True):
+    """Like :func:`lm_forward` but never materializes logits (the loss is
+    taken from the hidden states): ``(None, aux_loss, hidden)``.  With
+    ``remat`` and gradients on, each block is recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant), as the reference wraps
+    each block in ``jax.checkpoint``: only the blocks' inputs stay
+    resident, and each block's forward kernels launch twice a step."""
+    cfg = model.cfg
+    S = tokens.shape[1]
+    # the embedding's backward sums each token's rows in sorted segments
+    # (deterministic and parallel over a frequent token's copies), where
+    # the index gather's serialises them
+    x = F.embedding(tokens.long(), model.embed)
+    positions = torch.arange(S, device=tokens.device)[None, :]
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for blk in model.blocks:
+        if remat and torch.is_grad_enabled():
+            x, aux = checkpoint(_block_out, blk, cfg, x, positions,
+                                use_reentrant=False)
+        else:
+            x, aux = _block_out(blk, cfg, x, positions)
+        aux_total = aux_total + aux
+    return None, aux_total, rms_norm(x, model.final_norm, cfg.norm_eps)
+
+
+# --------------------------------------------------------------------------- #
+# losses
+# --------------------------------------------------------------------------- #
+def _masked_mean(ce: torch.Tensor, mask) -> torch.Tensor:
+    if mask is None:
+        return ce.mean()
+    return (ce * mask).sum() / torch.clamp(mask.sum(), min=1)
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor, mask=None):
+    """Mean cross entropy of ``logits`` (..., V) against ``labels`` in
+    float32 (masked mean with ``mask``)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return _masked_mean(lse - picked, mask)
+
+
+def chunked_xent(hidden: torch.Tensor, head: torch.Tensor,
+                 labels: torch.Tensor, mask=None, chunk: int = 8192):
+    """Vocab-chunked cross entropy: an online log-sum-exp over chunks of
+    the head's columns, each chunk's logits in float32, as the
+    reference's scan (the flash trick applied to the LM head).  Autograd
+    keeps each chunk's logits for the backward, as the reference's scan
+    keeps its residuals."""
+    B, S, _ = hidden.shape
+    V = head.shape[1]
+    chunk = min(chunk, V)
+    dev = hidden.device
+    m = torch.full((B, S), float("-inf"), dtype=torch.float32, device=dev)
+    s = torch.zeros((B, S), dtype=torch.float32, device=dev)
+    picked = torch.zeros((B, S), dtype=torch.float32, device=dev)
+    labels = labels.long()
+    for c0 in range(0, V, chunk):
+        lg = (hidden @ head[:, c0:c0 + chunk]).float()     # (B, S, <= chunk)
+        m_new = torch.maximum(m, lg.amax(-1))
+        s = s * torch.exp(m - m_new) + torch.exp(lg - m_new[..., None]).sum(-1)
+        in_chunk = (labels >= c0) & (labels < c0 + lg.shape[-1])
+        idx = torch.clamp(labels - c0, 0, lg.shape[-1] - 1)
+        pick_c = torch.gather(lg, -1, idx[..., None])[..., 0]
+        picked = torch.where(in_chunk, pick_c, picked)
+        m = m_new
+    ce = m + torch.log(torch.clamp(s, min=1e-30)) - picked
+    return _masked_mean(ce, mask)
+
+
+def sharded_xent(hidden: torch.Tensor, head: torch.Tensor,
+                 labels: torch.Tensor, mask=None):
+    """The reference's vocab-sharded cross entropy on one card: logits in
+    the model's dtype (bf16), reductions in float32.  The reference picks
+    the label's logit with an iota compare and a masked sum, which keeps a
+    mesh's vocab shards apart; one card has no shards, and a gather picks
+    the same value (the masked sum adds exact zeros) without a (B, S, V)
+    mask."""
+    return _ce(hidden @ head, labels, mask)
+
+
+def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor,
+            aux_weight: float = 0.01, remat: bool = True,
+            xent: str = "sharded", xent_chunk: int = 8192) -> torch.Tensor:
+    """Next-token cross entropy plus the MoE load-balance term
+    ``aux_weight * aux / n_layers`` (unless the router is aux-free), as
+    the reference's ``lm_loss``.  ``xent`` is "sharded" (bf16 logits) or
+    "chunked" (vocab chunks).  The reference's MTP term comes with MTP
+    (``check_supported`` raises for such a config)."""
+    cfg = model.cfg
+    _, aux, hidden = lm_forward_hidden(model, tokens, remat=remat)
+    if xent == "chunked":
+        loss = chunked_xent(hidden, model.head, labels, chunk=xent_chunk)
+    elif xent == "sharded":
+        loss = sharded_xent(hidden, model.head, labels)
+    else:
+        raise ValueError(f"xent is 'sharded' or 'chunked', not {xent!r}")
+    if cfg.moe is not None and not cfg.moe.router_aux_free:
+        loss = loss + aux_weight * aux / max(cfg.n_layers, 1)
+    return loss
 
 
 # --------------------------------------------------------------------------- #

@@ -103,7 +103,10 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.configs.graphcast, repro_torch.configs.schnet, "
             "repro_torch.configs.pna, "
             "repro_torch.kernels.segment_spmm.ops, "
-            "repro_torch.kernels.segment_spmm.kernel; "
+            "repro_torch.kernels.segment_spmm.kernel, "
+            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
+            "repro_torch.runtime, repro_torch.distributed.compression, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -68,8 +68,7 @@ def test_model_flash_matches_reference(Sq, Skv, H, Hk, causal, q_offset,
         flash_inputs(2, Sq, Skv, H, Hk, 16, seed=Sq + Skv), dtype)
     want = jax_model_flash(jq, jk, jv, causal=causal, q_chunk=16,
                            kv_chunk=16, q_offset=q_offset)
-    got = layers.flash_attention(q, k, v, causal=causal, q_chunk=16,
-                                 kv_chunk=16, q_offset=q_offset)
+    got = layers.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     _close(got, want, FLASH_TOL[dtype])
     # the kernel's plain version agrees with the model's chunked path
     plain = ops.flash_attention_k(q, k, v, causal=causal, q_offset=q_offset)

@@ -1,10 +1,10 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA kernels
 (membership, intersect, the varint fetch codec's encoders and decoder
-with delta_vlen, flash_attn, moe_gemm, segment_spmm in both its
-variants) against their plain PyTorch versions, the whole
-engine on the card — dense and bucketed storage, raw and varint wire —
-the reduced OLMoE serving path and the four reduced GNNs, against the
-port's CPU path.
+with delta_vlen, flash_attn and moe_gemm with their backward kernels,
+segment_spmm in both its variants) against their plain PyTorch versions,
+the whole engine on the card — dense and bucketed storage, raw and varint
+wire — the reduced OLMoE serving path and training step and the four
+reduced GNNs, against the port's CPU path.
 They skip without a CUDA card, and import no JAX, so they run where
 only PyTorch is installed:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``."""
@@ -34,6 +34,7 @@ from repro_torch.convert import graph_batch_from_arrays
 from repro_torch.core import Pattern, rads_enumerate
 from repro_torch.graph import erdos_graph, partition
 from repro_torch.kernels.flash_attn import ops as flash_ops
+from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_ref
 from repro_torch.kernels.intersect import ops as intersect_ops
 from repro_torch.kernels.intersect.kernel import intersect_cuda
 from repro_torch.kernels.intersect.ref import intersect_ref
@@ -43,14 +44,14 @@ from repro_torch.kernels.membership.ref import membership_ref
 from repro_torch.kernels.moe_gemm import kernel as moe_kernel
 from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.kernels.moe_gemm.ref import (bound_ratio, moe_down_ref,
-                                              moe_gemm_f64, moe_gemm_ref,
-                                              moe_hidden_ref)
+                                              moe_gemm_bwd_ref, moe_gemm_f64,
+                                              moe_gemm_ref, moe_hidden_ref)
 from repro_torch.kernels.segment_spmm import ops as spmm_ops
 from repro_torch.kernels.varint import ops as varint_ops
 from repro_torch.kernels.varint import ref as varint_ref
 from repro_torch.kernels.varint.ref import delta_vlen_ref
 from repro_torch.models import (decode_step, gnn_forward, init_gnn,
-                                init_lm_params, prefill)
+                                init_lm_params, lm_loss, prefill)
 
 CAPS = dict(frontier_cap=1 << 12, fetch_cap=256, verify_cap=1024,
             region_group_budget=1 << 11)
@@ -421,6 +422,114 @@ def test_serving_on_card_matches_cpu(cuda, arch):
     for k in ("k", "v"):
         torch.testing.assert_close(gcache[k].cpu(), cache[k], rtol=1e-4,
                                    atol=1e-4)
+
+
+# a backward kernel's gradient against its plain version's: max |diff|
+# over max |plain| (chip_smoke.py's TRAIN_TOL)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _bwd_held(got, want, tol):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max()
+        assert err <= tol * w.float().abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hk,D,causal,q_offset", [
+    (2, 64, 64, 4, 2, 32, True, 0),       # the sweep, GQA 4/2
+    (2, 128, 128, 2, 2, 16, True, 0),
+    (1, 100, 150, 4, 1, 64, False, 0),    # ragged, non-causal, GQA 4/1
+    (1, 333, 333, 8, 2, 128, True, 0),    # ragged causal tiles
+    (1, 300, 500, 4, 4, 128, True, 200),  # q_offset past a tile
+    (2, 100, 100, 6, 3, 40, True, 0),     # D % 16 != 0: "simt" in bf16
+])
+def test_flash_bwd_kernels_match_plain_on_card(cuda, B, Sq, Skv, H, Hk, D,
+                                               causal, q_offset, dtype):
+    """The forward's lse against the plain forward's, then the three
+    backward kernels (one launch each; dkdv and dq through "mma" in bf16
+    with D % 16 == 0, else "simt") against the plain backward on the same
+    inputs, and bit for bit against a second call."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in
+               flash_inputs(B, Sq, Skv, H, Hk, D, seed=Sq))
+    do = torch.randn((B, Sq, H, D), generator=torch.Generator().manual_seed(
+        Skv)).to(cuda, dt)
+    o, lse = flash_ops.flash_attention_k(q, k, v, causal=causal,
+                                         q_offset=q_offset, return_lse=True)
+    _, lse_plain = flash_ops.flash_attention_plain(q, k, v, causal, q_offset,
+                                                   return_lse=True)
+    assert (lse - lse_plain).abs().max() <= 1e-4 * lse_plain.abs().max()
+    variant = "mma" if dtype == "bfloat16" and D % 16 == 0 else "simt"
+    before = dict(flash_ops.bwd_launches)
+    before_v = dict(flash_ops.bwd_launches_by_variant)
+    got = flash_ops.flash_attention_bwd_k(q, k, v, o, lse, do, causal,
+                                          q_offset)
+    again = flash_ops.flash_attention_bwd_k(q, k, v, o, lse, do, causal,
+                                            q_offset)
+    torch.cuda.synchronize()
+    assert all(flash_ops.bwd_launches[n] == before[n] + 2
+               for n in flash_ops.BWD_KERNELS)
+    assert (flash_ops.bwd_launches_by_variant[variant]
+            == before_v[variant] + 4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _bwd_held(got, flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
+                                           q_offset), BWD_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,d,f", MOE_SWEEP + [(5, 37, 48, 40),
+                                                 (3, 130, 72, 136),
+                                                 (3, 37, 36, 20)])
+def test_moe_gemm_bwd_kernel_matches_plain_on_card(cuda, E, C, d, f, dtype):
+    """moe_gemm's gradient through the backward kernel (one launch; bf16
+    with d and f multiples of 8 through "mma", the rest through "simt")
+    and the four ``bmm`` against the plain backward, bit for bit twice."""
+    dt = getattr(torch, dtype)
+    x, wg, wu, wd = (torch.from_numpy(a).to(cuda, dt)
+                     for a in moe_inputs(E, C, d, f, seed=C))
+    dy = torch.randn((E, C, d), generator=torch.Generator().manual_seed(
+        f)).to(cuda, dt)
+    variant = ("mma" if dtype == "bfloat16" and d % 8 == 0 and f % 8 == 0
+               else "simt")
+    before = dict(moe_ops.bwd_launches_by_variant)
+    got = moe_ops.moe_gemm_bwd_k(x, wg, wu, wd, dy)
+    again = moe_ops.moe_gemm_bwd_k(x, wg, wu, wd, dy)
+    torch.cuda.synchronize()
+    assert moe_ops.bwd_launches_by_variant[variant] == before[variant] + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _bwd_held(got, moe_gemm_bwd_ref(x, wg, wu, wd, dy), BWD_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_training_step_on_card_matches_cpu(cuda):
+    """Reduced OLMoE in float32: ``lm_loss`` and every parameter's
+    gradient on the card (forward and backward kernels) against the
+    port's CPU run of the same weights."""
+    cfg = dataclasses.replace(get_reduced("olmoe-1b-7b"), dtype="float32")
+    model = init_lm_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu").requires_grad_(True)
+    card = init_lm_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu").to(cuda).requires_grad_(True)
+    gen = torch.Generator().manual_seed(1)
+    tokens, labels = (torch.randint(0, cfg.vocab, (2, 40), generator=gen)
+                      for _ in range(2))
+    before = dict(flash_ops.bwd_launches), moe_ops.bwd_launches
+    got = lm_loss(card, tokens.to(cuda), labels.to(cuda))
+    got.backward()
+    want = lm_loss(model, tokens, labels)
+    want.backward()
+    assert all(flash_ops.bwd_launches[n] == before[0][n] + cfg.n_layers
+               for n in flash_ops.BWD_KERNELS)
+    assert moe_ops.bwd_launches == before[1] + cfg.n_layers
+    torch.testing.assert_close(got.detach().cpu(), want.detach(), rtol=1e-5,
+                               atol=1e-5)
+    for (name, p), q in zip(model.named_parameters(), card.parameters()):
+        err = (q.grad.cpu() - p.grad).abs().max()
+        assert err <= 1e-4 * p.grad.abs().max(), name
 
 
 def _f64_segment_sum(msgs, dst, n):
