@@ -11,7 +11,7 @@ every phase holds:
               from the repository's sources (one ``nvcc`` per source, all
               started together); each library's ``HGMMA`` and ``UTMALDG``
               instructions counted (``cuobjdump -sass``), and flash_attn's
-              and moe_gemm's must have both;
+              and moe_gemm's, forward and backward, must have both;
 3. kernels  — each kernel's wrapper against its plain PyTorch version on
               the card, bit-exact, at the test sweep shapes, edge cases and
               the full-scale engine shapes, with its time beside its bound,
@@ -98,7 +98,8 @@ every phase holds:
               flash_attn's "delta", "dkdv" and "dq" (on the forward
               kernel's own output and lse, which is held against the plain
               forward's) and moe_gemm_bwd, at the test sweep, edge shapes
-              (ragged tiles, GQA 8/2, q_offset) and the training shapes,
+              (ragged tiles, GQA 8/2 and 32/8, q_offset, D = 80) and the
+              training shapes (bf16 through the "wgmma" variants),
               each call made twice and bit-identical; the training shapes
               timed beside the bound, the plain version and a library
               yardstick;
@@ -292,8 +293,10 @@ def phase_build():
         check(dump.returncode == 0, f"cuobjdump -sass {lib.name} failed: "
                                     f"{dump.stderr[-2000:]}")
         sass[src.name] = {op: dump.stdout.count(op) for op in SASS_OPS}
-    # the tensor-core variants: wgmma (HGMMA) fed by TMA tile loads (UTMALDG)
-    for src in (flash_kernel.SOURCE, moe_kernel.SOURCE):
+    # the tensor-core variants, forward and backward: wgmma (HGMMA) fed by
+    # TMA tile loads (UTMALDG)
+    for src in (flash_kernel.SOURCE, moe_kernel.SOURCE,
+                flash_kernel.BWD_SOURCE, moe_kernel.BWD_SOURCE):
         check(all(sass[src.name][op] > 0 for op in SASS_OPS),
               f"{src.name}: no {' or '.join(SASS_OPS)} in its SASS: "
               f"{sass[src.name]}")
@@ -2519,7 +2522,7 @@ def phase_lm_train_kernels():
     def flash_case(name, B, Sq, Skv, H, Hk, D, dtype, causal=True,
                    q_offset=0, timed=False, iters=3):
         dt, tol = dts[dtype], TRAIN_TOL[dtype]
-        want_variant = "mma" if dtype == "bfloat16" and D % 16 == 0 \
+        want_variant = "wgmma" if dtype == "bfloat16" and D % 16 == 0 \
             else "simt"
         q, do = randn((B, Sq, H, D), dt), randn((B, Sq, H, D), dt)
         k, v = randn((B, Skv, Hk, D), dt), randn((B, Skv, Hk, D), dt)
@@ -2683,12 +2686,16 @@ def phase_lm_train_kernels():
         flash_case("q_offset_200", 1, 300, 500, 4, 4, 128, dtype,
                    q_offset=200)
         flash_case("d40_gqa_6_3", 2, 100, 100, 6, 3, 40, dtype)
+        flash_case("ragged_255x257_gqa_32_8_d80", 1, 255, 257, 32, 8, 80,
+                   dtype, q_offset=2)
         for E, C, d, f in [(4, 64, 32, 64), (2, 128, 16, 128)]:  # the sweep
             moe_case(f"sweep_{E}x{C}x{d}x{f}", E, C, d, f, dtype, 0.1)
         moe_case("ragged_5x37x48x40", 5, 37, 48, 40, dtype, 0.1,
-                 variant="mma" if dtype == "bfloat16" else "simt")
+                 variant="wgmma" if dtype == "bfloat16" else "simt")
         moe_case("unaligned_3x37x36x20", 3, 37, 36, 20, dtype, 0.1,
                  variant="simt")
+        moe_case("ragged_2x257x200x136", 2, 257, 200, 136, dtype, 0.1,
+                 variant="wgmma" if dtype == "bfloat16" else "simt")
     from repro_torch.configs import get_config
     cfg = get_config(LM_ARCH).model
     H, D, mo = cfg.n_heads, cfg.head_dim, cfg.moe
@@ -2701,7 +2708,7 @@ def phase_lm_train_kernels():
             timed=True)
         rows["moe_gemm_bwd", dtype] = moe_case(
             "train_4k", E, C, d, f, dtype, E ** -0.5, timed=True,
-            variant="mma" if dtype == "bfloat16" else "simt")
+            variant="wgmma" if dtype == "bfloat16" else "simt")
     return rows
 
 
@@ -2737,7 +2744,7 @@ def _train_want(steps: int, n_layers: int, variant: str) -> dict:
     with per-block recompute: each block's forward kernels twice a step,
     each backward kernel once."""
     fwd = {variant: 2 * n_layers * steps}
-    bwd = "mma" if variant == "wgmma" else "simt"
+    bwd = "wgmma" if variant == "wgmma" else "simt"
     return {"flash_attn": fwd,
             "flash_attn_bwd": {k: n_layers * steps
                                for k in ("delta", "dkdv", "dq")},

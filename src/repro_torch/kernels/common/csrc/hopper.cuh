@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core
-// kernels (flash_attn and moe_gemm): TMA tensor maps and tile loads,
-// mbarriers, the 128-byte-swizzle shared-memory descriptor of wgmma, the
-// wgmma fences, and thin wrappers around wgmma.mma_async for
-// m64nNk16.f32.bf16.bf16 with both operands in shared memory or with A in
-// registers.
+// kernels (flash_attn and moe_gemm, forward and backward): TMA tensor maps
+// and tile loads, mbarriers, the 128-byte-swizzle shared-memory descriptor
+// of wgmma, the wgmma fences, and thin wrappers around wgmma.mma_async for
+// m64nNk16.f32.bf16.bf16 (N = 64 or 128) with both operands in shared
+// memory or with A in registers.
 //
 // Tensor maps are encoded on the host with the driver's
 // cuTensorMapEncodeTiled, fetched through the runtime's
@@ -55,23 +55,44 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions, innermost first: dims[i]
-// elements, strides[i] bytes between steps of dimension i + 1, boxes of
-// box[i] elements (box[0] = 64, one 128-byte swizzled row).  Elements
-// outside the tensor read as zero.  Returns 0 or a cudaError_t.
-inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
-                         const cuuint64_t* dims, const cuuint64_t* strides,
-                         const cuuint32_t* box) {
+// A tensor map of `rank` dimensions, innermost first: dims[i] elements,
+// strides[i] bytes between steps of dimension i + 1, boxes of box[i]
+// elements.  Elements outside the tensor read as zero.  A box's first
+// element must lie on a 16-byte boundary of the tensor.  Returns 0 or a
+// cudaError_t.
+inline int make_map(CUtensorMap* map, CUtensorMapDataType type,
+                    CUtensorMapSwizzle swizzle, const void* base, int rank,
+                    const cuuint64_t* dims, const cuuint64_t* strides,
+                    const cuuint32_t* box) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        (cuuint32_t)rank, const_cast<void*>(base), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base),
+                        dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A bf16 map of 128-byte-swizzled boxes (box[0] = 64, one 128-byte row).
+inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                         const cuuint64_t* dims, const cuuint64_t* strides,
+                         const cuuint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  CU_TENSOR_MAP_SWIZZLE_128B, base, rank, dims, strides, box);
+}
+
+// The (cols, rows, E) map of a row-major (E, rows, cols) bf16 stack, boxes
+// of 64 columns by `box_rows` rows of one matrix.
+inline int map_3d_bf16(CUtensorMap* map, const void* base, int E, int rows,
+                       int cols, uint32_t box_rows) {
+  const cuuint64_t es = sizeof(__nv_bfloat16);
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)E};
+  const cuuint64_t strides[2] = {es * cols, es * cols * rows};
+  const cuuint32_t box[3] = {64, box_rows, 1};
+  return make_map_bf16(map, base, 3, dims, strides, box);
 }
 
 // ---------------------------------------------------------- device: smem --
@@ -146,6 +167,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // transaction count (out-of-bounds elements are written as zeros and
 // counted).  `map` is a __grid_constant__ kernel parameter.
 
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2) {
@@ -202,6 +232,14 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for A operands held in registers: a register-A wgmma reads
+// them asynchronously, so they must stay untouched until its wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // Warp specialisation: the producer warpgroup gives registers back, the
@@ -269,6 +307,31 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
 }
 
+// D (64 x 64, f32) += A (64 x 16, smem) * B (16 x 64, smem).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                  uint64_t desc_a,
+                                                  uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
 // D (64 x 64, f32) += A (64 x 16, bf16 in registers, the accumulator
 // layout of the warpgroup) * B (16 x 64, smem).
 template <int kTransB>
@@ -333,6 +396,34 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
         "n"(kTransB));
+}
+
+// The N = 64 or N = 128 form, picked by the accumulator's size (N / 2
+// floats a thread): kernels templated on a tile width call these.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  wgmma_m64n64k16_ss<kTransB>(d, desc_a, desc_b, scale_d);
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  wgmma_m64n128k16_ss<kTransB>(d, desc_a, desc_b, scale_d);
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  wgmma_m64n64k16_rs<kTransB>(d, a, desc_b, scale_d);
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  wgmma_m64n128k16_rs<kTransB>(d, a, desc_b, scale_d);
 }
 
 }  // namespace hopper

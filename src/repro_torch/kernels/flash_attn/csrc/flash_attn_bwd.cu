@@ -3,12 +3,12 @@
 // (ops.flash_attention_bwd_k):
 //   1. flash_bwd_delta: delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]
 //      in f32, one warp a row;
-//   2. flash_bwd_dkdv: one block per (64-key tile, b, kv head).  For each
+//   2. flash_bwd_dkdv: one block per (key tile, b, kv head).  For each
 //      query head of the kv head's group (GQA's dK and dV are sums over
 //      them) and each 64-query tile that the causal mask lets see the key
 //      tile, it recomputes s = q . k * D^-0.5 and P = exp(s - lse), then
 //      dV += P^T dO, dP = dO V^T, dS = P * (dP - delta), dK += dS^T Q;
-//   3. flash_bwd_dq: one block per (64-query tile, b, h).  Over the key
+//   3. flash_bwd_dq: one block per (query tile, b, h).  Over the key
 //      tiles its queries see: the same P and dS, dQ += dS K.
 // dK and dQ are scaled by D^-0.5 once, at the end.  Each output element is
 // written by exactly one block, once, with a plain store: no atomics, so
@@ -31,18 +31,40 @@
 // v, o, dO, lse and the three gradients in bf16, so it is bound by
 // operations: 0.97 ms at the bf16 tensor cores' 989 TFLOP/s.
 //
-// Design: the first version, on the CUDA cores in f32 for both dtypes (one
-// FMA a multiply-add), on the simt forward's skeleton: 256 threads as
-// 16 x 16, 64-row tiles staged in shared memory as f32 with odd row pitches
-// (the 16 rows a half-warp reads in one column fall in 16 banks), each
-// thread a 4 x 4 tile of S and dP and a 4 x ceil(D/16) tile of each
-// accumulator.  The tensor cores (wgmma, as the forward's "wgmma" variant)
-// are the redesign (ROADMAP.md queue A item 9).
+// Two variants of dkdv and dq; ops.route_bwd picks one from dtype, head
+// width and alignment ("delta" has one).
+// "simt" (f32, and bf16 shapes "wgmma" does not take): the first version,
+// on the CUDA cores in f32 for both dtypes (one FMA a multiply-add), on the
+// simt forward's skeleton: 256 threads as 16 x 16, 64-row tiles staged in
+// shared memory as f32 with odd row pitches (the 16 rows a half-warp reads
+// in one column fall in 16 banks), each thread a 4 x 4 tile of S and dP
+// and a 4 x ceil(D/16) tile of each accumulator.
+// "wgmma" (bf16, D % 16 == 0, D <= 128, 16-byte aligned): every product on
+// the tensor cores, fed by TMA, on the forward "wgmma" variant's skeleton:
+// a CTA of three warpgroups, the first issuing TMA loads from one thread
+// into a 4-stage mbarrier ring, the other two each owning 64 rows of the
+// CTA's 128.  Nothing is transposed through shared memory.  dkdv works in
+// the transposed form: its rows are keys, so S^T = K Q^T and dP^T = V dO^T
+// come from 128-byte-swizzled shared memory with both operands K-major
+// over D, P^T and dS^T sit in registers in the A layout (rows = keys,
+// k = queries), and dV += P^T dO and dK += dS^T Q are register-A wgmmas
+// with dO and Q as MN-major B; each stage is a 64-query tile of Q and dO
+// with its lse and delta (a flat f32 map of (B, H, Sq)).  dq owns 128
+// queries and streams 64-key tiles of K and V: S = Q K^T and dP = dO V^T
+// from shared memory, dQ += dS K with K as MN-major B.  q, k, v and dO are
+// read in place through 4-D (D, H, S, B) maps; rows and columns past S
+// and D arrive as zeros and stores are guarded; D < 64 pads the head to
+// one 64-column panel, 64 < D <= 128 to two.  dkdv runs the low key tiles
+// (the most queries under the causal mask) first, dq the high query tiles.
+// The rounding points are the first tensor-core version's: P and dS are
+// rounded to bf16 as A operands, dK and dQ scaled once at the end.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -437,331 +459,425 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // ---------------------------------------------------------------------------
-// "mma": dkdv and dq in bf16 on the tensor cores through mma.sync
-// (m16n8k16, bf16 in, f32 sums)
+// "wgmma": dkdv and dq in bf16 on the tensor cores, TMA-fed,
+// warp-specialised (one producer warpgroup, two consumers)
 // ---------------------------------------------------------------------------
-namespace tc {
+namespace warpgroup {
 
 using bf16 = __nv_bfloat16;
-constexpr int kWarps = 4;          // a warp owns 16 rows of the block's 64
-constexpr int kTcThreads = 32 * kWarps;
-constexpr int kPT = kB + 8;        // pitch of a transposed (D x 64) tile
+constexpr int kT = 64;            // rows of a streamed tile, and of a consumer
+constexpr int kStages = 4;
+constexpr int kThreads = 384;     // producer warpgroup + 2 consumers
+constexpr int kPanel = kT * 64;   // elements of a 64-row, 64-column panel
+constexpr int kPanelBytes = kPanel * 2;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// lse and delta of a 64-query tile come through a flat f32 map of
+// (B, H, Sq) in boxes of kRowsBox rows that start at the 16-byte boundary
+// at or below the tile's first row (a TMA box must), in slots of kRowsSlot.
+constexpr int kRowsBox = kT + 4;
+constexpr int kRowsSlot = 96;   // 384 bytes: slots stay 128-byte aligned
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// dkdv: the CTA's 128 keys of K and V (two 64-row blocks per panel), a
+// ring of 64-query tiles of Q and dO, and each tile's lse and delta.  kD:
+// the head dimension padded to 64 or 128 (one or two panels).
+template <int kD>
+struct SmemKV {
+  bf16 k[kD / 64][2][kPanel];
+  bf16 v[kD / 64][2][kPanel];
+  bf16 q[kStages][kD / 64][kPanel];
+  bf16 o[kStages][kD / 64][kPanel];   // dO
+  float lse[kStages][kRowsSlot], delta[kStages][kRowsSlot];
+  uint64_t kv_full, full[kStages], empty[kStages];
+};
 
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// dq: the CTA's 128 queries of Q and dO, a ring of 64-key tiles of K and V.
+template <int kD>
+struct SmemQ {
+  bf16 q[kD / 64][2][kPanel];
+  bf16 o[kD / 64][2][kPanel];
+  bf16 k[kStages][kD / 64][kPanel];
+  bf16 v[kStages][kD / 64][kPanel];
+  uint64_t q_full, full[kStages], empty[kStages];
+};
 
-// The A fragment (16 rows x 16 columns) of rows r0 .. r0 + 15 and columns
-// c0 .. c0 + 15 of a row-major bf16 tile with pitch `ld`.
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile, int ld,
-                                       int r0, int c0, int g, int t) {
-  a[0] = ld32(tile + (r0 + g) * ld + c0 + 2 * t);
-  a[1] = ld32(tile + (r0 + g + 8) * ld + c0 + 2 * t);
-  a[2] = ld32(tile + (r0 + g) * ld + c0 + 2 * t + 8);
-  a[3] = ld32(tile + (r0 + g + 8) * ld + c0 + 2 * t + 8);
-}
-
-// The A fragments of a 16 x 32 block held as four n8 accumulator tiles
-// (the C layout of m16n8 is the A layout of m16k16, two tiles a step).
-__device__ __forceinline__ void acc_to_a(uint32_t (*a)[4], float (*c)[4]) {
+// Sixteen bf16x2 A-operand registers (four k16 steps over 64 columns) from
+// a 64 x 64 f32 accumulator: the m64n64 accumulator layout is the A layout.
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4],
+                                     const float (&acc)[32]) {
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    a[s][0] = pack2(c[2 * s][0], c[2 * s][1]);
-    a[s][1] = pack2(c[2 * s][2], c[2 * s][3]);
-    a[s][2] = pack2(c[2 * s + 1][0], c[2 * s + 1][1]);
-    a[s][3] = pack2(c[2 * s + 1][2], c[2 * s + 1][3]);
-  }
-}
-
-// Stage rows r0 .. r0 + 63 of a (B, S, heads, D) bf16 tensor at one head
-// (`a` points at the head's row 0) into As (64 x (kD + 8), row-major) and,
-// when At is not null, its transpose At (kD x kPT); zeros past S and D.
-// A warp takes 32 consecutive rows of one 8-column chunk, so its 2-byte
-// stores into At fill one row without a bank conflict.
-template <int kD>
-__device__ __forceinline__ void stage(bf16* As, bf16* At, const bf16* a,
-                                      long long stride, int r0, int S,
-                                      int D) {
-  constexpr int P = kD + 8;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < kB * (kD / 8); i += kTcThreads) {
-    const int r = i % kB, c8 = (i / kB) * 8;
-    const uint4 v = (r0 + r < S && c8 < D)
-                        ? *reinterpret_cast<const uint4*>(
-                              a + (r0 + r) * stride + c8)
-                        : zero;
-    *reinterpret_cast<uint4*>(As + r * P + c8) = v;
-    if (At != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) At[(c8 + j) * kPT + r] = e[j];
-    }
-  }
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] =
+          hopper::pack_bf16(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
 }
 
-template <int kD>
-size_t smem_bytes_tc() {   // four 64-row tiles, two transposed, lse, delta
-  return sizeof(bf16) * (4 * (size_t)kB * (kD + 8) + 2 * (size_t)kD * kPT) +
-         sizeof(float) * 2 * kB;
+__device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(a[kk]);
 }
 
+// dK, dV: one CTA per (128-key tile, b, kv head), keys k0 + 64c .. + 63 to
+// consumer c.  In the transposed form, rows are keys and columns queries:
+// S^T = K Q^T and dP^T = V dO^T (K and V K-major A, Q and dO K-major B),
+// P^T = exp(S^T * scale - lse) and dS^T = P^T (dP^T - delta) in registers,
+// then dV += P^T dO and dK += dS^T Q with P^T and dS^T as register A and dO
+// and Q as MN-major B.  Query tiles run over the kv head's query heads
+// (GQA) and, per head, from the first tile the causal mask lets see the
+// CTA's first key.
 template <int kD>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int H, int Hk, int Sq, int Skv,
-                   int D, int causal, int q_offset, float scale) {
-  constexpr int P = kD + 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kB * P;
-  bf16* Qs = Vs + kB * P;
-  bf16* dOs = Qs + kB * P;
-  bf16* Qt = dOs + kB * P;          // kD x kPT
-  bf16* dOt = Qt + kD * kPT;
-  float* Ls = reinterpret_cast<float*>(dOt + kD * kPT);
-  float* Ds = Ls + kB;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tlse,
+                     const __grid_constant__ CUtensorMap tdelta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                     int Hk, int Sq, int Skv, int D, int causal,
+                     int q_offset, float scale, float scale_log2) {
+  using namespace hopper;
+  constexpr int kP = kD / 64;
+  extern __shared__ uint8_t smem_raw[];
+  SmemKV<kD>& sm = *reinterpret_cast<SmemKV<kD>*>(align_1k(smem_raw));
 
-  const int hk = blockIdx.y % Hk, b = blockIdx.y / Hk;
+  const int hk = blockIdx.x % Hk, b = blockIdx.x / Hk;
   const int rep = H / Hk;
-  const int k0 = blockIdx.x * kB;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int w0 = 16 * warp;            // the warp's first key in the tile
-  const long long q_stride = (long long)H * D;
-  const long long kv_stride = (long long)Hk * D;
-  stage<kD>(Ks, nullptr, k + ((long long)b * Skv * Hk + hk) * D, kv_stride,
-            k0, Skv, D);
-  stage<kD>(Vs, nullptr, v + ((long long)b * Skv * Hk + hk) * D, kv_stride,
-            k0, Skv, D);
+  const int k0 = blockIdx.y * 2 * kT;   // low key tiles, the longest, first
+  const int t_first = causal ? max(0, k0 - q_offset) / kT : 0;
+  const int nt = max(0, (Sq + kT - 1) / kT - t_first);
+  const int n_it = rep * nt;
 
-  float adk[kD / 8][4], adv[kD / 8][4];
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[j][e] = adv[j][e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  const int t_first = causal ? max(0, k0 - q_offset) / kB : 0;
-  const int n_qt = (Sq + kB - 1) / kB;
-  for (int hh = 0; hh < rep; ++hh) {
-    const int h = hk * rep + hh;
-    const long long head = (long long)b * Sq * H + h;
-    const float* lb = lse + ((long long)b * H + h) * Sq;
-    const float* db = delta + ((long long)b * H + h) * Sq;
-    for (int tq = t_first; tq < n_qt; ++tq) {
-      const int q0 = tq * kB;
-      __syncthreads();  // the previous tile's readers are done
-      stage<kD>(Qs, Qt, q + head * D, q_stride, q0, Sq, D);
-      stage<kD>(dOs, dOt, dout + head * D, q_stride, q0, Sq, D);
-      if (threadIdx.x < kB) {
-        const int s = q0 + threadIdx.x;
-        Ls[threadIdx.x] = s < Sq ? lb[s] : 0.f;
-        Ds[threadIdx.x] = s < Sq ? db[s] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 1
-      for (int qh = 0; qh < kB; qh += 32) {   // 32 queries at a time
-        float st[4][4], dpt[4][4];   // S^T, dP^T: 16 keys x 4 x 8 queries
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kD; kk += 16) {
-          uint32_t ak[4], av[4];
-          load_a(ak, Ks, P, w0, kk, g, t);
-          load_a(av, Vs, P, w0, kk, g, t);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int n = qh + 8 * j + g;
-            mma(st[j], ak, ld32(Qs + n * P + kk + 2 * t),
-                ld32(Qs + n * P + kk + 2 * t + 8));
-            mma(dpt[j], av, ld32(dOs + n * P + kk + 2 * t),
-                ld32(dOs + n * P + kk + 2 * t + 8));
-          }
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {  // producer
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(&sm.kv_full, 2 * kP * 2 * kPanelBytes);
+      for (int p = 0; p < kP; ++p)
+        for (int r = 0; r < 2; ++r) {
+          tma_load_4d(sm.k[p][r], &tk, &sm.kv_full, 64 * p, hk, k0 + kT * r,
+                      b);
+          tma_load_4d(sm.v[p][r], &tv, &sm.kv_full, 64 * p, hk, k0 + kT * r,
+                      b);
         }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(&sm.empty[s], ((it / kStages) - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[s],
+                              2 * kP * kPanelBytes + 2 * kRowsBox * 4);
+        const int h = hk * rep + it / nt;
+        const int q0 = (t_first + it % nt) * kT;
+        for (int p = 0; p < kP; ++p) {
+          tma_load_4d(sm.q[s][p], &tq, &sm.full[s], 64 * p, h, q0, b);
+          tma_load_4d(sm.o[s][p], &tdo, &sm.full[s], 64 * p, h, q0, b);
+        }
+        // rows past Sq (the next head's, or zeros) are masked below
+        const int row = ((b * H + h) * Sq + q0) & ~3;
+        tma_load_1d(sm.lse[s], &tlse, &sm.full[s], row);
+        tma_load_1d(sm.delta[s], &tdelta, &sm.full[s], row);
+      }
+    }
+  } else {  // consumers
+    regs_alloc<240>();
+    const int c = wgi - 1;
+    const int tid = threadIdx.x - 128 * wgi;
+    const int lane = tid & 31, quad = lane & 3;
+    const int key_first = k0 + kT * c;               // the WG's first key
+    const int key0 = key_first + 16 * (tid >> 5) + (lane >> 2);  // and + 8
+
+    float adk[kD / 2], adv[kD / 2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < kD / 2; ++i) adk[i] = adv[i] = 0.f;
+
+    mbar_wait(&sm.kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kStages;
+      const int q0 = (t_first + it % nt) * kT;
+      // where the tile's first row sits in its lse and delta box
+      const int r0 = ((b * H + hk * rep + it / nt) * Sq + q0) & 3;
+      mbar_wait(&sm.full[s], (it / kStages) & 1);
+      // every query of the tile precedes the WG's first key, or the WG has
+      // no key: nothing to add
+      const bool skip = key_first >= Skv ||
+                        (causal && q0 + kT - 1 + q_offset < key_first);
+      if (!skip) {
+        float st[32], dpt[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk)
+          wgmma_ss<0>(st, desc_sw128(&sm.k[kk / 4][c][(kk % 4) * 16], 16,
+                                     1024),
+                      desc_sw128(&sm.q[s][kk / 4][(kk % 4) * 16], 16, 1024),
+                      kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk)
+          wgmma_ss<0>(dpt, desc_sw128(&sm.v[kk / 4][c][(kk % 4) * 16], 16,
+                                      1024),
+                      desc_sw128(&sm.o[s][kk / 4][(kk % 4) * 16], 16, 1024),
+                      kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+
+        // mask only tiles a ragged edge or the diagonal crosses
+        const bool edge = q0 + kT > Sq || key_first + kT > Skv ||
+                          (causal && q0 + q_offset < key_first + kT - 1);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int key = k0 + w0 + g + 8 * (e >> 1);
-            const int qi = qh + 8 * j + 2 * t + (e & 1), qrow = q0 + qi;
-            float p = 0.f;
-            if (key < Skv && qrow < Sq && !(causal && key > qrow + q_offset))
-              p = expf(st[j][e] * scale - Ls[qi]);
-            dpt[j][e] = p * (dpt[j][e] - Ds[qi]);
-            st[j][e] = p;
+            const int col = 8 * i + 2 * quad + (e & 1);
+            const int query = q0 + col, key = key0 + 8 * (e >> 1);
+            float p = exp2f(st[4 * i + e] * scale_log2 -
+                            sm.lse[s][r0 + col] * kLog2e);
+            if (edge && (key >= Skv || query >= Sq ||
+                         (causal && key > query + q_offset)))
+              p = 0.f;
+            dpt[4 * i + e] = p * (dpt[4 * i + e] - sm.delta[s][r0 + col]);
+            st[4 * i + e] = p;
           }
-        uint32_t pa[2][4], sa[2][4];
-        acc_to_a(pa, st);
-        acc_to_a(sa, dpt);
-        // dV += P^T dO and dK += dS^T Q over these 32 queries
+        uint32_t pa[4][4], sa[4][4];
+        to_a(pa, st);
+        to_a(sa, dpt);
+        fence_a(pa);
+        fence_a(sa);
+        wgmma_fence();
 #pragma unroll
-        for (int s2 = 0; s2 < 2; ++s2) {
-          const int kq = qh + 16 * s2;
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1>(adv, pa[kk],
+                      desc_sw128(&sm.o[s][0][kk * 16 * 64], kPanelBytes,
+                                 1024),
+                      1);
 #pragma unroll
-          for (int jd = 0; jd < kD / 8; ++jd) {
-            const int n = 8 * jd + g;
-            mma(adv[jd], pa[s2], ld32(dOt + n * kPT + kq + 2 * t),
-                ld32(dOt + n * kPT + kq + 2 * t + 8));
-            mma(adk[jd], sa[s2], ld32(Qt + n * kPT + kq + 2 * t),
-                ld32(Qt + n * kPT + kq + 2 * t + 8));
-          }
-        }
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1>(adk, sa[kk],
+                      desc_sw128(&sm.q[s][0][kk * 16 * 64], kPanelBytes,
+                                 1024),
+                      1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_a(pa);
+        fence_a(sa);
+        fence_regs(adv);
+        fence_regs(adk);
+      }
+      mbar_arrive(&sm.empty[s]);
+    }
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = key0 + 8 * hh;
+      if (key >= Skv) continue;
+      const long long at = (((long long)b * Skv + key) * Hk + hk) * D;
+#pragma unroll
+      for (int i = 0; i < kD / 8; ++i) {
+        const int col = 8 * i + 2 * quad;
+        if (col >= D) continue;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + col) =
+            __floats2bfloat162_rn(adk[4 * i + 2 * hh] * scale,
+                                  adk[4 * i + 2 * hh + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + col) =
+            __floats2bfloat162_rn(adv[4 * i + 2 * hh],
+                                  adv[4 * i + 2 * hh + 1]);
       }
     }
   }
-
-#pragma unroll
-  for (int jd = 0; jd < kD / 8; ++jd)
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      const int key = k0 + w0 + g + 8 * h2;
-      const int col = 8 * jd + 2 * t;
-      if (key >= Skv || col >= D) continue;
-      const long long at = (((long long)b * Skv + key) * Hk + hk) * D + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
-          adk[jd][2 * h2] * scale, adk[jd][2 * h2 + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-          __floats2bfloat162_rn(adv[jd][2 * h2], adv[jd][2 * h2 + 1]);
-    }
 }
 
+// dQ: one CTA per (128-query tile, b, h), queries q0 + 64c .. + 63 to
+// consumer c: S = Q K^T and dP = dO V^T (Q and dO K-major A, K and V
+// K-major B), P and dS in registers, dQ += dS K with K as MN-major B, over
+// the 64-key tiles up to the forward's last.
 template <int kD>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dq,
-                 int H, int Hk, int Sq, int Skv, int D, int causal,
-                 int q_offset, float scale) {
-  constexpr int P = kD + 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kB * P;
-  bf16* Ks = dOs + kB * P;
-  bf16* Vs = Ks + kB * P;
-  bf16* Kt = Vs + kB * P;           // kD x kPT
-  float* Ls = reinterpret_cast<float*>(Kt + 2 * kD * kPT);
-  float* Ds = Ls + kB;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   int H, int Hk, int Sq, int Skv, int D, int causal,
+                   int q_offset, float scale, float scale_log2) {
+  using namespace hopper;
+  constexpr int kP = kD / 64;
+  extern __shared__ uint8_t smem_raw[];
+  SmemQ<kD>& sm = *reinterpret_cast<SmemQ<kD>*>(align_1k(smem_raw));
 
-  const int h = blockIdx.y % H, b = blockIdx.y / H;
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
   const int hk = h / (H / Hk);
-  const int q0 = blockIdx.x * kB;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int w0 = 16 * warp;            // the warp's first query in the tile
-  const long long q_stride = (long long)H * D;
-  const long long kv_stride = (long long)Hk * D;
-  const long long head = (long long)b * Sq * H + h;
-  stage<kD>(Qs, nullptr, q + head * D, q_stride, q0, Sq, D);
-  stage<kD>(dOs, nullptr, dout + head * D, q_stride, q0, Sq, D);
-  if (threadIdx.x < kB) {
-    const int s = q0 + threadIdx.x;
-    const long long lrow = ((long long)b * H + h) * Sq;
-    Ls[threadIdx.x] = s < Sq ? lse[lrow + s] : 0.f;
-    Ds[threadIdx.x] = s < Sq ? delta[lrow + s] : 0.f;
-  }
-  const bf16* kb = k + ((long long)b * Skv * Hk + hk) * D;
-  const bf16* vb = v + ((long long)b * Skv * Hk + hk) * D;
+  // causal grids run the high query tiles, the longest, first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * 2 * kT;
+  int n_tiles = (Skv + kT - 1) / kT;
+  if (causal)  // the CTA's last query sees keys up to its position
+    n_tiles = min(n_tiles, (min(q0 + 2 * kT, Sq) - 1 + q_offset) / kT + 1);
 
-  float adq[kD / 8][4];
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adq[j][e] = 0.f;
-
-  int n_tiles = (Skv + kB - 1) / kB;
-  if (causal)  // the block's last query sees keys up to its position
-    n_tiles = min(n_tiles, (min(q0 + kB, Sq) - 1 + q_offset) / kB + 1);
-  for (int tk = 0; tk < n_tiles; ++tk) {
-    const int k0 = tk * kB;
-    __syncthreads();  // the previous tile's readers are done
-    stage<kD>(Ks, Kt, kb, kv_stride, k0, Skv, D);
-    stage<kD>(Vs, nullptr, vb, kv_stride, k0, Skv, D);
-    __syncthreads();
-    uint32_t aq[kD / 16][4], ao[kD / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      load_a(aq[kk], Qs, P, w0, 16 * kk, g, t);
-      load_a(ao[kk], dOs, P, w0, 16 * kk, g, t);
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 2 * 128);
     }
-#pragma unroll 1
-    for (int kh = 0; kh < kB; kh += 32) {   // 32 keys at a time
-      float s[4][4], dp[4][4];   // S, dP: 16 queries x 4 x 8 keys
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = kh + 8 * j + g;
-          mma(s[j], aq[kk], ld32(Ks + n * P + 16 * kk + 2 * t),
-              ld32(Ks + n * P + 16 * kk + 2 * t + 8));
-          mma(dp[j], ao[kk], ld32(Vs + n * P + 16 * kk + 2 * t),
-              ld32(Vs + n * P + 16 * kk + 2 * t + 8));
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {  // producer
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(&sm.q_full, 2 * kP * 2 * kPanelBytes);
+      for (int p = 0; p < kP; ++p)
+        for (int r = 0; r < 2; ++r) {
+          tma_load_4d(sm.q[p][r], &tq, &sm.q_full, 64 * p, h, q0 + kT * r, b);
+          tma_load_4d(sm.o[p][r], &tdo, &sm.q_full, 64 * p, h, q0 + kT * r,
+                      b);
         }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = w0 + g + 8 * (e >> 1), qrow = q0 + qi;
-          const int key = k0 + kh + 8 * j + 2 * t + (e & 1);
-          float ds = 0.f;
-          if (key < Skv && qrow < Sq && !(causal && key > qrow + q_offset))
-            ds = expf(s[j][e] * scale - Ls[qi]) * (dp[j][e] - Ds[qi]);
-          s[j][e] = ds;
-        }
-      uint32_t sa[2][4];
-      acc_to_a(sa, s);
-      // dQ += dS K over these 32 keys
-#pragma unroll
-      for (int s2 = 0; s2 < 2; ++s2) {
-        const int kq = kh + 16 * s2;
-#pragma unroll
-        for (int jd = 0; jd < kD / 8; ++jd) {
-          const int n = 8 * jd + g;
-          mma(adq[jd], sa[s2], ld32(Kt + n * kPT + kq + 2 * t),
-              ld32(Kt + n * kPT + kq + 2 * t + 8));
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(&sm.empty[s], ((t / kStages) - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[s], 2 * kP * kPanelBytes);
+        for (int p = 0; p < kP; ++p) {
+          tma_load_4d(sm.k[s][p], &tk, &sm.full[s], 64 * p, hk, t * kT, b);
+          tma_load_4d(sm.v[s][p], &tv, &sm.full[s], 64 * p, hk, t * kT, b);
         }
       }
     }
-  }
+  } else {  // consumers
+    regs_alloc<240>();
+    const int c = wgi - 1;
+    const int tid = threadIdx.x - 128 * wgi;
+    const int lane = tid & 31, quad = lane & 3;
+    const int q_first = q0 + kT * c;                  // the WG's first query
+    const int row0 = q_first + 16 * (tid >> 5) + (lane >> 2);   // and + 8
+    // the WG's last query position (none when q_first >= Sq)
+    const int last_pos = min(q_first + kT, Sq) - 1 + q_offset;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      const long long at = ((long long)b * H + h) * Sq + row;
+      lse2[hh] = row < Sq ? lse[at] * kLog2e : 0.f;
+      dl[hh] = row < Sq ? delta[at] : 0.f;
+    }
+
+    float adq[kD / 2];
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) adq[i] = 0.f;
+
+    mbar_wait(&sm.q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      const int k0 = t * kT;
+      mbar_wait(&sm.full[s], (t / kStages) & 1);
+      const bool skip = q_first >= Sq || (causal && k0 > last_pos);
+      if (!skip) {
+        float sc[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk)
+          wgmma_ss<0>(sc, desc_sw128(&sm.q[kk / 4][c][(kk % 4) * 16], 16,
+                                     1024),
+                      desc_sw128(&sm.k[s][kk / 4][(kk % 4) * 16], 16, 1024),
+                      kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk)
+          wgmma_ss<0>(dp, desc_sw128(&sm.o[kk / 4][c][(kk % 4) * 16], 16,
+                                     1024),
+                      desc_sw128(&sm.v[s][kk / 4][(kk % 4) * 16], 16, 1024),
+                      kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        const bool edge = k0 + kT > Skv || q_first + kT > Sq ||
+                          (causal && k0 + kT - 1 > q_first + q_offset);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hh = e >> 1;
+            const int key = k0 + 8 * i + 2 * quad + (e & 1);
+            const int row = row0 + 8 * hh;
+            float p = exp2f(sc[4 * i + e] * scale_log2 - lse2[hh]);
+            if (edge && (key >= Skv || row >= Sq ||
+                         (causal && key > row + q_offset)))
+              p = 0.f;
+            sc[4 * i + e] = p * (dp[4 * i + e] - dl[hh]);
+          }
+        uint32_t sa[4][4];
+        to_a(sa, sc);
+        fence_a(sa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1>(adq, sa[kk],
+                      desc_sw128(&sm.k[s][0][kk * 16 * 64], kPanelBytes,
+                                 1024),
+                      1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_a(sa);
+        fence_regs(adq);
+      }
+      mbar_arrive(&sm.empty[s]);
+    }
 
 #pragma unroll
-  for (int jd = 0; jd < kD / 8; ++jd)
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      if (row >= Sq) continue;
+      const long long at = (((long long)b * Sq + row) * H + h) * D;
 #pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      const int row = q0 + w0 + g + 8 * h2;
-      const int col = 8 * jd + 2 * t;
-      if (row >= Sq || col >= D) continue;
-      const long long at = (head + (long long)row * H) * D + col;
-      *reinterpret_cast<__nv_bfloat162*>(dq + at) = __floats2bfloat162_rn(
-          adq[jd][2 * h2] * scale, adq[jd][2 * h2 + 1] * scale);
+      for (int i = 0; i < kD / 8; ++i) {
+        const int col = 8 * i + 2 * quad;
+        if (col >= D) continue;
+        *reinterpret_cast<__nv_bfloat162*>(dq + at + col) =
+            __floats2bfloat162_rn(adq[4 * i + 2 * hh] * scale,
+                                  adq[4 * i + 2 * hh + 1] * scale);
+      }
     }
+  }
 }
 
-bool bad_tc_shape(int B, int H, int Hk, int Sq, int Skv, int D,
-                  int q_offset) {
-  return bad_shape(B, H, Hk, Sq, Skv, D, q_offset) || D % 16 != 0;
+// The flat map of a float32 (B, H, Sq) tensor, boxes of kRowsBox rows.
+int map_rows_f32(CUtensorMap* m, const void* p, long long n) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {4 * (cuuint64_t)n};   // unused at rank 1
+  const cuuint32_t box[1] = {kRowsBox};
+  return hopper::make_map(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                          CU_TENSOR_MAP_SWIZZLE_NONE, p, 1, dims, strides,
+                          box);
+}
+
+// The (D, heads, S, B) map of a (B, S, heads, D) bf16 tensor, boxes of 64
+// columns of one head at 64 positions.
+int map_bshd(CUtensorMap* m, const void* p, int B, int S, int heads, int D) {
+  const cuuint64_t e = sizeof(bf16);
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {e * D, e * D * heads, e * D * heads * S};
+  const cuuint32_t box[4] = {64, 1, kT, 1};
+  return hopper::make_map_bf16(m, p, 4, dims, strides, box);
+}
+
+bool bad_wgmma_shape(int B, int H, int Hk, int Sq, int Skv, int D,
+                     int q_offset) {
+  return bad_shape(B, H, Hk, Sq, Skv, D, q_offset) || D % 16 != 0 ||
+         (long long)B * H * Sq > INT_MAX;
 }
 
 template <int kD>
@@ -769,18 +885,25 @@ int run_dkdv(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dk, void* dv, int B,
              int H, int Hk, int Sq, int Skv, int D, int causal, int q_offset,
              cudaStream_t st) {
-  const int smem = (int)smem_bytes_tc<kD>();
+  CUtensorMap tq, tk, tv, tdo, tl, td;
+  int err = map_bshd(&tq, q, B, Sq, H, D);
+  if (!err) err = map_bshd(&tk, k, B, Skv, Hk, D);
+  if (!err) err = map_bshd(&tv, v, B, Skv, Hk, D);
+  if (!err) err = map_bshd(&tdo, dout, B, Sq, H, D);
+  if (!err) err = map_rows_f32(&tl, lse, (long long)B * H * Sq);
+  if (!err) err = map_rows_f32(&td, delta, (long long)B * H * Sq);
+  if (err) return err;
+  const int smem = (int)sizeof(SmemKV<kD>) + 1024;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkdv_mma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkdv_wgmma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((Skv + kB - 1) / kB, B * Hk);
-  flash_bwd_dkdv_mma<kD><<<grid, kTcThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hk, Sq, Skv, D,
-      causal, q_offset, (float)(1.0 / sqrt((double)D)));
+  const dim3 grid(B * Hk, (Skv + 2 * kT - 1) / (2 * kT));
+  const double scale = 1.0 / sqrt((double)D);
+  flash_bwd_dkdv_wgmma<kD><<<grid, kThreads, smem, st>>>(
+      tq, tk, tv, tdo, tl, td, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      H, Hk, Sq, Skv, D, causal, q_offset, (float)scale,
+      (float)(scale * 1.4426950408889634));
   return (int)cudaGetLastError();
 }
 
@@ -789,57 +912,67 @@ int run_dq(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int B, int H, int Hk,
            int Sq, int Skv, int D, int causal, int q_offset,
            cudaStream_t st) {
-  const int smem = (int)smem_bytes_tc<kD>();
+  CUtensorMap tq, tk, tv, tdo;
+  int err = map_bshd(&tq, q, B, Sq, H, D);
+  if (!err) err = map_bshd(&tk, k, B, Skv, Hk, D);
+  if (!err) err = map_bshd(&tv, v, B, Skv, Hk, D);
+  if (!err) err = map_bshd(&tdo, dout, B, Sq, H, D);
+  if (err) return err;
+  const int smem = (int)sizeof(SmemQ<kD>) + 1024;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_mma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_wgmma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((Sq + kB - 1) / kB, B * H);
-  flash_bwd_dq_mma<kD><<<grid, kTcThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), H, Hk, Sq, Skv, D, causal, q_offset,
-      (float)(1.0 / sqrt((double)D)));
+  const dim3 grid(B * H, (Sq + 2 * kT - 1) / (2 * kT));
+  const double scale = 1.0 / sqrt((double)D);
+  flash_bwd_dq_wgmma<kD><<<grid, kThreads, smem, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), H, Hk, Sq,
+      Skv, D, causal, q_offset, (float)scale,
+      (float)(scale * 1.4426950408889634));
   return (int)cudaGetLastError();
 }
 
-}  // namespace tc
+}  // namespace warpgroup
 
 }  // namespace
 
-// The "mma" variant of dkdv and dq: bf16, D % 16 == 0 and D <= 128, every
-// pointer 16-byte aligned; otherwise as the others below.
-extern "C" int flash_attn_bwd_dkdv_bf16_mma(const void* q, const void* k,
-                                            const void* v, const void* dout,
-                                            const void* lse,
-                                            const void* delta, void* dk,
-                                            void* dv, int B, int H, int Hk,
-                                            int Sq, int Skv, int D,
-                                            int causal, int q_offset,
-                                            void* stream) {
-  if (tc::bad_tc_shape(B, H, Hk, Sq, Skv, D, q_offset) || B * Hk > 65535)
+// The "wgmma" variant of dkdv and dq: bf16, D % 16 == 0 and D <= 128,
+// every pointer 16-byte aligned; otherwise as the others below.
+extern "C" int flash_attn_bwd_dkdv_bf16_wgmma(const void* q, const void* k,
+                                              const void* v, const void* dout,
+                                              const void* lse,
+                                              const void* delta, void* dk,
+                                              void* dv, int B, int H, int Hk,
+                                              int Sq, int Skv, int D,
+                                              int causal, int q_offset,
+                                              void* stream) {
+  using namespace warpgroup;
+  if (bad_wgmma_shape(B, H, Hk, Sq, Skv, D, q_offset) ||
+      (Skv + 2 * kT - 1) / (2 * kT) > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? tc::run_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, B, H,
-                                    Hk, Sq, Skv, D, causal, q_offset, st)
-                 : tc::run_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, B, H,
-                                     Hk, Sq, Skv, D, causal, q_offset, st);
+  return D <= 64 ? run_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hk,
+                                Sq, Skv, D, causal, q_offset, st)
+                 : run_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Hk,
+                                 Sq, Skv, D, causal, q_offset, st);
 }
 
-extern "C" int flash_attn_bwd_dq_bf16_mma(const void* q, const void* k,
-                                          const void* v, const void* dout,
-                                          const void* lse, const void* delta,
-                                          void* dq, int B, int H, int Hk,
-                                          int Sq, int Skv, int D, int causal,
-                                          int q_offset, void* stream) {
-  if (tc::bad_tc_shape(B, H, Hk, Sq, Skv, D, q_offset) || B * H > 65535)
+extern "C" int flash_attn_bwd_dq_bf16_wgmma(const void* q, const void* k,
+                                            const void* v, const void* dout,
+                                            const void* lse, const void* delta,
+                                            void* dq, int B, int H, int Hk,
+                                            int Sq, int Skv, int D, int causal,
+                                            int q_offset, void* stream) {
+  using namespace warpgroup;
+  if (bad_wgmma_shape(B, H, Hk, Sq, Skv, D, q_offset) ||
+      (Sq + 2 * kT - 1) / (2 * kT) > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? tc::run_dq<64>(q, k, v, dout, lse, delta, dq, B, H, Hk,
-                                  Sq, Skv, D, causal, q_offset, st)
-                 : tc::run_dq<128>(q, k, v, dout, lse, delta, dq, B, H, Hk,
-                                   Sq, Skv, D, causal, q_offset, st);
+  return D <= 64 ? run_dq<64>(q, k, v, dout, lse, delta, dq, B, H, Hk, Sq,
+                              Skv, D, causal, q_offset, st)
+                 : run_dq<128>(q, k, v, dout, lse, delta, dq, B, H, Hk, Sq,
+                               Skv, D, causal, q_offset, st);
 }
 
 // The three kernels' entry points, each in f32 and bf16.  q, o, dO, dq

@@ -61,7 +61,7 @@ _BWD_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _bwd_launcher(dtype: torch.dtype, kernel: str, variant: str):
-    suffix = "_mma" if variant == "mma" else ""
+    suffix = "_wgmma" if variant == "wgmma" else ""
     fn = getattr(build.load(BWD_SOURCE),
                  f"flash_attn_bwd_{kernel}_{_BWD_DTYPES[dtype]}{suffix}")
     if fn.argtypes is None:
@@ -81,7 +81,7 @@ def flash_attn_bwd_cuda(kernel: str, q: torch.Tensor, k: torch.Tensor,
     device: "delta" writes ``delta`` (B, H, Sq) f32 from ``o`` and
     ``do``; "dkdv" writes ``outs = (dk, dv)`` and "dq" ``outs = (dq,)``
     from q, k, v, do, lse and delta, through ``variant`` ("simt" or
-    "mma"; "delta" has one).  Every tensor is contiguous, q/k/v/o/do and
+    "wgmma"; "delta" has one).  Every tensor is contiguous, q/k/v/o/do and
     the outputs of one dtype; the caller has checked them and picked the
     variant (``ops.route_bwd``)."""
     B, Sq, H, D = q.shape

@@ -21,7 +21,7 @@ row log-sum-exp ``lse`` written too, its backward
 :func:`flash_attention_bwd_k`, which on the card launches the three
 kernels of ``csrc/flash_attn_bwd.cu`` ("delta", "dkdv", "dq"; one launch
 each, counted in :data:`bwd_launches`; dkdv and dq through the variant
-:func:`route_bwd` picks, "mma" or "simt", counted in
+:func:`route_bwd` picks, "wgmma" or "simt", counted in
 :data:`bwd_launches_by_variant`) and on the CPU runs
 :func:`flash_attention_bwd_ref`.  Both functions are looked up when the
 Function runs, so a caller that swaps them for their plain versions
@@ -39,7 +39,7 @@ VARIANTS = ("wgmma", "simt")
 launches_by_variant = dict.fromkeys(VARIANTS, 0)   # the same, by variant
 BWD_KERNELS = ("delta", "dkdv", "dq")
 bwd_launches = dict.fromkeys(BWD_KERNELS, 0)   # backward launches, by kernel
-BWD_VARIANTS = ("mma", "simt")
+BWD_VARIANTS = ("wgmma", "simt")
 # launches of dkdv and dq by the variant route_bwd picked (two a backward)
 bwd_launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 MAX_HEAD_DIM = 128
@@ -61,13 +61,13 @@ def route(dtype: torch.dtype, head_dim: int, ptrs=()) -> str:
 
 def route_bwd(dtype: torch.dtype, head_dim: int, ptrs=()) -> str:
     """The variant of the dkdv and dq backward kernels, from dtype, head
-    width and data pointers alone: "mma" (the tensor cores through
-    mma.sync) for bf16 with ``head_dim % 16 == 0``, ``head_dim <= 128``
-    and every pointer 16-byte aligned, else "simt"."""
+    width and data pointers alone: "wgmma" (the tensor cores, TMA-fed)
+    for bf16 with ``head_dim % 16 == 0``, ``head_dim <= 128`` and every
+    pointer 16-byte aligned, else "simt"."""
     if (dtype == torch.bfloat16 and head_dim % 16 == 0
             and 0 < head_dim <= MAX_HEAD_DIM
             and all(p % 16 == 0 for p in ptrs)):
-        return "mma"
+        return "wgmma"
     return "simt"
 
 
@@ -193,7 +193,7 @@ def flash_attention_bwd_k(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     variant = route_bwd(q.dtype, D, [t.data_ptr() for t in
-                                     (q, k, v, do, dq, dk, dv)])
+                                     (q, k, v, do, lse, delta, dq, dk, dv)])
     for kernel, outs in (("delta", ()), ("dkdv", (dk, dv)), ("dq", (dq,))):
         flash_attn_bwd_cuda(kernel, q, k, v, o, lse, do, delta, outs, causal,
                             int(q_offset), variant)

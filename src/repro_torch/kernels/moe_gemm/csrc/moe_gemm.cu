@@ -352,27 +352,17 @@ int run_pass(const CUtensorMap& ta, const CUtensorMap& tb0,
   return (int)cudaGetLastError();
 }
 
-// (cols, rows, E) map of a row-major (E, rows, cols) bf16 stack
-int map3(CUtensorMap* m, const void* p, int E, int rows, int cols,
-         uint32_t box_rows) {
-  const cuuint64_t es = sizeof(bf16);
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                              (cuuint64_t)E};
-  const cuuint64_t strides[2] = {es * cols, es * cols * rows};
-  const cuuint32_t box[3] = {64, box_rows, 1};
-  return hopper::make_map_bf16(m, p, 3, dims, strides, box);
-}
-
 int launch(const void* x, const void* wg, const void* wu, const void* wd,
            void* h, void* out, int E, int C, int d, int f, cudaStream_t st) {
   if (d % 8 != 0 || f % 8 != 0) return (int)cudaErrorInvalidValue;
   if ((d > f ? d : f) / kBN >= 65535) return (int)cudaErrorInvalidValue;
+  using hopper::map_3d_bf16;
   CUtensorMap tx, tg, tu, th, td;
-  int err = map3(&tx, x, E, C, d, kBM);
-  if (!err) err = map3(&tg, wg, E, d, f, kBK);
-  if (!err) err = map3(&tu, wu, E, d, f, kBK);
-  if (!err) err = map3(&th, h, E, C, f, kBM);
-  if (!err) err = map3(&td, wd, E, f, d, kBK);
+  int err = map_3d_bf16(&tx, x, E, C, d, kBM);
+  if (!err) err = map_3d_bf16(&tg, wg, E, d, f, kBK);
+  if (!err) err = map_3d_bf16(&tu, wu, E, d, f, kBK);
+  if (!err) err = map_3d_bf16(&th, h, E, C, f, kBM);
+  if (!err) err = map_3d_bf16(&td, wd, E, f, d, kBK);
   if (err) return err;
   err = run_pass<true>(tx, tg, tu, static_cast<bf16*>(h), E, C, f, d, st);
   if (err) return err;

@@ -25,23 +25,38 @@
 // Both write every output element from exactly one block with a plain
 // store (no atomics), and take consecutive C tiles of one weight panel in
 // consecutive blocks, which share it through L2.
-// "simt" (f32, and bf16 shapes "mma" does not take): the first version,
+// "simt" (f32, and bf16 shapes "wgmma" does not take): the first version,
 // on the CUDA cores in f32 (one FMA a multiply-add), the simt forward's
 // tiling: one block of 256 threads (16 x 16) per (64-row C tile, 64-column
 // f tile, expert), each thread a 4 x 4 tile of all three sums.  Each
 // 32-deep step of d stages x and dy (transposed), wg and wu (as stored)
 // and wd (transposed from its (f, d) rows) in shared memory as f32.
-// "mma" (bf16, d and f multiples of 8): the three products on the tensor
-// cores through warp-level mma.sync (m16n8k16, bf16 in, f32 sums): one
-// block of 8 warps per (128-row C tile, 64-column f tile, expert), each
-// warp 32 x 32 of all three sums; operands staged in shared memory as bf16
-// with d contiguous, one step of 32 at a time, no pipelining.  wgmma with
-// TMA (the forward's "wgmma" mainloop, which already computes x wg and
-// x wu) is the redesign (ROADMAP.md queue A item 9).
+// "wgmma" (bf16, d and f multiples of 8, 16-byte aligned): the three
+// products on the tensor cores, fed by TMA, on the forward "wgmma"
+// gate/up mainloop (moe_gemm.cu) with a second A tile (dy) and a third
+// accumulator.  A CTA of three warpgroups per (128-row C tile, 64-column
+// f tile, expert): the first issues TMA loads from one thread into a
+// 4-stage mbarrier ring, each 56 KB stage 64 values of d of x and dy (128
+// rows each), wg and wu (64 x 64) and wd (64 x 64); the other two each own
+// 64 C rows and keep the three 64 x 64 f32 sums a, b and dh in registers
+// (96 a thread).  x and dy are K-major A operands; wg and wu are MN-major
+// B operands read in their stored (E, d, f) layout, as the forward reads
+// them; wd (E, f, d), read as stored, is the K-major B operand of
+// dh = dy wd^T (d is contiguous), so nothing is transposed or copied.
+// Ragged C, d and f arrive as zeros and stores are guarded.  C tiles are
+// the fastest grid dimension.  The epilogue is "simt"'s, on the
+// accumulator layout, with bf16x2 stores.  What holds it from the bound
+// is the rate at which L2 feeds the SMs: every CTA streams 1.8 MB of x, dy
+// and weight panels (37.6 GB a call at the training shape, all of it L2
+// hits).  A 128-column f tile reads 26.8 GB, but its three 64 x 128 sums
+// leave room for two 80 KB stages only (or five 40 KB stages of 32 values
+// of d, 64-byte swizzled), and both ran slower on the H100 (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -191,199 +206,186 @@ int launch(const void* x, const void* wg, const void* wu, const void* wd,
 }
 
 // ---------------------------------------------------------------------------
-// "mma": bf16 on the tensor cores through mma.sync (m16n8k16, f32 sums)
+// "wgmma": bf16 on the tensor cores, TMA-fed, warp-specialised
 // ---------------------------------------------------------------------------
-namespace tc {
+namespace warpgroup {
 
 using bf16 = __nv_bfloat16;
-constexpr int kBM = 128, kBN = 64, kBK = 32;
-constexpr int kPitch = kBK + 8;   // 80-byte rows: fragment loads miss no bank
+constexpr int kBM = 128;       // C rows per CTA: two consumer warpgroups
+constexpr int kBN = 64;        // f columns per CTA: one 64-column panel
+constexpr int kBK = 64;        // depth per stage: one swizzled panel
+constexpr int kStages = 4;
+constexpr int kThreads = 384;  // producer warpgroup + 2 consumers
+constexpr int kTileA = kBM * kBK;   // elements of x's or dy's stage tile
+constexpr int kPanel = kBK * kBN;   // elements of wg's, wu's or wd's
 
-__device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Four 56 KB stages: 64 values of d of x and dy (128 rows each), wg and wu
+// (64 x 64, MN-major) and wd (64 x 64, K-major).
+struct Smem {
+  bf16 x[kStages][kTileA];
+  bf16 dy[kStages][kTileA];
+  bf16 g[kStages][kPanel];
+  bf16 u[kStages][kPanel];
+  bf16 w[kStages][kPanel];
+  uint64_t full[kStages], empty[kStages];
+};
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// One block of 256 threads (8 warps as 4 x 2, each 32 x 32 of all three
-// sums) per (128-row C tile, 64-column f tile, expert).  Each 32-deep step
-// of d stages, as bf16 in shared memory with k contiguous: x and dy rows;
-// wd rows (f, d) as stored; wg and wu transposed to (f, d).  16-byte loads,
-// zeros past C and f (d and f are multiples of 8, so a chunk of 8 is
-// wholly in or out).
-__global__ void __launch_bounds__(256)
-moe_bwd_hidden_mma(const bf16* __restrict__ x, const bf16* __restrict__ wg,
-                   const bf16* __restrict__ wu, const bf16* __restrict__ wd,
-                   const bf16* __restrict__ dy, bf16* __restrict__ da,
-                   bf16* __restrict__ db, bf16* __restrict__ h, int C, int d,
-                   int f) {
-  __shared__ __align__(16) bf16 Xs[kBM][kPitch];
-  __shared__ __align__(16) bf16 Ys[kBM][kPitch];
-  __shared__ __align__(16) bf16 Gt[kBN][kPitch];
-  __shared__ __align__(16) bf16 Ut[kBN][kPitch];
-  __shared__ __align__(16) bf16 Ws[kBN][kPitch];
-
+// da, db and h for rows m0 .. m0 + 127 and columns n0 .. n0 + 63 of
+// expert e = blockIdx.z, through the maps of x and dy (d, C, E), wg and wu
+// (f, d, E) and wd (d, f, E).
+__global__ void __launch_bounds__(kThreads, 1)
+moe_bwd_hidden_wgmma(const __grid_constant__ CUtensorMap tx,
+                     const __grid_constant__ CUtensorMap tdy,
+                     const __grid_constant__ CUtensorMap tg,
+                     const __grid_constant__ CUtensorMap tu,
+                     const __grid_constant__ CUtensorMap tw,
+                     bf16* __restrict__ da, bf16* __restrict__ db,
+                     bf16* __restrict__ h, int C, int d, int f) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(align_1k(smem_raw));
   const int e = blockIdx.z;
-  const int c0 = blockIdx.x * kBM, f0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const bf16* xe = x + (long long)e * C * d;
-  const bf16* ye = dy + (long long)e * C * d;
-  const bf16* ge = wg + (long long)e * d * f;
-  const bf16* ue = wu + (long long)e * d * f;
-  const bf16* we = wd + (long long)e * f * d;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int n_k = (d + kBK - 1) / kBK;
 
-  float acc[3][2][4][4];   // (a, b, dh) x m16 tile x n8 tile x fragment
-#pragma unroll
-  for (int q = 0; q < 3; ++q)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[q][i][j][r] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += kBK) {
-    // x and dy: 128 rows x 4 chunks of 8; 2 chunks a thread each
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int i = tid + 256 * it;
-      const int r = i >> 2, c8 = (i & 3) * 8;
-      const bool ok = c0 + r < C && k0 + c8 < d;
-      const long long off = (long long)(c0 + r) * d + k0 + c8;
-      *reinterpret_cast<uint4*>(&Xs[r][c8]) =
-          ok ? *reinterpret_cast<const uint4*>(xe + off) : zero;
-      *reinterpret_cast<uint4*>(&Ys[r][c8]) =
-          ok ? *reinterpret_cast<const uint4*>(ye + off) : zero;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 2 * 128);
     }
-    {  // wd: 64 rows of f x 4 chunks of d
-      const int r = tid >> 2, c8 = (tid & 3) * 8;
-      const bool ok = f0 + r < f && k0 + c8 < d;
-      *reinterpret_cast<uint4*>(&Ws[r][c8]) =
-          ok ? *reinterpret_cast<const uint4*>(
-                   we + (long long)(f0 + r) * d + k0 + c8)
-             : zero;
-    }
-    {  // wg, wu: 32 rows of d x 8 chunks of f, stored transposed; a warp
-       // takes 32 consecutive rows of one chunk, so its 2-byte stores fill
-       // one row of Gt and Ut without a bank conflict
-      const int kr = tid & 31, n8 = (tid >> 5) * 8;
-      const bool ok = k0 + kr < d && f0 + n8 < f;
-      const long long off = (long long)(k0 + kr) * f + f0 + n8;
-      uint4 gv = ok ? *reinterpret_cast<const uint4*>(ge + off) : zero;
-      uint4 uv = ok ? *reinterpret_cast<const uint4*>(ue + off) : zero;
-      const bf16* gp = reinterpret_cast<const bf16*>(&gv);
-      const bf16* up = reinterpret_cast<const bf16*>(&uv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        Gt[n8 + j][kr] = gp[j];
-        Ut[n8 + j][kr] = up[j];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      uint32_t ax[2][4], ay[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm + 16 * i + g;
-        ax[i][0] = ld32(&Xs[r][ks + 2 * t]);
-        ax[i][1] = ld32(&Xs[r + 8][ks + 2 * t]);
-        ax[i][2] = ld32(&Xs[r][ks + 2 * t + 8]);
-        ax[i][3] = ld32(&Xs[r + 8][ks + 2 * t + 8]);
-        ay[i][0] = ld32(&Ys[r][ks + 2 * t]);
-        ay[i][1] = ld32(&Ys[r + 8][ks + 2 * t]);
-        ay[i][2] = ld32(&Ys[r][ks + 2 * t + 8]);
-        ay[i][3] = ld32(&Ys[r + 8][ks + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn + 8 * j + g;
-        const uint32_t g0 = ld32(&Gt[n][ks + 2 * t]);
-        const uint32_t g1 = ld32(&Gt[n][ks + 2 * t + 8]);
-        const uint32_t u0 = ld32(&Ut[n][ks + 2 * t]);
-        const uint32_t u1 = ld32(&Ut[n][ks + 2 * t + 8]);
-        const uint32_t w0 = ld32(&Ws[n][ks + 2 * t]);
-        const uint32_t w1 = ld32(&Ws[n][ks + 2 * t + 8]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma(acc[0][i][j], ax[i], g0, g1);
-          mma(acc[1][i][j], ax[i], u0, u1);
-          mma(acc[2][i][j], ay[i], w0, w1);
-        }
-      }
-    }
-    __syncthreads();
+    mbar_fence_init();
   }
+  __syncthreads();
 
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {  // producer
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      const uint32_t bytes = 2u * (2 * kTileA + 3 * kPanel);
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(&sm.empty[s], ((kt / kStages) - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[s], bytes);
+        tma_load_3d(sm.x[s], &tx, &sm.full[s], kt * kBK, m0, e);
+        tma_load_3d(sm.dy[s], &tdy, &sm.full[s], kt * kBK, m0, e);
+        tma_load_3d(sm.g[s], &tg, &sm.full[s], n0, kt * kBK, e);
+        tma_load_3d(sm.u[s], &tu, &sm.full[s], n0, kt * kBK, e);
+        tma_load_3d(sm.w[s], &tw, &sm.full[s], kt * kBK, n0, e);
+      }
+    }
+  } else {  // consumers: warpgroup c owns rows m0 + 64c .. + 63
+    regs_alloc<240>();
+    const int c = wgi - 1;
+    const int tid = threadIdx.x - 128 * wgi;
+    const int lane = tid & 31;
+    float acc_a[kBN / 2], acc_b[kBN / 2], acc_h[kBN / 2];   // a, b, dh
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < kBN / 2; ++i) acc_a[i] = acc_b[i] = acc_h[i] = 0.f;
+
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(&sm.full[s], (kt / kStages) & 1);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // K-major: a k16 step is 32 bytes along the row; MN-major: 16 rows
+        const uint64_t dx =
+            desc_sw128(&sm.x[s][64 * c * kBK + kk * 16], 16, 1024);
+        const uint64_t ddy =
+            desc_sw128(&sm.dy[s][64 * c * kBK + kk * 16], 16, 1024);
+        const uint64_t dg =
+            desc_sw128(&sm.g[s][kk * 16 * 64], kPanel * 2, 1024);
+        const uint64_t du =
+            desc_sw128(&sm.u[s][kk * 16 * 64], kPanel * 2, 1024);
+        const uint64_t dw = desc_sw128(&sm.w[s][kk * 16], 16, 1024);
+        wgmma_m64n64k16_ss<1>(acc_a, dx, dg, 1);
+        wgmma_m64n64k16_ss<1>(acc_b, dx, du, 1);
+        wgmma_m64n64k16_ss<0>(acc_h, ddy, dw, 1);
+      }
+      wgmma_commit();
+      // the previous stage's products are done: hand its buffers back
+      wgmma_wait<1>();
+      if (kt > 0) mbar_arrive(&sm.empty[(kt - 1) % kStages]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc_a);
+    fence_regs(acc_b);
+    fence_regs(acc_h);
+
+    const int row0 = m0 + 64 * c + 16 * (tid >> 5) + (lane >> 2);
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = c0 + wm + 16 * i + g + 8 * hh;
-        const int col = f0 + wn + 8 * j + 2 * t;
-        if (r >= C || col >= f) continue;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      if (row >= C) continue;
+      const long long base = ((long long)e * C + row) * f;
+#pragma unroll
+      for (int i = 0; i < kBN / 8; ++i) {
+        const int col = n0 + 8 * i + 2 * (lane & 3);
+        if (col >= f) continue;
         float hv[2], dav[2], dbv[2];
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
-          const float a = acc[0][i][j][2 * hh + q];
-          const float bv = acc[1][i][j][2 * hh + q];
-          const float dh = acc[2][i][j][2 * hh + q];
+          const float a = acc_a[4 * i + 2 * hh + q];
+          const float bv = acc_b[4 * i + 2 * hh + q];
+          const float dh = acc_h[4 * i + 2 * hh + q];
           const float ex = expf(-a);
           const float sig = 1.f / (1.f + ex);
-          const float s = a / (1.f + ex);
-          hv[q] = s * bv;
+          const float sa = a / (1.f + ex);   // silu(a), as the forward has it
+          hv[q] = sa * bv;
           dav[q] = dh * bv * (sig * (1.f + a * (1.f - sig)));
-          dbv[q] = dh * s;
+          dbv[q] = dh * sa;
         }
-        const long long idx = ((long long)e * C + r) * f + col;
-        *reinterpret_cast<__nv_bfloat162*>(h + idx) =
+        *reinterpret_cast<__nv_bfloat162*>(h + base + col) =
             __floats2bfloat162_rn(hv[0], hv[1]);
-        *reinterpret_cast<__nv_bfloat162*>(da + idx) =
+        *reinterpret_cast<__nv_bfloat162*>(da + base + col) =
             __floats2bfloat162_rn(dav[0], dav[1]);
-        *reinterpret_cast<__nv_bfloat162*>(db + idx) =
+        *reinterpret_cast<__nv_bfloat162*>(db + base + col) =
             __floats2bfloat162_rn(dbv[0], dbv[1]);
       }
+    }
+  }
 }
 
 int launch(const void* x, const void* wg, const void* wu, const void* wd,
            const void* dy, void* da, void* db, void* h, int E, int C, int d,
            int f, void* stream) {
+  using hopper::map_3d_bf16;
   if (E <= 0 || C <= 0 || f <= 0) return 0;
   if (d <= 0 || d % 8 || f % 8 || E > 65535 || (f + kBN - 1) / kBN > 65535)
     return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tdy, tg, tu, tw;
+  int err = map_3d_bf16(&tx, x, E, C, d, kBM);
+  if (!err) err = map_3d_bf16(&tdy, dy, E, C, d, kBM);
+  if (!err) err = map_3d_bf16(&tg, wg, E, d, f, kBK);
+  if (!err) err = map_3d_bf16(&tu, wu, E, d, f, kBK);
+  if (!err) err = map_3d_bf16(&tw, wd, E, f, d, kBN);
+  if (err) return err;
+  const int smem = (int)sizeof(Smem) + 1024;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      moe_bwd_hidden_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((C + kBM - 1) / kBM, (f + kBN - 1) / kBN, E);
-  moe_bwd_hidden_mma<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
-      static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
-      static_cast<const bf16*>(dy), static_cast<bf16*>(da),
-      static_cast<bf16*>(db), static_cast<bf16*>(h), C, d, f);
+  moe_bwd_hidden_wgmma<<<grid, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      tx, tdy, tg, tu, tw, static_cast<bf16*>(da), static_cast<bf16*>(db),
+      static_cast<bf16*>(h), C, d, f);
   return (int)cudaGetLastError();
 }
 
-}  // namespace tc
+}  // namespace warpgroup
 
 }  // namespace
 
-// The "mma" variant: bf16, d % 8 == 0, f % 8 == 0, every pointer 16-byte
-// aligned; otherwise as below.
-extern "C" int moe_gemm_bwd_launch_bf16_mma(const void* x, const void* wg,
-                                            const void* wu, const void* wd,
-                                            const void* dy, void* da,
-                                            void* db, void* h, int E, int C,
-                                            int d, int f, void* stream) {
-  return tc::launch(x, wg, wu, wd, dy, da, db, h, E, C, d, f, stream);
+// The "wgmma" variant: bf16, d % 8 == 0, f % 8 == 0, every pointer
+// 16-byte aligned; otherwise as below.
+extern "C" int moe_gemm_bwd_launch_bf16_wgmma(const void* x, const void* wg,
+                                              const void* wu, const void* wd,
+                                              const void* dy, void* da,
+                                              void* db, void* h, int E,
+                                              int C, int d, int f,
+                                              void* stream) {
+  return warpgroup::launch(x, wg, wu, wd, dy, da, db, h, E, C, d, f, stream);
 }
 
 // x, dy (E, C, d); wg, wu (E, d, f); wd (E, f, d); da, db, h (E, C, f); all

@@ -21,7 +21,7 @@ BWD_SOURCE = SOURCE.with_name("moe_gemm_bwd.cu")
 # (dtype, variant) -> the backward's launcher; ops.route_bwd picks it
 _BWD_SYMBOLS = {(torch.float32, "simt"): "moe_gemm_bwd_launch_f32",
                 (torch.bfloat16, "simt"): "moe_gemm_bwd_launch_bf16",
-                (torch.bfloat16, "mma"): "moe_gemm_bwd_launch_bf16_mma"}
+                (torch.bfloat16, "wgmma"): "moe_gemm_bwd_launch_bf16_wgmma"}
 # (dtype, variant) -> the exported launcher; ops.route picks the variant
 _SYMBOLS = {(torch.float32, "simt"): "moe_gemm_launch_f32",
             (torch.bfloat16, "simt"): "moe_gemm_launch_bf16",

@@ -15,10 +15,10 @@ Training goes through :class:`MoeGemm`, a ``torch.autograd.Function``
 (:func:`moe_gemm_ad` applies it when an input needs a gradient): its
 forward is :func:`moe_gemm`, its backward :func:`moe_gemm_bwd_k`, which on
 the card launches ``csrc/moe_gemm_bwd.cu`` (counted in
-:data:`bwd_launches` and, by the variant :func:`route_bwd` picks, "mma"
-or "simt", in :data:`bwd_launches_by_variant`) for da, db and h and
-leaves the four weight-sized
-products to ``torch.bmm``, and on the CPU runs :func:`moe_gemm_bwd_ref`.
+:data:`bwd_launches` and, by the variant :func:`route_bwd` picks, "wgmma"
+or "simt", in :data:`bwd_launches_by_variant`) for da, db and h and leaves
+the four weight-sized products to ``torch.bmm``, and on the CPU runs
+:func:`moe_gemm_bwd_ref`.
 Both are looked up when the Function runs, so a caller that swaps them
 for their plain versions swaps the training path too.
 """
@@ -31,7 +31,7 @@ from repro_torch.kernels.moe_gemm.ref import moe_gemm_bwd_ref, moe_gemm_ref
 launches = 0    # kernel launches since the count was last set to 0
 VARIANTS = ("wgmma", "stream", "simt")
 launches_by_variant = dict.fromkeys(VARIANTS, 0)   # the same, by variant
-BWD_VARIANTS = ("mma", "simt")
+BWD_VARIANTS = ("wgmma", "simt")
 bwd_launches = 0    # backward kernel launches, counted the same way
 bwd_launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -56,11 +56,11 @@ def route(dtype: torch.dtype, C: int, d: int, f: int, ptrs=()) -> str:
 def route_bwd(dtype: torch.dtype, d: int, f: int, ptrs=()) -> str:
     """The backward kernel's variant, from dtype, shape and data pointers
     alone: bf16 with ``d`` and ``f`` positive multiples of 8 and every
-    pointer 16-byte aligned is "mma" (the tensor cores); everything else,
-    float32 above all, is "simt"."""
+    pointer 16-byte aligned is "wgmma" (the tensor cores, TMA-fed);
+    everything else, float32 above all, is "simt"."""
     if (dtype == torch.bfloat16 and d > 0 and d % 8 == 0 and f % 8 == 0
             and all(p % 16 == 0 for p in ptrs)):
-        return "mma"
+        return "wgmma"
     return "simt"
 
 

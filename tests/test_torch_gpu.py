@@ -445,12 +445,16 @@ def _bwd_held(got, want, tol):
     (1, 333, 333, 8, 2, 128, True, 0),    # ragged causal tiles
     (1, 300, 500, 4, 4, 128, True, 200),  # q_offset past a tile
     (2, 100, 100, 6, 3, 40, True, 0),     # D % 16 != 0: "simt" in bf16
+    (1, 129, 129, 4, 2, 64, True, 0),     # one row past a 128-row CTA
+    (1, 255, 257, 32, 8, 80, True, 2),    # GQA 32/8, D = 80: two panels
+    (2, 257, 255, 4, 4, 16, False, 0),    # D = 16: one padded panel
+    (1, 200, 400, 4, 2, 64, True, 130),   # q_offset past a key tile
 ])
 def test_flash_bwd_kernels_match_plain_on_card(cuda, B, Sq, Skv, H, Hk, D,
                                                causal, q_offset, dtype):
     """The forward's lse against the plain forward's, then the three
-    backward kernels (one launch each; dkdv and dq through "mma" in bf16
-    with D % 16 == 0, else "simt") against the plain backward on the same
+    backward kernels (one launch each; dkdv and dq through "wgmma" in
+    bf16 with D % 16 == 0, else "simt") against the plain backward on the same
     inputs, and bit for bit against a second call."""
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in
@@ -462,7 +466,7 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, B, Sq, Skv, H, Hk, D,
     _, lse_plain = flash_ops.flash_attention_plain(q, k, v, causal, q_offset,
                                                    return_lse=True)
     assert (lse - lse_plain).abs().max() <= 1e-4 * lse_plain.abs().max()
-    variant = "mma" if dtype == "bfloat16" and D % 16 == 0 else "simt"
+    variant = "wgmma" if dtype == "bfloat16" and D % 16 == 0 else "simt"
     before = dict(flash_ops.bwd_launches)
     before_v = dict(flash_ops.bwd_launches_by_variant)
     got = flash_ops.flash_attention_bwd_k(q, k, v, o, lse, do, causal,
@@ -483,17 +487,19 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, B, Sq, Skv, H, Hk, D,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("E,C,d,f", MOE_SWEEP + [(5, 37, 48, 40),
                                                  (3, 130, 72, 136),
-                                                 (3, 37, 36, 20)])
+                                                 (3, 37, 36, 20),
+                                                 (1, 129, 64, 72),
+                                                 (2, 257, 200, 136)])
 def test_moe_gemm_bwd_kernel_matches_plain_on_card(cuda, E, C, d, f, dtype):
     """moe_gemm's gradient through the backward kernel (one launch; bf16
-    with d and f multiples of 8 through "mma", the rest through "simt")
+    with d and f multiples of 8 through "wgmma", the rest through "simt")
     and the four ``bmm`` against the plain backward, bit for bit twice."""
     dt = getattr(torch, dtype)
     x, wg, wu, wd = (torch.from_numpy(a).to(cuda, dt)
                      for a in moe_inputs(E, C, d, f, seed=C))
     dy = torch.randn((E, C, d), generator=torch.Generator().manual_seed(
         f)).to(cuda, dt)
-    variant = ("mma" if dtype == "bfloat16" and d % 8 == 0 and f % 8 == 0
+    variant = ("wgmma" if dtype == "bfloat16" and d % 8 == 0 and f % 8 == 0
                else "simt")
     before = dict(moe_ops.bwd_launches_by_variant)
     got = moe_ops.moe_gemm_bwd_k(x, wg, wu, wd, dy)

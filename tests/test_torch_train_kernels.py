@@ -179,8 +179,8 @@ def test_moe_bwd_k_rejects_bad_dy():
 
 def test_moe_bwd_route():
     """The backward's variant from dtype, shape and alignment alone."""
-    assert moe.route_bwd(torch.bfloat16, 2048, 1024) == "mma"
-    assert moe.route_bwd(torch.bfloat16, 2048, 1024, (0, 16, 32)) == "mma"
+    assert moe.route_bwd(torch.bfloat16, 2048, 1024) == "wgmma"
+    assert moe.route_bwd(torch.bfloat16, 2048, 1024, (0, 16, 32)) == "wgmma"
     assert moe.route_bwd(torch.bfloat16, 2048, 1024, (0, 8)) == "simt"
     assert moe.route_bwd(torch.bfloat16, 36, 1024) == "simt"
     assert moe.route_bwd(torch.bfloat16, 2048, 20) == "simt"
@@ -191,8 +191,8 @@ def test_moe_bwd_route():
 def test_flash_bwd_route():
     """The dkdv and dq kernels' variant from dtype, head width and
     alignment alone."""
-    assert flash.route_bwd(torch.bfloat16, 128) == "mma"
-    assert flash.route_bwd(torch.bfloat16, 64, (0, 32)) == "mma"
+    assert flash.route_bwd(torch.bfloat16, 128) == "wgmma"
+    assert flash.route_bwd(torch.bfloat16, 64, (0, 32)) == "wgmma"
     assert flash.route_bwd(torch.bfloat16, 64, (0, 8)) == "simt"
     assert flash.route_bwd(torch.bfloat16, 40) == "simt"
     assert flash.route_bwd(torch.bfloat16, 192) == "simt"
