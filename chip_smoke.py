@@ -7,7 +7,8 @@ every phase holds:
               CUDA versions;
 2. build    — every CUDA kernel of the port (membership, intersect,
               varint_encode, varint_decode, flash_attn, moe_gemm,
-              segment_spmm, flash_attn_bwd, moe_gemm_bwd), compiled
+              segment_spmm, flash_attn_bwd, moe_gemm_bwd,
+              segment_spmm_bwd), compiled
               from the repository's sources (one ``nvcc`` per source, all
               started together); each library's ``HGMMA`` and ``UTMALDG``
               instructions counted (``cuobjdump -sass``), and flash_attn's
@@ -116,7 +117,37 @@ every phase holds:
               tokens/s, peak memory, launches by kernel and variant, and
               one step under ``torch.profiler`` split by kernel.
 
-``--lm-train-only`` runs phases 1, 2 and 12-14 and prints no result.
+15. gnn_train_kernels — the GNN training path's backward kernels
+              against their plain versions on the card: segment_spmm's
+              "sum_bwd" (a gather of the output gradient by destination)
+              bit for bit at the test sweep and edge cases, timed at the
+              products graph's D = 64 and GraphCast's Cora-sized bf16
+              shape; "gat_bwd" (the edge softmax's gradient) at 1e-4 (f32)
+              and 2e-2 (bf16) of max |plain| on a small graph with a hub,
+              masked, empty and all-masked rows at the test head shapes
+              and the forward kernel's limits in every dtype pair, then at
+              GAT's two products-sized layers and the Cora-sized graph,
+              timed beside two bounds and the plain backward; each call
+              made twice and bit-identical;
+16. gnn_train_parity — the four GNNs at full width on the Cora-sized
+              graph, one training step's loss and every parameter's
+              gradient: the kernel path against the plain path in float32
+              and in bfloat16, launches by variant, forward and backward;
+17. gnn_train — the training cell: GAT (``gat-cora``, bf16 weights, f32
+              AdamW moments) trained full-graph on the products-sized
+              graph, ``Trainer.run`` for 20 steps with a checkpoint every
+              10 and a fault injected at step 15, then an uninterrupted
+              run from the same seed: the losses after the restore equal
+              bit for bit, the loss falls; step ms p50/p90, nodes/s, peak
+              memory, launches by variant, one step under
+              ``torch.profiler`` split by kernel; GraphCast at full width
+              for 3 steps on the Cora-sized graph; then GAT fed by
+              ``gnn_epoch_stream`` at ``minibatch_lg``'s capacities on a
+              seeded graph of its size for 4 steps, the sampler's host ms
+              beside each step's.
+
+``--lm-train-only`` runs phases 1, 2 and 12-14 and prints no result;
+``--gnn-train-only`` runs phases 1, 2 and 15-17 and prints no result.
 Each phase prints one JSON line.  Then come the kernels line, the
 ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -209,6 +240,11 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULT_AT = 20, 10, 15
 # |difference| over the largest |plain| (f32: sums in another order; bf16:
 # the inputs and outputs rounded, sums in f32)
 TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# GNN training (phases 15-17): GAT on the products-sized graph, full graph
+# a step, nothing cut; the sampled run takes a few steps at minibatch_lg's
+# capacities on a seeded graph of its size
+GNN_TRAIN_STEPS, GNN_TRAIN_CKPT_EVERY, GNN_TRAIN_FAULT_AT = 20, 10, 15
+SAMPLED_STEPS = 4
 DEVICE = "cuda"
 SASS_OPS = ("HGMMA", "UTMALDG")   # counted in each library's SASS
 TIMING_KEYS = {"compiles", "compile_s", "compile_cache_hits", "wave_s_total",
@@ -276,7 +312,7 @@ def phase_build():
     sources = [memb_kernel.SOURCE, inter_kernel.SOURCE,
                *varint_kernel.SOURCES, flash_kernel.SOURCE, moe_kernel.SOURCE,
                spmm_kernel.SOURCE, flash_kernel.BWD_SOURCE,
-               moe_kernel.BWD_SOURCE]
+               moe_kernel.BWD_SOURCE, spmm_kernel.BWD_SOURCE]
     t0 = time.perf_counter()
     took = build.build(sources)
     wall = time.perf_counter() - t0
@@ -1416,8 +1452,9 @@ def _plain_kernels(active: bool):
     """While active, the kernel wrappers the models call (flash_attn,
     moe_gemm, segment_spmm and gat_aggregate) are swapped for their plain
     versions, so the models run the port's plain path on the card; the
-    training path's backward wrappers too.  Only the parity checks of
-    phases 7, 10 and 13 turn it on."""
+    training path's backward wrappers too, and the GNNs' differentiable
+    entries for autograd through the plain versions.  Only the parity
+    checks of phases 7, 10, 13 and 16 turn it on."""
     from repro_torch.kernels.flash_attn import ops as flash
     from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_ref
     from repro_torch.kernels.moe_gemm import ops as moe
@@ -1428,18 +1465,24 @@ def _plain_kernels(active: bool):
         return
     saved = (flash.flash_attention_k, flash.flash_attention_bwd_k,
              moe.moe_gemm, moe.moe_gemm_bwd_k, spmm.segment_spmm,
-             spmm.gat_aggregate)
+             spmm.gat_aggregate, spmm.segment_spmm_ad, spmm.gat_aggregate_ad)
     flash.flash_attention_k = flash.flash_attention_plain
     flash.flash_attention_bwd_k = flash_attention_bwd_ref
     moe.moe_gemm = moe_gemm_ref
     moe.moe_gemm_bwd_k = moe_gemm_bwd_ref
     spmm.segment_spmm = spmm.segment_spmm_plain
     spmm.gat_aggregate = spmm.gat_aggregate_plain
+    # the GNN training entries: autograd through the plain versions
+    spmm.segment_spmm_ad = spmm.segment_spmm_plain
+    spmm.gat_aggregate_ad = (
+        lambda hw, s_src, s_dst, plan, mask, acc, plan_by_src:
+        spmm.gat_aggregate_plain(hw, s_src, s_dst, plan, mask, acc))
     try:
         yield
     finally:
         (flash.flash_attention_k, flash.flash_attention_bwd_k, moe.moe_gemm,
-         moe.moe_gemm_bwd_k, spmm.segment_spmm, spmm.gat_aggregate) = saved
+         moe.moe_gemm_bwd_k, spmm.segment_spmm, spmm.gat_aggregate,
+         spmm.segment_spmm_ad, spmm.gat_aggregate_ad) = saved
 
 
 def _lm_launches() -> dict:
@@ -2873,41 +2916,49 @@ def _bwd_row(row: dict, kernel: str) -> dict:
                 library_ms=None if delta else row["library_ms"])
 
 
-def _profile_train_step(tr, batch, top: int = 10) -> dict:
+def _profile_train_step(tr, batch, top: int = 10,
+                        parts: tuple = _STEP_SPLIT) -> dict:
     """One ``Trainer.train_step`` under ``torch.profiler``: the card's busy
     time (its kernels' device time; the trainer's ranges, which the
     profiler also puts on the device's timeline, are not kernels) and idle
-    share, and the device time split into flash_attn's and moe_gemm's
-    forward and backward kernels, the library's matrix products
-    (projections, head, the expert backward's ``bmm``), the optimizer (the
-    kernels inside the trainer's "trainer.adamw" range) and the rest,
-    whose top kernels are listed."""
+    share, and the device time split by ``parts`` (by default flash_attn's
+    and moe_gemm's forward and backward kernels and the library's matrix
+    products: projections, head, the expert backward's ``bmm``), the
+    optimizer (the kernels inside the trainer's "trainer.adamw" range) and
+    the rest, whose top kernels are listed.  A first step runs under the
+    profiler unrecorded (its warm-up): after the earlier phases' profiles,
+    a profile's first kernels can go missing from its trace."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         tr.train_step(batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        prof.step()
     events = [e for e in prof.events()
               if getattr(e, "device_type", None) == DeviceType.CUDA]
     ranges = [(e.time_range.start, e.time_range.end) for e in events
               if e.name == "trainer.adamw"]
-    split = {part: 0.0 for part, _ in _STEP_SPLIT}
+    split = {part: 0.0 for part, _ in parts}
     split.update(optimizer=0.0, other=0.0)
     other, busy = {}, 0.0
     for e in events:
-        if e.name.startswith("trainer."):
+        if e.name.startswith(("trainer.", "ProfilerStep")):   # ranges
             continue
         ms = e.time_range.elapsed_us() / 1e3
         busy += ms
         if any(a <= e.time_range.start < b for a, b in ranges):
             part = "optimizer"
         else:
-            part = next((p for p, keys in _STEP_SPLIT
+            part = next((p for p, keys in parts
                          if any(k in e.name for k in keys)), "other")
         split[part] += ms
         if part == "other":
@@ -3066,6 +3117,620 @@ def phase_lm_train():
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phases 15-17: GNN training
+# --------------------------------------------------------------------------- #
+def _gnn_train_launches() -> dict:
+    """segment_spmm's launches by variant, forward and backward."""
+    from repro_torch.kernels.segment_spmm import ops
+    return {**{k: n for k, n in ops.launches_by_variant.items()},
+            **{k: n for k, n in ops.bwd_launches_by_variant.items()}}
+
+
+def _zero_gnn_train_launches() -> None:
+    from repro_torch.kernels.segment_spmm import ops
+    _zero_gnn_launches()
+    ops.bwd_launches_by_variant = dict.fromkeys(ops.BWD_VARIANTS, 0)
+
+
+def _gnn_train_want(cfg, steps: int = 1) -> dict:
+    """What ``_gnn_train_launches`` must read after ``steps`` training
+    steps: the forward's launches, and one backward launch for each sum
+    whose messages need a gradient (PNA: the mean's and the std's, not
+    the mask counts or the degree)."""
+    fwd = _gnn_launches(cfg)
+    L = cfg.n_layers
+    bwd = ({"sum_bwd": 0, "gat_bwd": L} if cfg.kind == "gat" else
+           {"sum_bwd": {"graphcast": L, "schnet": L, "pna": 2 * L}[cfg.kind],
+            "gat_bwd": 0})
+    return {k: n * steps for k, n in {**fwd, **bwd}.items()}
+
+
+def _sum_bwd_bound_ms(E: int, n: int, D: int, in_size: int,
+                      out_size: int) -> tuple[float, str]:
+    """dout read once, the plan's perm and row spans read once, each
+    edge's row written once; one conversion a value."""
+    nbytes = n * D * out_size + 4 * E + 16 * n + E * D * in_size
+    return _bound(nbytes, E * D, "float32")
+
+
+def _gat_bwd_bounds(E: int, n: int, H: int, dout: int, in_size: int,
+                    acc_size: int) -> dict:
+    """Two byte bounds of one ``gat_aggregate_bwd``.  Each input once: hw,
+    s_src, s_dst, dout, the plan's sources and destinations (4 bytes
+    each) and live bytes and its row pointers, read once, the three
+    gradients written once.  Gather once: per edge the hw and s_src rows
+    of its source and the dout row of its destination (rounded to hw's
+    type first where the two differ: dout read once and written once at
+    that width), each once, and its ids and live byte; per node s_dst, both plans' row
+    spans and the gradients.  Operations: per edge and head the score's
+    add and product, the shift, the exp, the weight's division and the
+    gradient's few, and per value dalpha's and dhw's product and add; at
+    the f32 rate."""
+    flops = E * H * (12 + 4 * dout)
+    grads = (n * H * dout + 2 * n * H) * in_size
+    once = ((n * H * dout + 2 * n * H) * in_size + n * H * dout * acc_size
+            + 9 * E + 4 * (n + 1) + grads)
+    cast = n * H * dout * (acc_size + in_size) if acc_size != in_size else 0
+    gather = (E * (2 * H * dout * in_size + H * in_size + 9)
+              + n * (H * in_size + 32) + cast + grads)
+    (once_ms, by), (gather_ms, _) = (_bound(once, flops, "float32"),
+                                     _bound(gather, flops, "float32"))
+    return dict(bound_ms=once_ms, bound_by=by, gather_once_bound_ms=gather_ms)
+
+
+def _gat_bwd_case(name, src, dst, mask, n, H, dout, dt, acc, gen,
+                  timed=False, zero_rows=(), zero_scores=False):
+    """``gat_aggregate_bwd`` against ``gat_aggregate_bwd_plain`` on the
+    card, on seeded random hw, s_src, s_dst and output gradient: two
+    calls bit-identical; each gradient within TRAIN_TOL (1e-4 when dt and
+    acc are f32, else 2e-2) of its largest plain value; the ``zero_rows``
+    (no live in-edge) get no ds_dst.  ``zero_scores``: ``s_dst =
+    -s_src``, so every self-loop's pre-activation is exactly 0, where
+    leaky_relu's slope is 1.  Timed: beside both bounds and the plain
+    backward."""
+    import torch
+    from repro_torch.kernels.segment_spmm import ops
+    dev = torch.device(DEVICE)
+    plan = ops.segment_plan(dst, n, src=src, mask=mask)
+    by_src = ops.source_plan(plan)
+    hw = torch.randn((n, H, dout), generator=gen, device=dev).to(dt)
+    s_src = torch.randn((n, H), generator=gen, device=dev).to(dt)
+    s_dst = torch.randn((n, H), generator=gen, device=dev).to(dt)
+    if zero_scores:
+        s_dst = -s_src
+    g = torch.randn((n, H, dout), generator=gen, device=dev).to(acc)
+    args = (hw, s_src, s_dst, plan, mask, acc, g)
+    got = ops.gat_aggregate_bwd(*args, by_src)
+    again = ops.gat_aggregate_bwd(*args, by_src)
+    want = ops.gat_aggregate_bwd_plain(*args)
+    torch.cuda.synchronize()
+    key = "float32" if dt == acc == torch.float32 else "bfloat16"
+    tol = TRAIN_TOL[key]
+    names = ("dhw", "ds_src", "ds_dst")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"gat_bwd {name}: two calls differ")
+    ratio = {k: _grad_ratio(a, b, tol) for k, a, b in zip(names, got, want)}
+    E = dst.shape[0]
+    row = dict(kernel="segment_spmm", variant="gat_bwd", shape=name, E=E,
+               n=n, H=H, dout=dout, dtype=str(dt).split(".")[-1],
+               acc_dtype=str(acc).split(".")[-1], hub_rows=plan.n_heavy,
+               source_hub_rows=by_src.n_heavy,
+               max_in_degree=int((plan.rowptr[1:] - plan.rowptr[:-1]).max()),
+               max_abs_err=max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(got, want)),
+               ratio=ratio, tol=tol, check="max |diff| / max |plain|")
+    check(max(ratio.values()) <= 1
+          and all(bool(torch.isfinite(a).all()) for a in got),
+          f"gat_bwd {name} disagrees with its plain version: {row}")
+    for v in zero_rows:
+        check(not bool(got[2][v].any()),
+              f"gat_bwd {name}: row {v} (no live edge) has ds_dst")
+    if timed:
+        row["kernel_ms"] = cuda_ms(
+            lambda: ops.gat_aggregate_bwd(*args, by_src), iters=10)
+        row["plain_ms"] = cuda_ms(
+            lambda: ops.gat_aggregate_bwd_plain(*args), warmup=1, iters=2)
+        row["library_ms"] = None
+        row.update(_gat_bwd_bounds(E, n, H, dout, hw.element_size(),
+                                   g.element_size()))
+    del hw, s_src, s_dst, g, got, again, want, plan, by_src, args
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_gnn_train_kernels(products: dict):
+    """The GNN training path's backward kernels against their plain
+    versions on the card.  "sum_bwd" (``segment_spmm_bwd``), a gather and
+    a cast, bit for bit against ``segment_spmm_bwd_plain`` at the test
+    sweep and edge cases (a hub row among them) for f32, bf16-into-f32
+    and bf16 sums; then timed at the products graph's D = 64 (f32) and at
+    GraphCast's Cora-sized bf16 shape, which the training cell runs,
+    beside the bound, the plain version and ``dout.index_select(0,
+    dst)``.  "gat_bwd" (``gat_aggregate_bwd``) against
+    ``gat_aggregate_bwd_plain`` (1e-4 of max |plain| in f32, 2e-2 with
+    bf16 anywhere) on a small graph with a hub, masked slots, an empty and
+    an all-masked row, at the test head shapes in every dtype pair and at
+    the forward kernel's shape limits, and with self-loops whose scores
+    are exactly 0, then at GAT's two layers on the products-sized graph
+    (the training cell's shapes, each timed, and layer 1 in f32) and on
+    the Cora-sized graph; each call made twice and bit-identical.
+    Returns the timed rows."""
+    import torch
+    from repro_torch.kernels.segment_spmm import ops
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    t_phase = time.perf_counter()
+    f32, b16 = torch.float32, torch.bfloat16
+    pairs = {"f32": (f32, f32), "bf16_msgs": (b16, f32), "bf16": (b16, b16)}
+
+    cases = []
+    for E, N, D in [(300, 50, 8), (1000, 128, 32), (64, 7, 4)]:
+        rng = np.random.default_rng(E + N)              # the test sweep
+        dst = rng.integers(0, N, E).astype(np.int32)
+        cases.append((f"sweep_{E}x{N}x{D}", torch.as_tensor(dst, device=dev),
+                      N, D))
+    for name, E, n, D in (("d1", 2000, 300, 1), ("d75", 5000, 400, 75),
+                          ("no_edges", 0, 5, 8), ("masked", 3000, 500, 8)):
+        cases.append((name, torch.randint(0, n, (E,), generator=gen,
+                                          device=dev, dtype=torch.int32),
+                      n, D))
+    cases.append(("empty_rows", 2 * torch.randint(
+        0, 300, (1000,), generator=gen, device=dev, dtype=torch.int32),
+        600, 16))
+    cases.append(("one_node", torch.full((1000,), 3, device=dev,
+                                         dtype=torch.int32), 10, 16))
+    cases.append(("hub", torch.randint(0, 400, (5000,), generator=gen,
+                                       device=dev, dtype=torch.int32)
+                  * (torch.rand((5000,), generator=gen, device=dev) > 0.2),
+                  400, 64))
+    for pair, (m_dt, o_dt) in pairs.items():
+        for name, dst, n, D in cases:
+            plan = ops.segment_plan(dst, n)
+            dout = torch.randn((n, D), generator=gen, device=dev).to(o_dt)
+            got = ops.segment_spmm_bwd(dout, dst, n, plan, m_dt)
+            again = ops.segment_spmm_bwd(dout, dst, n, plan, m_dt)
+            want = ops.segment_spmm_bwd_plain(dout, dst, m_dt)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want) and got.dtype == m_dt,
+                  f"sum_bwd {name} {pair}: differs from its plain version "
+                  f"(max abs err {float((got.float() - want.float()).abs().max()) if got.numel() else 0.0})")
+            check(torch.equal(got, again), f"sum_bwd {name} {pair}: two "
+                                           f"calls differ")
+    emit(phase="gnn_train_kernels", kernel="segment_spmm", variant="sum_bwd",
+         cases=[c[0] for c in cases], dtypes=list(pairs),
+         hub_degree=ops.HUB_DEGREE, check="bit-exact, two calls identical")
+
+    rows = {}
+    cora = cora_graph()
+    n_cora = cora["node_feats"].shape[0]
+    dst_p = torch.as_tensor(products["edge_dst"], device=dev)
+    n_p = _gnn_dims("ogb_products")["n_nodes"]
+    for name, dst, n, D, (m_dt, o_dt) in (
+            ("sum_bwd_products_d64", dst_p, n_p, 64, pairs["f32"]),
+            ("sum_bwd_graphcast_cora_d512_bf16",
+             torch.as_tensor(cora["edge_dst"], device=dev), n_cora, 512,
+             pairs["bf16"])):
+        plan = ops.segment_plan(dst, n)
+        E = dst.shape[0]
+        dout = torch.randn((n, D), generator=gen, device=dev).to(o_dt)
+        got = ops.segment_spmm_bwd(dout, dst, n, plan, m_dt)
+        want = ops.segment_spmm_bwd_plain(dout, dst, m_dt)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"{name}: differs from its plain "
+                                      f"version")
+        row = dict(kernel="segment_spmm", variant="sum_bwd", shape=name, E=E,
+                   n=n, D=D, dtype=str(m_dt).split(".")[-1],
+                   dout_dtype=str(o_dt).split(".")[-1], max_abs_err=0.0,
+                   check="bit-exact",
+                   kernel_ms=cuda_ms(lambda: ops.segment_spmm_bwd(
+                       dout, dst, n, plan, m_dt), iters=10),
+                   plain_ms=cuda_ms(lambda: ops.segment_spmm_bwd_plain(
+                       dout, dst, m_dt), iters=5),
+                   library="dout.index_select(0, dst)",
+                   library_ms=cuda_ms(lambda: dout.index_select(0, dst),
+                                      iters=5))
+        row["bound_ms"], row["bound_by"] = _sum_bwd_bound_ms(
+            E, n, D, got.element_size(), dout.element_size())
+        emit(phase="gnn_train_kernels", **row)
+        rows[name] = row
+        del plan, dout, got, want
+        torch.cuda.empty_cache()
+
+    # "gat_bwd": the small graph at the test head shapes and at the
+    # forward kernel's limits (bf16: 32 vectors of 8 values; f32: 32 of 4;
+    # 21 values a row, not a multiple of 16 bytes: one value a lane)
+    rng = np.random.default_rng(7)
+    small = [torch.as_tensor(x, device=dev)
+             for x in _gat_graph(rng, 300, 6000, hub=600)]
+    worst = {}
+    for H, dout_, dts in ((2, 4, None), (8, 8, None), (8, 7, None),
+                          (32, 8, (b16,)), (16, 8, (f32,)), (3, 7, None)):
+        for dt in dts or (f32, b16):
+            check(ops.gat_shape_fits(H, dout_, dt), f"{H}x{dout_} {dt}")
+            for acc in (f32, b16):
+                r = _gat_bwd_case(f"small_{H}x{dout_}", *small, 300, H, dout_,
+                                  dt, acc, gen, zero_rows=(7, 9))
+                worst[f"{H}x{dout_}/{r['dtype']}/{r['acc_dtype']}"] = max(
+                    r["ratio"].values())
+    # self-loops on every tenth slot, whose scores are exactly 0
+    loops = small[0].clone()
+    loops[::10] = small[1][::10]
+    for dt in (f32, b16):
+        for acc in (f32, b16):
+            r = _gat_bwd_case("small_8x8_zero_scores", loops, *small[1:], 300,
+                              8, 8, dt, acc, gen, zero_rows=(7, 9),
+                              zero_scores=True)
+            worst[f"8x8_zero_scores/{r['dtype']}/{r['acc_dtype']}"] = max(
+                r["ratio"].values())
+    emit(phase="gnn_train_kernels", kernel="segment_spmm", variant="gat_bwd",
+         shape="small (300 nodes, 6,600 slots, a 600-slot hub; also with "
+               "a self-loop every tenth slot and s_dst = -s_src)",
+         hub_degree=ops.HUB_DEGREE, tol=TRAIN_TOL, worst_ratio=worst)
+    del small, loops
+    src_p = torch.as_tensor(products["edge_src"], device=dev)
+    mask_p = torch.ones_like(dst_p, dtype=torch.bool)
+    cora_t = [torch.as_tensor(cora[k], device=dev)
+              for k in ("edge_src", "edge_dst", "edge_mask")]
+    for name, graph, n, H, dout_, dt, acc, timed in [
+            ("gat_bwd_products_l1", (src_p, dst_p, mask_p), n_p, 8, 8, b16,
+             f32, True),
+            ("gat_bwd_products_l2", (src_p, dst_p, mask_p), n_p, 8, 7, b16,
+             f32, True),
+            ("gat_bwd_products_l1_f32", (src_p, dst_p, mask_p), n_p, 8, 8,
+             f32, f32, True),
+            ("gat_bwd_cora_l1", cora_t, n_cora, 8, 8, b16, f32, True)]:
+        row = _gat_bwd_case(name, *graph, n, H, dout_, dt, acc, gen,
+                            timed=timed)
+        emit(phase="gnn_train_kernels", **row)
+        rows[name] = row
+    emit(phase="gnn_train_kernels", wall_s=time.perf_counter() - t_phase)
+    del src_p, dst_p, mask_p
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _gnn_labels(kind: str, cfg, feats: np.ndarray, rng) -> np.ndarray:
+    """Seeded labels of a model's kind: classes for GAT and PNA, the
+    largest of ``n_classes`` fixed random projections of each node's
+    features, which a model can learn; float targets for GraphCast (N,
+    n_vars) and SchNet (N,)."""
+    N = feats.shape[0]
+    if kind == "graphcast":
+        return rng.normal(size=(N, cfg.n_vars)).astype(np.float32)
+    if kind == "schnet":
+        return rng.normal(size=N).astype(np.float32)
+    proj = rng.normal(size=(feats.shape[1], cfg.n_classes))
+    return np.argmax(feats @ proj, axis=1).astype(np.int32)
+
+
+def phase_gnn_train_parity():
+    """The four GNNs at their full config widths on the Cora-sized graph,
+    in float32 and in bfloat16: one training step's loss and every
+    parameter's gradient (``GNNModel.loss``, ``torch.autograd.grad``
+    under the trainer's deterministic mode), the kernel path against the
+    plain path (``_plain_kernels``: autograd through the plain versions),
+    each held to a relative 1e-3 (f32) or 5e-2 (bf16) (a gradient: max
+    |diff| over max |plain| of its tensor); the kernel path's launches by
+    variant, forward and backward."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import graph_batch_from_arrays
+    from repro_torch.models import GNNModel, init_gnn
+    from repro_torch.runtime import deterministic
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    arrays = cora_graph()
+    d_feat = arrays["node_feats"].shape[1]
+    rng = np.random.default_rng(16)
+    arrays["label_mask"] = rng.random(len(arrays["node_feats"])) < 0.5
+    for dtype, tol in (("float32", 1e-3), ("bfloat16", 5e-2)):
+        res = {}
+        for arch in GNN_ARCHS:
+            cfg = dataclasses.replace(get_config(arch).model, dtype=dtype)
+            gb = graph_batch_from_arrays(dict(arrays, labels=_gnn_labels(
+                cfg.kind, cfg, arrays["node_feats"], rng)), device=dev)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(16)
+            model = GNNModel(cfg, init_gnn(gen, cfg, d_feat, cfg.n_classes,
+                                           device=dev)).requires_grad_(True)
+            params = dict(model.named_parameters())
+
+            def run(plain):
+                with _plain_kernels(plain), deterministic():
+                    _zero_gnn_train_launches()
+                    loss = model.loss(gb)
+                    grads = torch.autograd.grad(loss, list(params.values()))
+                    torch.cuda.synchronize()
+                    return loss.detach(), grads, _gnn_train_launches()
+
+            lp, gp, launches_plain = run(True)
+            lk, gk, launches = run(False)
+            want = _gnn_train_want(cfg)
+            check(launches == want, f"gnn_train_parity {arch} {dtype} "
+                                    f"launches {launches} != {want}")
+            check(not any(launches_plain.values()),
+                  f"gnn_train_parity {arch} {dtype} plain path launched "
+                  f"kernels: {launches_plain}")
+            check(bool(torch.isfinite(lk)) and all(
+                bool(torch.isfinite(g).all()) for g in gk),
+                f"gnn_train_parity {arch} {dtype}: not finite")
+            rel = {"loss": _rel(lk, lp)}
+            rel.update({n: _rel(a, b) for n, a, b in zip(params, gk, gp)})
+            worst = max(rel, key=rel.get)
+            for key, val in rel.items():
+                check(val <= tol, f"gnn_train_parity {arch} {dtype} {key}: "
+                                  f"kernel vs plain rel {val} > {tol}")
+            res[arch] = dict(n_layers=cfg.n_layers, d_hidden=cfg.d_hidden,
+                             loss={"kernel": float(lk), "plain": float(lp)},
+                             n_grads=len(gk), rel_err_loss=rel["loss"],
+                             rel_err_grad_max={"param": worst,
+                                               "rel": rel[worst]},
+                             launches=launches)
+            del model, params, gp, gk, gb
+        emit(phase="gnn_train_parity", graph="cora-sized (2,708 nodes, "
+             "10,556 edges, 1,433 features, half the labels masked)",
+             dtype=dtype, tol=tol, models=res)
+        torch.cuda.empty_cache()
+    emit(phase="gnn_train_parity", wall_s=time.perf_counter() - t_phase)
+
+
+_GNN_STEP_SPLIT = (  # (part, kernel-name substrings), matched in this order
+    ("gat_bwd_dst", ("gat_bwd_dst_kernel",)),
+    ("gat_bwd_src", ("gat_bwd_src_kernel",)),
+    ("gat_fwd", ("gat_aggregate_kernel",)),
+    ("sum_bwd", ("segment_sum_bwd",)),
+    ("sum_fwd", ("segment_sum_kernel",)),
+    ("gemm_library", ("gemm", "xmma", "nvjet", "cutlass")))
+
+
+def reddit_sized_graph(seed: int = 3):
+    """A seeded stand-in for ``minibatch_lg``'s graph (Reddit's size:
+    232,965 nodes and 114,615,892 adjacency entries) in the port's
+    ``Graph`` CSR: each entry's row uniform (multinomial degrees, mean
+    492), its neighbour uniform.  Rows are not sorted and may repeat a
+    neighbour: the sampler only draws from a row."""
+    from repro_torch.graph import Graph
+    rng = np.random.default_rng(seed)
+    dims = _gnn_dims("minibatch_lg")
+    N, E = dims["n_nodes"], dims["n_edges"]
+    indptr = np.zeros(N + 1, np.int64)
+    np.cumsum(rng.multinomial(E, np.full(N, 1.0 / N)), out=indptr[1:])
+    return Graph(n=N, indptr=indptr,
+                 indices=rng.integers(0, N, E, dtype=np.int32))
+
+
+def phase_gnn_train(products: dict):
+    """The GNN training cell: GAT (``gat-cora``'s full config, bf16
+    weights, f32 AdamW moments) trained full-graph on the products-sized
+    graph (2,449,029 nodes, 61,859,140 edge slots, 100 seeded features,
+    labels the largest of 7 fixed random projections of the features).
+    Run 1: ``Trainer.run`` for GNN_TRAIN_STEPS steps with a checkpoint
+    every GNN_TRAIN_CKPT_EVERY and a fault injected at step
+    GNN_TRAIN_FAULT_AT (restore, replay).  Run 2: the same seed,
+    uninterrupted, with the launch counts set to 0 before it and read
+    after it.  The losses after the restored checkpoint must be equal bit
+    for bit, and the loss must fall.  Then one step under
+    ``torch.profiler``; GraphCast at full width (bf16) for a few steps on
+    the Cora-sized graph, whose launches stand for "sum" and "sum_bwd"
+    (its loss must fall too);
+    and a sampled run: GAT fed by ``gnn_epoch_stream`` at
+    ``minibatch_lg``'s capacities (batch 1,024, fanout 15/10) on a seeded
+    graph of its size, the sampler's host ms beside each step's ms.
+    Returns the launches of run 2 (GAT) and of the GraphCast steps."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import graph_batch_from_arrays
+    from repro_torch.data import gnn_epoch_stream
+    from repro_torch.graph import sample_capacities
+    from repro_torch.models import GNNModel, GraphBatch, init_gnn
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import FaultInjector, Trainer, TrainerConfig
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    cfg = get_config("gat-cora").model
+    dims = _gnn_dims("ogb_products")
+    N, F_ = dims["n_nodes"], dims["d_feat"]
+    ckpt_root = os.path.join(ROOT, "build", "chip_smoke_gnn_ckpt")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    t0 = time.perf_counter()
+    feats = torch.randn((N, F_), generator=gen, device=dev)
+    proj = torch.randn((F_, cfg.n_classes), generator=gen, device=dev)
+    labels = torch.argmax(feats @ proj, dim=1).to(torch.int32)
+    gb = GraphBatch(node_feats=feats.to(torch.bfloat16), labels=labels,
+                    label_mask=torch.ones(N, dtype=torch.bool, device=dev),
+                    **{k: torch.as_tensor(v, device=dev)
+                       for k, v in products.items()})
+    del feats, proj
+    gb.gat_plan()
+    gb.gat_source_plan()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def batches():
+        while True:
+            yield gb
+
+    def run(tag, fault, ckpt_every):
+        """``Trainer.run`` with checkpoints, or, without (``ckpt_every``
+        None), the same steps through ``train_step`` alone."""
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+        g = torch.Generator(device=dev)
+        g.manual_seed(18)
+        model = GNNModel(cfg, init_gnn(g, cfg, F_, cfg.n_classes,
+                                       device=dev))
+        tr = Trainer(lambda m, b: m.loss(b), model,
+                     AdamWConfig(lr=1e-2, warmup_steps=3,
+                                 total_steps=GNN_TRAIN_STEPS),
+                     TrainerConfig(ckpt_dir=os.path.join(ckpt_root, tag),
+                                   ckpt_every=ckpt_every or 1 << 30,
+                                   log_every=GNN_TRAIN_STEPS))
+        logs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_gnn_train_launches()
+        t0 = time.perf_counter()
+        if ckpt_every:
+            hist = tr.run(batches(), GNN_TRAIN_STEPS, fault=fault,
+                          log=logs.append)
+        else:
+            hist = [tr.train_step(gb) for _ in range(GNN_TRAIN_STEPS)]
+        tr.finish()
+        torch.cuda.synchronize()
+        return dict(tr=tr, hist=hist, logs=logs,
+                    wall_s=time.perf_counter() - t0,
+                    peak=torch.cuda.max_memory_allocated(),
+                    launches=_gnn_train_launches())
+
+    r1 = run("faulted", FaultInjector({GNN_TRAIN_FAULT_AT}),
+             GNN_TRAIN_CKPT_EVERY)
+    faults = [m for m in r1["logs"] if "fault at step" in m]
+    check(len(faults) == 1 and f"injected fault at step {GNN_TRAIN_FAULT_AT}"
+          in faults[0], f"gnn_train run 1: expected one injected fault, got "
+                        f"{faults}")
+    losses1 = {h["step"]: h["loss"] for h in r1["hist"]}
+    del r1["tr"]
+    r2 = run("uninterrupted", None, None)
+    losses2 = {h["step"]: h["loss"] for h in r2["hist"]}
+    check(sorted(losses2) == list(range(1, GNN_TRAIN_STEPS + 1))
+          and all(math.isfinite(v) for v in losses2.values()),
+          f"gnn_train run 2 losses {losses2}")
+    restored = GNN_TRAIN_FAULT_AT // GNN_TRAIN_CKPT_EVERY * GNN_TRAIN_CKPT_EVERY
+    replayed = list(range(restored + 1, GNN_TRAIN_STEPS + 1))
+    check(all(losses1[s] == losses2[s] for s in replayed),
+          f"gnn_train: steps {replayed} after the restore differ: "
+          f"{[(s, losses1[s], losses2[s]) for s in replayed]}")
+    check(losses2[GNN_TRAIN_STEPS] < losses2[1],
+          f"gnn_train: the loss did not fall ({losses2[1]} -> "
+          f"{losses2[GNN_TRAIN_STEPS]})")
+    want = _gnn_train_want(cfg, GNN_TRAIN_STEPS)
+    check(r2["launches"] == want,
+          f"gnn_train run 2 launches {r2['launches']} != {want}")
+    profile_split = _profile_train_step(r2["tr"], gb, parts=_GNN_STEP_SPLIT)
+    secs = [h["secs"] for h in r2["hist"]]
+
+    def pct(x, p):
+        return float(np.percentile(np.asarray(x) * 1e3, p))
+
+    gat_launches = r2["launches"]
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    emit(phase="gnn_train", arch="gat-cora", dtype=cfg.dtype,
+         n_layers=cfg.n_layers, heads=cfg.n_heads, d_hidden=cfg.d_hidden,
+         n_out=cfg.n_classes, graph=dict(n_nodes=N, edge_slots=len(
+             products["edge_dst"]), d_feat=F_, setup_s=setup_s),
+         steps=GNN_TRAIN_STEPS, ckpt_every=GNN_TRAIN_CKPT_EVERY,
+         fault_at=GNN_TRAIN_FAULT_AT, restored_from=restored,
+         losses_uninterrupted=[losses2[s] for s in sorted(losses2)],
+         losses_faulted={s: losses1[s] for s in sorted(losses1)},
+         replay_bit_equal=replayed, step_ms_p50=pct(secs, 50),
+         step_ms_p90=pct(secs, 90), step_ms_first=secs[0] * 1e3,
+         nodes_per_s=N / (pct(secs, 50) / 1e3),
+         wall_s={"faulted": r1["wall_s"], "uninterrupted": r2["wall_s"]},
+         peak_bytes={"faulted": r1["peak"], "uninterrupted": r2["peak"]},
+         launches=gat_launches, faulted_run_launches=r1["launches"],
+         profile_step=profile_split)
+    del r1, r2, gb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # GraphCast at full width (16 layers, d = 512, bf16) on the Cora-sized
+    # graph: a few steps, whose launches stand for "sum" and "sum_bwd".
+    # Its 16 residual layers have no normalisation, so at the reference's
+    # initialisation the loss starts near 1e11; a learning rate of 1e-3
+    # overshoots there (the loss rose 400-fold at the second step), 1e-4
+    # takes it down
+    gcfg = get_config("graphcast").model
+    arrays = cora_graph()
+    rng = np.random.default_rng(17)
+    arrays["labels"] = _gnn_labels("graphcast", gcfg, arrays["node_feats"],
+                                   rng)
+    arrays["label_mask"] = np.ones(len(arrays["node_feats"]), bool)
+    cgb = graph_batch_from_arrays(arrays, device=dev)
+    gen.manual_seed(19)
+    gmodel = GNNModel(gcfg, init_gnn(gen, gcfg, arrays["node_feats"].shape[1],
+                                     gcfg.n_classes, device=dev))
+    gtr = Trainer(lambda m, b: m.loss(b), gmodel,
+                  AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=10),
+                  TrainerConfig(ckpt_dir=ckpt_root, log_every=1 << 30))
+    _zero_gnn_train_launches()
+    ghist = [gtr.train_step(cgb) for _ in range(3)]
+    graphcast_launches = _gnn_train_launches()
+    check(graphcast_launches == _gnn_train_want(gcfg, 3)
+          and all(math.isfinite(h["loss"]) for h in ghist)
+          and ghist[-1]["loss"] < ghist[0]["loss"],
+          f"gnn_train GraphCast launches {graphcast_launches} or loss "
+          f"{[h['loss'] for h in ghist]} (must fall)")
+    del gmodel, gtr, cgb
+
+    # the sampled run: GAT on minibatch_lg's capacities, fed by the epoch
+    # stream over a seeded graph of its size
+    t0 = time.perf_counter()
+    mdims = _gnn_dims("minibatch_lg")
+    graph = reddit_sized_graph()
+    rng = np.random.default_rng(20)
+    mfeats = rng.standard_normal((graph.n, mdims["d_feat"]),
+                                 dtype=np.float32)
+    mlabels = rng.integers(0, cfg.n_classes, graph.n).astype(np.int32)
+    graph_s = time.perf_counter() - t0
+    fanout = (mdims["fanout0"], mdims["fanout1"])
+    caps = sample_capacities(mdims["batch_nodes"], fanout)
+    gen.manual_seed(21)
+    smodel = GNNModel(cfg, init_gnn(gen, cfg, mdims["d_feat"], cfg.n_classes,
+                                    device=dev))
+    str_ = Trainer(lambda m, b: m.loss(b), smodel,
+                   AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10),
+                   TrainerConfig(ckpt_dir=ckpt_root, log_every=1 << 30))
+    stream = gnn_epoch_stream(graph, mfeats, mlabels, mdims["batch_nodes"],
+                              fanout, seed=22, n_steps=SAMPLED_STEPS)
+    steps = []
+    _zero_gnn_train_launches()
+    while True:
+        t0 = time.perf_counter()
+        batch = next(stream, None)
+        if batch is None:
+            break
+        t1 = time.perf_counter()
+        sgb = graph_batch_from_arrays(batch, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = str_.train_step(sgb)
+        check(sgb.edge_src.shape[0] == caps[1]
+              and sgb.node_feats.shape[0] == caps[0]
+              and math.isfinite(out["loss"]),
+              f"gnn_train sampled step: shapes or loss {out['loss']}")
+        steps.append(dict(sampler_host_ms=(t1 - t0) * 1e3,
+                          copy_ms=(t2 - t1) * 1e3, step_ms=out["secs"] * 1e3,
+                          live_edges=int(batch["edge_mask"].sum()),
+                          nodes=int((batch["label_mask"]).sum()),
+                          loss=out["loss"]))
+    sampled_launches = _gnn_train_launches()
+    check(len(steps) == SAMPLED_STEPS and sampled_launches
+          == _gnn_train_want(cfg, SAMPLED_STEPS),
+          f"gnn_train sampled run: {len(steps)} steps, launches "
+          f"{sampled_launches}")
+    emit(phase="gnn_train", run="sampled", arch="gat-cora", dtype=cfg.dtype,
+         graph=dict(n_nodes=graph.n, adjacency_entries=int(
+             graph.indices.shape[0]), d_feat=mdims["d_feat"],
+             build_s=graph_s),
+         batch_nodes=mdims["batch_nodes"], fanout=list(fanout),
+         capacities={"nodes": caps[0], "edges": caps[1]}, steps=steps,
+         launches=sampled_launches,
+         graphcast=dict(arch="graphcast", dtype=gcfg.dtype,
+                        n_layers=gcfg.n_layers, d_hidden=gcfg.d_hidden,
+                        graph="cora-sized", steps=[dict(
+                            loss=h["loss"], step_ms=h["secs"] * 1e3)
+                            for h in ghist], launches=graphcast_launches),
+         phase_s=time.perf_counter() - t_phase)
+    del smodel, str_, graph, mfeats
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gat_launches, graphcast_launches
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--full-n", type=int, default=SMOKE_N,
@@ -3077,6 +3742,9 @@ def main():
     ap.add_argument("--lm-train-only", action="store_true",
                     help="run the device and build phases, then only the LM "
                          "training phases (12-14), printing no result")
+    ap.add_argument("--gnn-train-only", action="store_true",
+                    help="run the device and build phases, then only the "
+                         "GNN training phases (15-17), printing no result")
     args = ap.parse_args()
     # growable segments instead of fixed blocks: the escalated stages
     # allocate and free tensors of several GB, which fragments fixed blocks
@@ -3100,6 +3768,12 @@ def main():
         phase_lm_train_kernels()
         phase_lm_train_parity()
         phase_lm_train()
+        return
+    if args.gnn_train_only:
+        products = products_graph()
+        phase_gnn_train_kernels(products)
+        phase_gnn_train_parity()
+        phase_gnn_train(products)
         return
     # the full-scale graph: its shapes and degrees drive the kernel timings
     t0 = time.perf_counter()
@@ -3174,6 +3848,15 @@ def main():
     phase_lm_train_parity()
     train_launches = phase_lm_train()
 
+    # GNN training: the backward kernels, then the training path, each
+    # launch count read around its run of the cell (the products graph
+    # is built again, on the host, in about 3 s)
+    products = products_graph()
+    gnn_train_rows = phase_gnn_train_kernels(products)
+    phase_gnn_train_parity()
+    gat_train_launches, graphcast_train_launches = phase_gnn_train(products)
+    del products
+
     # membership on the back-edge filter's own inputs, against the bound
     # of what those inputs need
     t = dict(timing["backedge_engine"],
@@ -3219,7 +3902,17 @@ def main():
         ("moe_gemm_bwd", "src/repro_torch/kernels/moe_gemm/csrc/moe_gemm_bwd.cu",
          "src/repro/kernels/moe_gemm/kernel.py:44",
          sum(train_launches["moe_gemm_bwd"].values()),
-         train_rows["moe_gemm_bwd", "bfloat16"])]
+         train_rows["moe_gemm_bwd", "bfloat16"]),
+        ("segment_spmm_sum_bwd",
+         "src/repro_torch/kernels/segment_spmm/csrc/segment_spmm_bwd.cu",
+         "src/repro/kernels/segment_spmm/kernel.py:35",
+         graphcast_train_launches["sum_bwd"],
+         gnn_train_rows["sum_bwd_graphcast_cora_d512_bf16"]),
+        ("segment_spmm_gat_bwd",
+         "src/repro_torch/kernels/segment_spmm/csrc/segment_spmm_bwd.cu",
+         "src/repro/kernels/segment_spmm/kernel.py:35",
+         gat_train_launches["gat_bwd"],
+         gnn_train_rows["gat_bwd_products_l1"])]
     emit(kernels=[dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],

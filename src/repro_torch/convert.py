@@ -149,7 +149,8 @@ def gnn_params_from_arrays(tree: dict, cfg: GNNConfig, device=None) -> dict:
     SchNet and PNA stack their per-layer weights on axis 0 for
     ``lax.scan`` (``layers`` is a dict of stacked arrays and lists of
     ``{w, b}``); the port keeps a list of per-layer dicts, as GAT's
-    ``layers`` already is."""
+    ``layers`` already is.  The dict builds a trainable model:
+    ``GNNModel(cfg, params)``."""
     device = resolve_device(device)
     out = {}
     for key, sub in tree.items():
@@ -161,6 +162,38 @@ def gnn_params_from_arrays(tree: dict, cfg: GNNConfig, device=None) -> dict:
             if isinstance(sub, dict):
                 sub = [_layer_of(sub, i) for i in range(n)]
         out[key] = _tensors(sub, device)
+    return out
+
+
+def _stack(trees: list):
+    """Per-layer trees of numpy arrays -> one tree stacked on axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_stack([t[i] for t in trees]) for i in range(len(trees[0]))]
+    return np.stack(trees)
+
+
+def gnn_arrays_from_model(model, grad: bool = False) -> dict:
+    """The inverse of :func:`gnn_params_from_arrays`: the reference's
+    parameter tree as float32 numpy arrays, from a
+    :class:`~repro_torch.models.gnn.GNNModel`'s parameters or, with
+    ``grad``, their ``.grad``, with ``layers`` stacked on axis 0 where
+    the reference stacks them (GraphCast, SchNet, PNA); so a test can
+    hold parameters and gradients against the reference's leaf by
+    leaf."""
+    from repro_torch.models.gnn import STACKED_KINDS
+
+    def arrays(tree):
+        if isinstance(tree, dict):
+            return {k: arrays(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [arrays(v) for v in tree]
+        return _array(tree, grad)
+
+    out = arrays(model.params)
+    if model.cfg.kind in STACKED_KINDS:
+        out["layers"] = _stack(out["layers"])
     return out
 
 

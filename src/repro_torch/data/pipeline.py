@@ -2,7 +2,7 @@
 so a replay after a restore draws the same batches, with a background
 prefetch thread (double buffering).  A copy of the reference's
 ``data/pipeline.py`` (pure numpy): the same seed gives the same arrays.
-``din_batch_stream`` and ``gnn_epoch_stream`` come with their slices.
+``din_batch_stream`` comes with its slice.
 """
 from __future__ import annotations
 
@@ -53,4 +53,28 @@ def lm_token_stream(vocab: int, batch: int, seq_len: int, seed: int = 0,
         toks[:, 1:] = np.where(coin, follow, toks[:, 1:])
         yield dict(tokens=toks[:, :-1].astype(np.int32),
                    labels=toks[:, 1:].astype(np.int32))
+        step += 1
+
+
+def gnn_epoch_stream(graph, feats: np.ndarray, labels: np.ndarray,
+                     batch_nodes: int, fanout: tuple[int, ...], seed: int = 0,
+                     n_steps: int | None = None):
+    """Sampled-training stream over a big graph (minibatch_lg shape): each
+    step ``batch_nodes`` seeds drawn without replacement and their
+    ``fanout`` neighbourhood (:func:`~repro_torch.graph.sampler.sample_neighbors`),
+    as a dict of the ``GraphBatch`` fields padded to the sampler's fixed
+    capacities.  One generator runs through the whole stream, so a replay
+    needs the stream itself, not the step."""
+    from repro_torch.graph.sampler import sample_neighbors
+    rng = np.random.default_rng(seed)
+    step = 0
+    while n_steps is None or step < n_steps:
+        seeds = rng.choice(graph.n, size=batch_nodes, replace=False)
+        sub = sample_neighbors(graph, seeds, fanout, rng)
+        node_ids = np.clip(sub.nodes, 0, graph.n - 1)
+        yield dict(node_feats=feats[node_ids],
+                   edge_src=sub.edge_src, edge_dst=sub.edge_dst,
+                   edge_mask=sub.edge_mask,
+                   labels=labels[node_ids],
+                   label_mask=sub.seed_mask & (sub.nodes >= 0))
         step += 1

@@ -20,6 +20,19 @@ kernel or raises — there is no fallback — and each launch adds one to
 :data:`launches_by_variant`, so a run can show that its main path went
 through the kernel.  A CPU tensor runs the plain version
 (:func:`segment_spmm_plain`, :func:`gat_aggregate_plain`).
+
+Training differentiates both through :func:`segment_spmm_ad` and
+:func:`gat_aggregate_ad`.  On the card they go through the
+``torch.autograd.Function`` classes :class:`SegmentSpmm` and
+:class:`GatAggregate`, whose backwards launch the kernels "sum_bwd"
+(:func:`segment_spmm_bwd`: a gather of the output gradient by
+destination) and "gat_bwd" (:func:`gat_aggregate_bwd`: the edge
+softmax's gradient, one pass by destination and one by source, the
+latter over :func:`source_plan`), counted in
+:data:`bwd_launches_by_variant`.  On the CPU autograd differentiates the
+plain versions; :func:`segment_spmm_bwd_plain` and
+:func:`gat_aggregate_bwd_plain` are the kernels' plain versions, which
+the card's checks hold them against.
 """
 from __future__ import annotations
 
@@ -27,13 +40,15 @@ import math
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.segment_spmm.ref import segment_max, segment_sum_dense
 
 launches = 0    # kernel launches since the count was last set to 0
 VARIANTS = ("sum", "gat")
 launches_by_variant = dict.fromkeys(VARIANTS, 0)   # the same, by variant
+BWD_VARIANTS = ("sum_bwd", "gat_bwd")
+# backward calls that launched their kernels ("gat_bwd": both passes)
+bwd_launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 DTYPES = (torch.float32, torch.bfloat16)
 INDEX_DTYPES = (torch.int32, torch.int64)
 MAX_INDEX = 2 ** 31 - 1     # the kernel's edge and node ids are int32
@@ -127,6 +142,22 @@ def segment_plan(dst: torch.Tensor, n: int, src: torch.Tensor | None = None,
         perm, rowptr, spans, n_heavy, dst, src, mask,
         None if src is None else src.index_select(0, perm).to(torch.int32),
         None if mask is None else mask.index_select(0, perm))
+
+
+def source_plan(plan: SegmentPlan) -> SegmentPlan:
+    """The plan of ``plan``'s edges by source, over ``plan``'s edge
+    positions: source ``u`` owns the positions ``perm[rowptr[u]:rowptr[u
+    + 1]]`` of ``plan``'s sorted order (ascending), ``src_sorted`` holds
+    each one's destination and ``live_sorted`` its mask.  "gat_bwd"'s
+    second pass walks it to sum the gradients of hw and s_src by source
+    from the per-edge values its first pass wrote in ``plan``'s order.
+    ``plan`` must carry the sources and the mask (``GraphBatch.gat_plan``);
+    built once per graph (``GraphBatch.gat_source_plan``)."""
+    if plan.src_sorted is None or plan.live_sorted is None:
+        raise ValueError("source_plan wants a plan built with src and mask")
+    dst_sorted = plan.dst.index_select(0, plan.perm).to(torch.int32)
+    return segment_plan(plan.src_sorted, plan.n, src=dst_sorted,
+                        mask=plan.live_sorted)
 
 
 def _check(msgs: torch.Tensor, dst: torch.Tensor, n: int,
@@ -241,6 +272,16 @@ def gat_shape_fits(heads: int, dout: int, dtype: torch.dtype) -> bool:
         for c in range(0, d, vec))
 
 
+def _gat_scores(s_src: torch.Tensor, s_dst: torch.Tensor,
+                src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``leaky_relu(s_src[src] + s_dst[dst], 0.2)`` as float32, computed
+    as the reference's ``jax.nn.leaky_relu`` is, ``where(x >= 0, x,
+    0.2 * x)``: the values of ``torch.nn.functional.leaky_relu``, but
+    autograd's slope at ``x == 0`` is 1, as JAX's is."""
+    x = s_src.index_select(0, src) + s_dst.index_select(0, dst)
+    return torch.where(x >= 0, x, x * 0.2).float()
+
+
 def gat_messages_plain(hw: torch.Tensor, s_src: torch.Tensor,
                        s_dst: torch.Tensor, plan: SegmentPlan,
                        edge_mask: torch.Tensor,
@@ -250,18 +291,18 @@ def gat_messages_plain(hw: torch.Tensor, s_src: torch.Tensor,
     and the segment softmax as edge-sized tensors, in the reference's
     order of operations, each dropped as soon as that order allows (at
     ogbn-products' size the messages are 7.9 GB in bf16 and 15.8 GB in
-    f32)."""
+    f32).  Every op is out of place, so autograd differentiates it: the
+    plain backward on the CPU."""
     _check_gat(hw, s_src, s_dst, plan, edge_mask, acc_dtype)
     N, dt = hw.shape[0], hw.dtype
     src, dst = plan.src, plan.dst
     dropped = ~edge_mask[:, None]
-    score = F.leaky_relu(s_src.index_select(0, src)
-                         + s_dst.index_select(0, dst), 0.2).float()
-    score.masked_fill_(dropped, -math.inf)
+    score = _gat_scores(s_src, s_dst, src, dst)
+    score = score.masked_fill(dropped, -math.inf)
     smax = segment_max(score, dst.long(), N)        # (N, H) f32
-    ex = torch.exp(score.sub_(smax.index_select(0, dst))).to(acc_dtype)
+    ex = torch.exp(score - smax.index_select(0, dst)).to(acc_dtype)
     del score, smax
-    ex.masked_fill_(dropped, 0)
+    ex = ex.masked_fill(dropped, 0)
     den = segment_spmm_plain(ex, dst, N, plan, out_dtype=ex.dtype)
     alpha = (ex.float()
              / torch.clamp_min(den.float().index_select(0, dst), 1e-9)
@@ -320,3 +361,214 @@ def gat_aggregate(hw: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
                            s_dst.contiguous(), plan, out)
         _count("gat")
     return out
+
+
+# --------------------------------------------------------------------------- #
+# backward
+# --------------------------------------------------------------------------- #
+# edges a step of the plain GAT backward's (E, H, dout) terms: 0.5 GB of
+# f32 at GAT's widths, where the whole products-sized graph takes 16 GB
+BWD_PLAIN_CHUNK = 1 << 21
+def segment_spmm_bwd_plain(dout: torch.Tensor, dst: torch.Tensor,
+                           msgs_dtype: torch.dtype) -> torch.Tensor:
+    """The plain version of :func:`segment_spmm_bwd`, on any device:
+    ``dout.index_select(0, dst)`` in the messages' dtype."""
+    return dout.index_select(0, dst).to(msgs_dtype)
+
+
+def segment_spmm_bwd(dout: torch.Tensor, dst: torch.Tensor, n: int,
+                     plan: SegmentPlan | None,
+                     msgs_dtype: torch.dtype) -> torch.Tensor:
+    """The gradient of :func:`segment_spmm` with respect to its messages:
+    dout (n, ...) in the forward's ``out_dtype`` -> (E, ...)
+    ``msgs_dtype``, ``dmsgs[e] = dout[dst[e]]`` (the "sum_bwd" kernel on
+    a CUDA tensor, walking the forward's ``plan``, else the plain
+    version)."""
+    if dout.device.type == "cpu":
+        return segment_spmm_bwd_plain(dout, dst, msgs_dtype)
+    if dout.device.type != "cuda":
+        raise ValueError(f"segment_spmm_bwd runs on cuda or cpu, not "
+                         f"{dout.device}")
+    if dout.shape[0] != n or msgs_dtype not in DTYPES \
+            or dout.dtype not in (torch.float32, msgs_dtype):
+        raise ValueError(f"segment_spmm_bwd wants dout (n={n}, ...) in "
+                         f"float32 or {msgs_dtype}, got "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+    if plan is None:
+        plan = segment_plan(dst, n)
+    from repro_torch.kernels.segment_spmm.kernel import segment_spmm_bwd_cuda
+
+    E, tail = plan.n_edges, dout.shape[1:]
+    flat = dout.reshape(n, math.prod(tail)).contiguous()
+    dmsgs = torch.empty((E, flat.shape[1]), dtype=msgs_dtype,
+                        device=dout.device)
+    if flat.numel() and dmsgs.numel():
+        segment_spmm_bwd_cuda(flat, plan, dmsgs)
+        bwd_launches_by_variant["sum_bwd"] += 1
+    return dmsgs.reshape(E, *tail)
+
+
+class SegmentSpmm(torch.autograd.Function):
+    """Differentiable :func:`segment_spmm` with respect to its messages:
+    the backward is :func:`segment_spmm_bwd` over the forward's plan."""
+
+    @staticmethod
+    def forward(ctx, msgs, dst, n: int, plan, out_dtype):
+        if plan is None:
+            plan = segment_plan(dst, n)
+        ctx.dst, ctx.n, ctx.plan, ctx.msgs_dtype = dst, n, plan, msgs.dtype
+        return segment_spmm(msgs, dst, n, plan, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (segment_spmm_bwd(dout, ctx.dst, ctx.n, ctx.plan,
+                                 ctx.msgs_dtype), None, None, None, None)
+
+
+def segment_spmm_ad(msgs: torch.Tensor, dst: torch.Tensor, n: int,
+                    plan: SegmentPlan | None = None,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """:func:`segment_spmm`, differentiable: on the card through
+    :class:`SegmentSpmm` when gradients are on and ``msgs`` requires one,
+    else the plain call (on the CPU autograd differentiates the plain
+    version)."""
+    if (msgs.device.type != "cpu" and torch.is_grad_enabled()
+            and msgs.requires_grad):
+        return SegmentSpmm.apply(msgs, dst, n, plan, out_dtype)
+    return segment_spmm(msgs, dst, n, plan, out_dtype)
+
+
+def gat_aggregate_bwd_plain(hw: torch.Tensor, s_src: torch.Tensor,
+                            s_dst: torch.Tensor, plan: SegmentPlan,
+                            edge_mask: torch.Tensor, acc_dtype: torch.dtype,
+                            dout: torch.Tensor):
+    """The plain version of :func:`gat_aggregate_bwd`, on any device,
+    with the kernel's arithmetic: the forward's values recomputed with
+    its roundings, then, per head and edge e (destination v, source u),
+    ``dalpha_e = <dt(dout[v]), hw[u]>``, ``T_v = sum dalpha_e * ex_e``,
+    ``da_e = p_e * (dalpha_e - T_v / den_v) / den_v``, times 0.2 where
+    the score is negative (slope 1 at 0, as the reference's), and the
+    sums ``ds_dst[v]``, ``ds_src[u]`` of ``da_e`` and ``dhw[u]`` of
+    ``dt(dout[v]) * alpha_e``, every sum in float32, rounded to ``hw``'s
+    dtype once.  The (E, H, dout) terms are
+    taken :data:`BWD_PLAIN_CHUNK` edges at a time."""
+    _check_gat(hw, s_src, s_dst, plan, edge_mask, acc_dtype)
+    N, H, dd = hw.shape
+    dt, E = hw.dtype, plan.n_edges
+    src, dst = plan.src.long(), plan.dst.long()
+    dropped = ~edge_mask[:, None]
+    sc = _gat_scores(s_src, s_dst, src, dst)
+    sc = sc.masked_fill(dropped, -math.inf)
+    m = segment_max(sc, dst, N)
+    p = torch.exp(sc - m.index_select(0, dst)).masked_fill(dropped, 0)
+    ex = p.to(acc_dtype).float()
+    den = torch.clamp_min(
+        segment_sum_dense(ex, dst, N).to(acc_dtype).float(), 1e-9)
+    den_e = den.index_select(0, dst)
+    alpha = (ex / den_e).to(dt).float()
+    dv = dout.to(dt).float()                       # (N, H, dd)
+    hw32 = hw.float()
+    dalpha = torch.empty_like(p)
+    dhw = torch.zeros((N, H * dd), dtype=torch.float32, device=hw.device)
+    for i in range(0, E, BWD_PLAIN_CHUNK):
+        j = min(i + BWD_PLAIN_CHUNK, E)
+        dprod = dv.index_select(0, dst[i:j])
+        dalpha[i:j] = (dprod * hw32.index_select(0, src[i:j])).sum(-1)
+        term = (dprod * alpha[i:j, :, None]).masked_fill(
+            dropped[i:j, :, None], 0)
+        dhw.index_add_(0, src[i:j], term.reshape(j - i, H * dd))
+        del dprod, term
+    T = segment_sum_dense(dalpha * ex, dst, N)
+    ds = p * (dalpha - T.index_select(0, dst) / den_e) / den_e
+    da = torch.where(sc >= 0, ds, 0.2 * ds).masked_fill(dropped, 0)
+    return (dhw.to(dt).reshape(N, H, dd),
+            segment_sum_dense(da, src, N).to(dt),
+            segment_sum_dense(da, dst, N).to(dt))
+
+
+def gat_aggregate_bwd(hw: torch.Tensor, s_src: torch.Tensor,
+                      s_dst: torch.Tensor, plan: SegmentPlan,
+                      edge_mask: torch.Tensor, acc_dtype: torch.dtype,
+                      dout: torch.Tensor, plan_by_src: SegmentPlan):
+    """The gradient of :func:`gat_aggregate`: ``(dhw, ds_src, ds_dst)``
+    in hw's dtype, from ``dout`` (N, H, dout) ``acc_dtype``, the
+    gradient of its output.  A CUDA tensor launches "gat_bwd" (its two
+    passes; ``plan_by_src`` is :func:`source_plan` of ``plan``) or
+    raises for shapes the forward kernel does not take; a CPU tensor
+    runs :func:`gat_aggregate_bwd_plain`."""
+    if hw.device.type == "cpu":
+        return gat_aggregate_bwd_plain(hw, s_src, s_dst, plan, edge_mask,
+                                       acc_dtype, dout)
+    _check_gat(hw, s_src, s_dst, plan, edge_mask, acc_dtype)
+    if hw.device.type != "cuda":
+        raise ValueError(f"gat_aggregate_bwd runs on cuda or cpu, not "
+                         f"{hw.device}")
+    if plan.mask is not edge_mask:
+        raise ValueError("gat_aggregate_bwd: the plan was built from "
+                         "another edge_mask")
+    N, H, dd = hw.shape
+    if dout.shape != hw.shape or dout.dtype != acc_dtype \
+            or dout.device != hw.device:
+        raise ValueError(f"gat_aggregate_bwd wants dout {tuple(hw.shape)} "
+                         f"{acc_dtype}, got {tuple(dout.shape)} "
+                         f"{dout.dtype}")
+    if not gat_shape_fits(H, dd, hw.dtype):
+        raise ValueError(f"gat_aggregate_bwd's kernel takes the forward's "
+                         f"rows; H={H}, dout={dd} in {hw.dtype} does not "
+                         f"fit")
+    from repro_torch.kernels.segment_spmm.kernel import gat_bwd_cuda
+
+    dhw = torch.empty_like(hw)
+    ds_src, ds_dst = torch.empty_like(s_src), torch.empty_like(s_dst)
+    if hw.numel():
+        alpha = torch.empty((plan.n_edges, H), dtype=torch.float32,
+                            device=hw.device)
+        dsc = torch.empty_like(alpha)
+        # the messages' gradient is dout rounded to hw's dtype: rounded
+        # once here, so the kernel gathers rows at that width
+        gat_bwd_cuda(hw.contiguous(), s_src.contiguous(),
+                     s_dst.contiguous(), plan, plan_by_src,
+                     dout.to(hw.dtype).contiguous(), acc_dtype, alpha, dsc,
+                     dhw, ds_src, ds_dst)
+        bwd_launches_by_variant["gat_bwd"] += 1
+    return dhw, ds_src, ds_dst
+
+
+class GatAggregate(torch.autograd.Function):
+    """Differentiable :func:`gat_aggregate`: the forward saves its
+    inputs; the backward is :func:`gat_aggregate_bwd`, which recomputes
+    each row's max and denominator as the forward does."""
+
+    @staticmethod
+    def forward(ctx, hw, s_src, s_dst, plan, edge_mask, acc_dtype,
+                plan_by_src):
+        ctx.save_for_backward(hw, s_src, s_dst)
+        ctx.plan, ctx.edge_mask, ctx.acc_dtype = plan, edge_mask, acc_dtype
+        ctx.plan_by_src = plan_by_src
+        return gat_aggregate(hw, s_src, s_dst, plan, edge_mask, acc_dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        hw, s_src, s_dst = ctx.saved_tensors
+        grads = gat_aggregate_bwd(hw, s_src, s_dst, ctx.plan, ctx.edge_mask,
+                                  ctx.acc_dtype, dout.contiguous(),
+                                  ctx.plan_by_src())
+        return (*grads, None, None, None, None)
+
+
+def gat_aggregate_ad(hw: torch.Tensor, s_src: torch.Tensor,
+                     s_dst: torch.Tensor, plan: SegmentPlan,
+                     edge_mask: torch.Tensor, acc_dtype: torch.dtype,
+                     plan_by_src) -> torch.Tensor:
+    """:func:`gat_aggregate`, differentiable: on the card through
+    :class:`GatAggregate` when gradients are on and an input requires
+    one, else the plain call (on the CPU autograd differentiates the
+    plain version).  ``plan_by_src`` is a function that returns the
+    :func:`source_plan` of ``plan`` (``GraphBatch.gat_source_plan``),
+    called by the card's backward only."""
+    if (hw.device.type != "cpu" and torch.is_grad_enabled()
+            and (hw.requires_grad or s_src.requires_grad
+                 or s_dst.requires_grad)):
+        return GatAggregate.apply(hw, s_src, s_dst, plan, edge_mask,
+                                  acc_dtype, plan_by_src)
+    return gat_aggregate(hw, s_src, s_dst, plan, edge_mask, acc_dtype)

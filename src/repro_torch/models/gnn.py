@@ -1,7 +1,7 @@
-"""The GNN model zoo of the reference's ``models/gnn.py``, forward only:
-GraphCast (encode-process-decode interaction network), SchNet
-(continuous-filter convolution), PNA (multi-aggregator) and GAT
-(attention).
+"""The GNN model zoo of the reference's ``models/gnn.py``: GraphCast
+(encode-process-decode interaction network), SchNet (continuous-filter
+convolution), PNA (multi-aggregator) and GAT (attention), their forward
+and their training loss.
 
 Message passing is a gather of node rows along the edges, per-edge
 arithmetic, and a segment sum of the messages by destination node.
@@ -17,8 +17,15 @@ PyTorch, as the reference leaves them to XLA.
 
 Parameters are nested dicts and lists of tensors.  Where the reference
 stacks per-layer weights for ``lax.scan``, the port keeps a list of
-per-layer dicts and loops over it.  ``gnn_loss`` and training come with
-a later slice.
+per-layer dicts and loops over it.
+
+Training: :func:`gnn_loss` (the reference's) and :class:`GNNModel`, an
+``nn.Module`` that holds the parameter tree, for the ``Trainer``.  The
+segment sums and GAT's aggregation go through the differentiable entries
+(``segment_spmm_ad``, ``gat_aggregate_ad``): on the card their backward
+kernels "sum_bwd" and "gat_bwd", on the CPU autograd through the plain
+versions.  A forward that asks for no gradient (serving) calls the
+kernel wrappers directly, as before.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from dataclasses import dataclass, field
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.device import resolve_device
@@ -37,6 +45,8 @@ from repro_torch.kernels.segment_spmm.ref import segment_max
 from repro_torch.models.layers import _init
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the kinds whose per-layer weights the reference stacks for lax.scan
+STACKED_KINDS = ("graphcast", "schnet", "pna")
 
 
 @dataclass
@@ -82,6 +92,13 @@ class GraphBatch:
             self.edge_dst, self.n_nodes, src=self.edge_src,
             mask=self.edge_mask))
 
+    def gat_source_plan(self) -> SegmentPlan:
+        """:func:`~repro_torch.kernels.segment_spmm.ops.source_plan` of
+        :meth:`gat_plan`: the edges by source, which GAT's backward
+        kernel reads; built at its first use."""
+        return self._memoized("gat_source_plan",
+                              lambda: spmm_ops.source_plan(self.gat_plan()))
+
     def dst_index(self) -> torch.Tensor:
         """``edge_dst`` as int64, the index ``scatter_reduce_`` takes,
         converted once per batch."""
@@ -111,8 +128,8 @@ def _mlp(params: list, x: torch.Tensor, act=F.silu,
 def _seg_sum(x: torch.Tensor, idx: torch.Tensor, n: int,
              plan: SegmentPlan | None = None) -> torch.Tensor:
     """Sum of ``x`` (E, ...) by ``idx`` into (n, ...), in x's dtype
-    (accumulated in float32)."""
-    return spmm_ops.segment_spmm(x, idx, n, plan, out_dtype=x.dtype)
+    (accumulated in float32); differentiable in ``x``."""
+    return spmm_ops.segment_spmm_ad(x, idx, n, plan, out_dtype=x.dtype)
 
 
 def _seg_mean(x: torch.Tensor, idx: torch.Tensor, n: int,
@@ -293,8 +310,9 @@ def gat_forward(params: dict, cfg: GNNConfig, gb: GraphBatch) -> torch.Tensor:
         hw = (h @ lyr["w"]).reshape(N, H, dout)
         s_src = (hw * lyr["a_src"]).sum(-1)             # (N, H)
         s_dst = (hw * lyr["a_dst"]).sum(-1)
-        out = spmm_ops.gat_aggregate(hw, s_src, s_dst, plan, gb.edge_mask,
-                                     acc_dt)
+        out = spmm_ops.gat_aggregate_ad(hw, s_src, s_dst, plan,
+                                        gb.edge_mask, acc_dt,
+                                        gb.gat_source_plan)
         if i < n_layers - 1:
             h = F.elu(out.float()).to(dt).reshape(N, H * dout)
         else:
@@ -335,3 +353,87 @@ def gnn_forward(params: dict, cfg: GNNConfig, gb: GraphBatch) -> torch.Tensor:
     if cfg.kind == "gat":
         return gat_forward(params, cfg, gb)
     raise KeyError(cfg.kind)
+
+
+def gnn_loss(params: dict, cfg: GNNConfig, gb: GraphBatch) -> torch.Tensor:
+    """The reference's training loss, a float32 scalar: SchNet's
+    per-graph energy regression (the node outputs summed over
+    ``graph_id``, through the segment sum, when the batch has one, else a
+    masked MSE), GraphCast's masked MSE averaged over its variables, and
+    the masked cross entropy of GAT and PNA."""
+    out = gnn_forward(params, cfg, gb)
+    mask = gb.label_mask.float()
+    denom = torch.clamp_min(mask.sum(), 1)
+    if cfg.kind == "schnet":
+        if gb.graph_id is not None:
+            n_graphs = int(gb.labels.shape[0])
+            energy = _seg_sum(out, gb.graph_id, n_graphs)
+            return ((energy - gb.labels.float()) ** 2).mean()
+        err = (out - gb.labels.float()) ** 2
+        return (err * mask).sum() / denom
+    if cfg.kind == "graphcast":
+        err = (out.float() - gb.labels.float()) ** 2
+        return (err.mean(-1) * mask).sum() / denom
+    logits = out.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, gb.labels.long()[:, None])[:, 0]
+    return ((lse - picked) * mask).sum() / denom
+
+
+class _Tree(nn.Module):
+    """A nested dict or list of tensors as modules and parameters (a
+    leaf's name is its path: ``layers.0.edge_mlp.1.w``); :meth:`tree`
+    gives the nesting back, with the parameters as leaves."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self._keys = list(tree) if isinstance(tree, dict) else None
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for key, val in items:
+            if isinstance(val, torch.Tensor):
+                self.register_parameter(
+                    str(key), nn.Parameter(val, requires_grad=False))
+            else:
+                self.add_module(str(key), _Tree(val))
+
+    def tree(self):
+        def leaf(name):
+            child = getattr(self, name)
+            return child.tree() if isinstance(child, _Tree) else child
+        if self._keys is not None:
+            return {k: leaf(str(k)) for k in self._keys}
+        return [leaf(str(i)) for i in range(len(self._parameters)
+                                            + len(self._modules))]
+
+
+class GNNModel(nn.Module):
+    """A GNN of ``cfg`` holding its parameter tree (as :func:`init_gnn`
+    or ``convert.gnn_params_from_arrays`` give it) as frozen parameters;
+    ``forward`` is :func:`gnn_forward` and :meth:`loss` :func:`gnn_loss`.
+    The ``Trainer`` takes it as it takes the LM: it turns the gradients
+    on, and reads :meth:`decayed_params` for AdamW."""
+
+    def __init__(self, cfg: GNNConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.net = _Tree(params)
+
+    @property
+    def params(self) -> dict:
+        """The parameter tree, nested as :func:`init_gnn` gives it."""
+        return self.net.tree()
+
+    def forward(self, gb: GraphBatch) -> torch.Tensor:
+        return gnn_forward(self.params, self.cfg, gb)
+
+    def loss(self, gb: GraphBatch) -> torch.Tensor:
+        return gnn_loss(self.params, self.cfg, gb)
+
+    def decayed_params(self) -> set[str]:
+        """The names of the parameters AdamW decays, by the reference's
+        rule on its own tree (``ndim >= 2``): GraphCast, SchNet and PNA
+        stack their per-layer weights, so every per-layer tensor there,
+        biases included, counts one dimension more than it has here."""
+        stacked = self.cfg.kind in STACKED_KINDS
+        return {name for name, p in self.named_parameters()
+                if p.ndim >= 2 or (stacked and name.startswith("net.layers."))}

@@ -3,8 +3,10 @@
 in three ways: the gradients are clipped by their global norm before the
 moments are updated; weight decay ``lr * weight_decay * p`` is added to
 the Adam step only for tensors with ``ndim >= 2`` (norms and biases are
-spared); and each parameter is updated in float32 from its old value and
-rounded to its own dtype once.
+spared), or for the names the caller lists where its tensors' shapes are
+not the reference's (a GNN whose per-layer weights the reference stacks:
+``GNNModel.decayed_params``); and each parameter is updated in float32
+from its old value and rounded to its own dtype once.
 
 Parameters, gradients and moments are dicts of tensors keyed by name
 (``dict(model.named_parameters())``).  Moments are float32, or bfloat16
@@ -76,11 +78,14 @@ def global_norm(tensors: dict) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig):
+def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
+                 decay: set[str] | None = None):
     """One AdamW step: ``(params, state, info)`` with ``info`` holding the
     gradients' global norm (before clipping) and the learning rate.  The
     parameters and moments are updated in place (the returned dicts are
-    the ones given, with ``state["step"]`` advanced)."""
+    the ones given, with ``state["step"]`` advanced).  ``decay`` names the
+    parameters that take weight decay; by default those with ``ndim >=
+    2``."""
     step = state["step"] + 1
     lr = float(schedule(cfg, step))
     gn = global_norm(grads)
@@ -98,7 +103,7 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig):
         delta = torch.div(nu32, bc2, out=g).sqrt_().add_(cfg.eps)
         delta = torch.div(mu32, bc1).div_(delta)
         p32 = p.float()                # p itself when it is float32
-        if p.ndim >= 2:
+        if (p.ndim >= 2) if decay is None else (name in decay):
             delta.add_(p32, alpha=cfg.weight_decay)
         p32.sub_(delta, alpha=lr)
         if p32 is not p:

@@ -81,13 +81,17 @@ class Trainer:
     """Trains ``model`` (an ``nn.Module``) on ``loss_fn(model, batch)``, a
     scalar loss tensor: every parameter's gradient is turned on.  With
     ``grad_accum > 1`` every array of a batch carries the microbatches on
-    its leading axis."""
+    its leading axis.  A model with a ``decayed_params()`` method names
+    the parameters AdamW decays (``GNNModel``); else AdamW decays those
+    with ``ndim >= 2``."""
 
     def __init__(self, loss_fn: Callable, model: torch.nn.Module,
                  opt_cfg: AdamWConfig, tcfg: TrainerConfig):
         self.loss_fn = loss_fn
         self.model = model.requires_grad_(True)
         self.params = dict(model.named_parameters())
+        self.decay = (model.decayed_params()
+                      if hasattr(model, "decayed_params") else None)
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
         self.opt_state = init_opt_state(self.params, opt_cfg)
@@ -133,7 +137,8 @@ class Trainer:
                 grads, self.err_fb = compress_roundtrip(grads, self.err_fb)
             with record_function("trainer.adamw"):
                 _, self.opt_state, info = adamw_update(
-                    self.params, grads, self.opt_state, self.opt_cfg)
+                    self.params, grads, self.opt_state, self.opt_cfg,
+                    self.decay)
         return loss, info
 
     def train_step(self, batch, fault: FaultInjector | None = None) -> dict:

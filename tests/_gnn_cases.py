@@ -101,12 +101,15 @@ def gat_graph_arrays(case, seed=0):
     return arrays
 
 
-def gat_kernel_inputs(H, dout, seed=0, N=300, E=6000, hub=600):
+def gat_kernel_inputs(H, dout, seed=0, N=300, E=6000, hub=600,
+                      zero_scores=False):
     """Inputs of one ``gat_aggregate`` as float32 numpy arrays: hw (N, H,
     dout), s_src, s_dst (N, H), and src, dst (E + hub,) int32, mask bool:
     E uniform slots, 10% masked, and ``hub`` slots into node 5 (above
     the threshold); node 7 has no in-edge, every slot into node 9 is
-    masked."""
+    masked.  ``zero_scores``: every tenth slot a self-loop and ``s_dst =
+    -s_src``, so those slots' pre-activations are exactly 0, where
+    leaky_relu's slope is 1."""
     rng = np.random.default_rng(seed)
     src = rng.integers(0, N, E + hub).astype(np.int32)
     dst = np.concatenate([rng.integers(0, N, E),
@@ -114,7 +117,11 @@ def gat_kernel_inputs(H, dout, seed=0, N=300, E=6000, hub=600):
     dst[dst == 7] = 8
     mask = rng.random(E + hub) >= MASKED_SHARE
     mask[dst == ALL_MASKED_NODE] = False
-    return dict(hw=rng.normal(size=(N, H, dout)).astype(np.float32),
-                s_src=rng.normal(size=(N, H)).astype(np.float32),
-                s_dst=rng.normal(size=(N, H)).astype(np.float32),
-                src=src, dst=dst, mask=mask)
+    x = dict(hw=rng.normal(size=(N, H, dout)).astype(np.float32),
+             s_src=rng.normal(size=(N, H)).astype(np.float32),
+             s_dst=rng.normal(size=(N, H)).astype(np.float32),
+             src=src, dst=dst, mask=mask)
+    if zero_scores:
+        src[::10] = dst[::10]
+        x["s_dst"] = -x["s_src"]
+    return x

@@ -14,6 +14,7 @@ from repro_torch.kernels.intersect import kernel as inter_kernel
 from repro_torch.kernels.membership import kernel as memb_kernel
 from repro_torch.kernels.moe_gemm import kernel as moe_kernel
 from repro_torch.kernels.segment_spmm import kernel as spmm_kernel
+from repro_torch.kernels.varint import kernel as varint_kernel
 
 HOPPER = build.COMMON_DIR / "hopper.cuh"
 SORTED_SEARCH = build.COMMON_DIR / "sorted_search.cuh"
@@ -59,9 +60,13 @@ def test_source_edit_changes_only_its_own_library(tree):
 def test_package_sources_find_the_shared_header():
     for kern in (flash_kernel, moe_kernel):
         assert build.local_headers(kern.SOURCE) == [HOPPER.resolve()]
-    # toolkit headers (<cuda.h>, ...) are not local; a source without
-    # local includes hashes alone
-    assert build.local_headers(spmm_kernel.SOURCE) == []
+    # toolkit headers (<cuda.h>, ...) are not local; a header beside the
+    # source is found there: segment_spmm's forward and backward share
+    # segment_spmm.cuh; a source without local includes hashes alone
+    shared = spmm_kernel.SOURCE.with_name("segment_spmm.cuh").resolve()
+    for src in (spmm_kernel.SOURCE, spmm_kernel.BWD_SOURCE):
+        assert build.local_headers(src) == [shared]
+    assert build.local_headers(varint_kernel.SOURCES[0]) == []
     assert "-I" in build.NVCC_FLAGS
     assert build.NVCC_FLAGS[build.NVCC_FLAGS.index("-I") + 1] == str(
         build.COMMON_DIR)

@@ -1,10 +1,11 @@
 """Card-only tests of the PyTorch port: the hand-written CUDA kernels
 (membership, intersect, the varint fetch codec's encoders and decoder
 with delta_vlen, flash_attn and moe_gemm with their backward kernels,
-segment_spmm in both its variants) against their plain PyTorch versions,
-the whole engine on the card — dense and bucketed storage, raw and varint
-wire — the reduced OLMoE serving path and training step and the four
-reduced GNNs, against the port's CPU path.
+segment_spmm in both its variants and their backward kernels) against
+their plain PyTorch versions, the whole engine on the card — dense and
+bucketed storage, raw and varint wire — the reduced OLMoE serving path
+and training step and the four reduced GNNs' forward and training step,
+against the port's CPU path.
 They skip without a CUDA card, and import no JAX, so they run where
 only PyTorch is installed:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``."""
@@ -681,3 +682,112 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of the largest |plain|
+
+
+def _bwd_close(got, want, tol, name):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * float(want.float().abs().max().clamp_min(1e-30)), (
+        name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", [("float32", "float32"),
+                                    ("bfloat16", "float32"),
+                                    ("bfloat16", "bfloat16")],
+                         ids=["f32", "bf16_msgs", "bf16"])
+@pytest.mark.parametrize("kind,arg", [
+    *[("sweep", shape[:3]) for shape in SPMM_SWEEP],
+    *[("edge", case) for case in SPMM_EDGE_CASES]])
+def test_segment_spmm_bwd_kernel_matches_plain_on_card(cuda, kind, arg,
+                                                       dtypes):
+    """"sum_bwd" (messages' dtype, dout's dtype) against
+    ``segment_spmm_bwd_plain``: a gather and a cast, so bit for bit, the
+    hub row ("one_node") included; two launches bit-identical."""
+    msgs_dt, out_dt = (DTYPES[d] for d in dtypes)
+    if kind == "sweep":
+        msgs, dst = spmm_sweep_inputs(*arg)
+        n = arg[1]
+    else:
+        msgs, dst, n = spmm_edge_inputs(arg)
+    dst = torch.as_tensor(dst, device=cuda)
+    dout = torch.randn((n, msgs.shape[1]), device=cuda).to(out_dt)
+    plan = spmm_ops.segment_plan(dst, n)
+    before = spmm_ops.bwd_launches_by_variant["sum_bwd"]
+    got = spmm_ops.segment_spmm_bwd(dout, dst, n, plan, msgs_dt)
+    again = spmm_ops.segment_spmm_bwd(dout, dst, n, plan, msgs_dt)
+    torch.cuda.synchronize()
+    assert spmm_ops.bwd_launches_by_variant["sum_bwd"] == before + 2 * int(
+        msgs.size > 0)
+    assert torch.equal(got, spmm_ops.segment_spmm_bwd_plain(dout, dst,
+                                                            msgs_dt))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scores", ["random", "zero_at_loops"])
+@pytest.mark.parametrize("acc", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,dout", GAT_HEAD_SHAPES)
+def test_gat_bwd_kernel_matches_plain_on_card(cuda, H, dout, dtype, acc,
+                                              scores):
+    """"gat_bwd" against ``gat_aggregate_bwd_plain`` on the graph with
+    masked slots, an empty row, an all-masked row and a hub, also with
+    self-loops whose pre-activations are exactly 0 (leaky_relu's slope
+    1 there): each gradient within 1e-4 (f32) or 2e-2 (bf16 anywhere) of
+    its largest plain value; the empty and all-masked rows' ds_dst 0;
+    two calls bit-identical."""
+    x = gat_kernel_inputs(H, dout, zero_scores=scores == "zero_at_loops")
+    hw, s_src, s_dst = (torch.as_tensor(x[k], device=cuda).to(DTYPES[dtype])
+                        for k in ("hw", "s_src", "s_dst"))
+    src, dst, mask = (torch.as_tensor(x[k], device=cuda)
+                      for k in ("src", "dst", "mask"))
+    n, acc_dt = hw.shape[0], DTYPES[acc]
+    plan = spmm_ops.segment_plan(dst, n, src=src, mask=mask)
+    by_src = spmm_ops.source_plan(plan)
+    g = torch.randn(hw.shape, device=cuda).to(acc_dt)
+    args = (hw, s_src, s_dst, plan, mask, acc_dt, g)
+    before = spmm_ops.bwd_launches_by_variant["gat_bwd"]
+    got = spmm_ops.gat_aggregate_bwd(*args, by_src)
+    again = spmm_ops.gat_aggregate_bwd(*args, by_src)
+    torch.cuda.synchronize()
+    assert spmm_ops.bwd_launches_by_variant["gat_bwd"] == before + 2
+    want = spmm_ops.gat_aggregate_bwd_plain(*args)
+    tol = BWD_TOL["float32" if dtype == acc == "float32" else "bfloat16"]
+    for name, a, b, c in zip(("dhw", "ds_src", "ds_dst"), got, want, again):
+        _bwd_close(a, b, tol, name)
+        assert torch.equal(a, c), name
+    assert not got[2][7].any() and not got[2][ALL_MASKED_NODE].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GNN_ARCHS)
+def test_gnn_training_step_on_card_matches_cpu(cuda, arch):
+    """Reduced model in float32: ``gnn_loss`` and every gradient on the
+    card (through "sum_bwd" or "gat_bwd") against the port's CPU run of
+    the same weights and graph."""
+    from repro_torch.models import GNNModel
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, D_FEAT, N_OUT,
+                      device="cpu")
+    arrays = graph_arrays(cfg.kind)
+    cpu = GNNModel(cfg, params).requires_grad_(True)
+    card = GNNModel(cfg, _to(params, cuda)).requires_grad_(True)
+    before = dict(spmm_ops.bwd_launches_by_variant)
+    loss = card.loss(graph_batch_from_arrays(arrays, cuda))
+    loss.backward()
+    torch.cuda.synchronize()
+    ran = {k: v - before[k]
+           for k, v in spmm_ops.bwd_launches_by_variant.items()}
+    variant = "gat_bwd" if cfg.kind == "gat" else "sum_bwd"
+    assert ran[variant] > 0
+    want = cpu.loss(graph_batch_from_arrays(arrays, "cpu"))
+    want.backward()
+    assert abs(float(loss.detach()) - float(want.detach())) <= 1e-4 * abs(
+        float(want.detach()))
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        err = (q.grad.cpu() - p.grad).abs().max()
+        assert err <= 1e-4 * p.grad.abs().max().clamp_min(1e-30), name
