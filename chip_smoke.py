@@ -146,8 +146,23 @@ every phase holds:
               seeded graph of its size for 4 steps, the sampler's host ms
               beside each step's.
 
+18. dist — the ``dist`` exchange, one rank per partition over
+              ``torch.distributed`` (gloo), two ranks sharing the card:
+              (a) ``launch_local`` of two ``repro_torch.launch.dist_worker``
+              ranks on ``cuda:0`` (dblp_bench, q1, hash partition), dense/raw
+              and bucketed/varint, each rank's count and every logical stat
+              against an in-process ``sim`` run on the card; (b) the full
+              cell's recipe, ``powerlaw_graph(n, 6, seed=1)`` split 2 ways
+              (bfs), q1 dense/raw with the default ``EngineConfig``, as two
+              spawned ranks: the count against scipy's triangles, every
+              logical stat against ``sim`` of the same partition on the
+              card, each rank's wall time, peak memory, resident adjacency
+              bytes and membership launches, ``wall_skew``, ``bytes_wire_*``
+              and ``sim``'s wall time beside them (n: ``DIST_N``).
+
 ``--lm-train-only`` runs phases 1, 2 and 12-14 and prints no result;
-``--gnn-train-only`` runs phases 1, 2 and 15-17 and prints no result.
+``--gnn-train-only`` runs phases 1, 2 and 15-17 and prints no result;
+``--dist-only`` runs phases 1, 2 and 18 and prints no result.
 Each phase prints one JSON line.  Then come the kernels line, the
 ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -226,6 +241,8 @@ FULL_N = 317_080              # com-DBLP's vertex count
 # (`--full-n 317080` shows it).  At 310,000 three escalations suffice.
 SMOKE_N = 310_000
 SMOKE_MAX_DEGREE = 1780       # max degree of powerlaw_graph(SMOKE_N, 6, 1)
+# phase 18 (dist) runs the full cell's recipe split 2 ways at this size
+DIST_N = SMOKE_N
 CUT_REASON = ("at n=317,080 the fourth capacity escalation (28 GiB fetch "
               "buffers held through 2^20-row leaf steps) runs out of device "
               "memory; 310,000 needs three escalations")
@@ -3731,6 +3748,249 @@ def phase_gnn_train(products: dict):
     return gat_launches, graphcast_launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: dist
+# --------------------------------------------------------------------------- #
+# the caps of the two-process gate of the tests
+# (tests/test_torch_dist.py::test_dist_two_process_matches_sim)
+DIST_CLI_CAPS = ["--frontier-cap", str(1 << 12), "--fetch-cap", str(1 << 9),
+                 "--verify-cap", str(1 << 11), "--region-budget", str(1 << 11)]
+DIST_RANKS = 2
+# host-local timings and the rank's own topology: not the logical result
+DIST_RANK_KEYS = TIMING_KEYS | {"process_index", "process_count"}
+DIST_TIMEOUT_S = 600.0
+
+
+def _logical(stats: dict) -> dict:
+    """A stats dict's logical part, as JSON carries it."""
+    st = json.loads(json.dumps(stats, default=float))
+    return {k: v for k, v in st.items() if k not in DIST_RANK_KEYS}
+
+
+def _check_same_logical(got: dict, want: dict, what: str) -> None:
+    got, want = _logical(got), _logical(want)
+    check(set(got) == set(want),
+          f"{what}: stat keys differ: {sorted(set(got) ^ set(want))}")
+    for k in want:
+        check(got[k] == want[k],
+              f"{what}: stat {k} differs from sim: {got[k]!r} vs {want[k]!r}")
+
+
+def _dist_cli(storage: str, wire: str) -> dict:
+    """Part (a): ``launch_local`` of two ``dist_worker`` ranks on the card,
+    held to an in-process ``sim`` run of the same partition and config."""
+    import torch
+    from repro_torch.configs.rads import QUERIES
+    from repro_torch.core import Pattern, merge_process_stats, rads_enumerate
+    from repro_torch.graph import load_dataset, partition
+    from repro_torch.launch.dist_worker import (build_argparser,
+                                                launch_local, worker_config)
+    args = ["--dataset", "dblp_bench", "--query", "q1", "--partition",
+            "hash", "--storage", storage, "--wire", wire, *DIST_CLI_CAPS,
+            "--device", "cuda"]
+    t0 = time.perf_counter()
+    workers = launch_local(DIST_RANKS, args, timeout_s=DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(workers is not None, "dist_worker exited 3 (no torch.distributed "
+                               "with gloo) on the card")
+    cfg = worker_config(build_argparser().parse_args(args))
+    sim = rads_enumerate(partition(load_dataset("dblp_bench"), DIST_RANKS,
+                                   method="hash"),
+                         Pattern.from_edges(QUERIES["q1"]), cfg, mode="sim",
+                         return_embeddings=False, device=DEVICE)
+    torch.cuda.synchronize()
+    tag = f"dist_worker {storage}/{wire}"
+    for rank, w in enumerate(workers):
+        check(w["count"] == sim.count,
+              f"{tag} rank {rank}: count {w['count']} != sim {sim.count}")
+        check(w["device"] == "cuda:0", f"{tag} rank {rank} ran on "
+                                       f"{w['device']}")
+        check(w["launches"]["membership"] > 0,
+              f"{tag} rank {rank}: membership never launched")
+        if storage == "bucketed":
+            check(w["launches"]["intersect"] > 0,
+                  f"{tag} rank {rank}: intersect never launched")
+        _check_same_logical(w["stats"], sim.stats, f"{tag} rank {rank}")
+    merged = merge_process_stats([w["stats"] for w in workers])
+    return dict(storage=storage, wire=wire, count=sim.count,
+                command_s=wall, wall_skew=merged["wall_skew"],
+                per_process_wall_us=merged["per_process_wall_us"],
+                launches=[w["launches"] for w in workers],
+                max_memory_allocated=[w["max_memory_allocated"]
+                                      for w in workers])
+
+
+def _dist_full_rank(rank: int, port: int, src: str, pg_dir: str,
+                    out_dir: str) -> None:
+    """Part (b), one rank (a spawned process): the partition from
+    ``pg_dir``, ``rads_enumerate(mode="dist")`` of q1 with the default
+    EngineConfig on ``cuda:0``, its payload JSON to ``out_dir``."""
+    import datetime
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.rads import DEFAULT_ENGINE, QUERIES
+    from repro_torch.core import Pattern, rads_enumerate
+    from repro_torch.graph import PartitionedGraph
+    from repro_torch.kernels.membership import ops as memb
+    torch.cuda.set_device(0)
+    with open(os.path.join(pg_dir, "ints.json")) as f:
+        ints = json.load(f)
+    pg = PartitionedGraph(**ints, **{
+        k: np.load(os.path.join(pg_dir, f"{k}.npy"))
+        for k in ("adj", "deg", "n_local", "border", "border_dist",
+                  "old2new", "new2old")})
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=DIST_RANKS, rank=rank,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        memb.launches = 0
+        t0 = time.perf_counter()
+        res = rads_enumerate(pg, Pattern.from_edges(QUERIES["q1"]),
+                             DEFAULT_ENGINE, mode="dist",
+                             return_embeddings=False, device="cuda:0")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        payload = dict(
+            rank=rank, count=res.count, wall_s=wall,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            resident_adj_bytes=int(pg.adj[rank].nbytes + pg.deg[rank].nbytes),
+            membership_launches=memb.launches, stats=res.stats)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(payload, f, default=float)
+
+
+def _dist_spawn(pg, tmp: str) -> list:
+    """Spawn the part (b) ranks over ``pg`` (saved under ``tmp``) and
+    return their payloads; fails on a rank's exit code or a hang."""
+    import multiprocessing as mp
+    import socket
+    pg_dir = os.path.join(tmp, "pg")
+    os.makedirs(pg_dir)
+    with open(os.path.join(pg_dir, "ints.json"), "w") as f:
+        json.dump({k: int(getattr(pg, k)) for k in
+                   ("n", "n_real", "ndev", "stride", "max_degree")}, f)
+    for k in ("adj", "deg", "n_local", "border", "border_dist", "old2new",
+              "new2old"):
+        np.save(os.path.join(pg_dir, f"{k}.npy"), getattr(pg, k))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dist_full_rank,
+                         args=(r, port, os.path.join(ROOT, "src"), pg_dir,
+                               tmp))
+             for r in range(DIST_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+    check(not hung, f"dist ranks outlived {DIST_TIMEOUT_S:.0f}s")
+    codes = [p.exitcode for p in procs]
+    check(not any(codes), f"dist ranks failed: exit codes {codes}")
+    out = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_dist(n: int, g=None, expect: int | None = None):
+    """Phase 18: the ``dist`` exchange, one rank per partition over
+    ``torch.distributed`` (gloo), two ranks sharing the card.  (a) the
+    worker CLI, dense/raw and bucketed/varint, against ``sim`` on the
+    card; (b) the full cell's recipe split 2 ways, q1 dense/raw with the
+    default EngineConfig: the count against scipy's triangles, every
+    logical stat against an in-process ``sim`` run of the same partition
+    on the card, each rank's wall time, peak memory, resident adjacency
+    and membership launches beside ``sim``'s.  ``g`` and ``expect`` are
+    the recipe's graph at ``n`` and its triangle count, when phase 5 has
+    them."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs.rads import DEFAULT_ENGINE, QUERIES
+    from repro_torch.core import Pattern, merge_process_stats, rads_enumerate
+    from repro_torch.graph import partition, powerlaw_graph
+    from repro_torch.kernels.membership import ops as memb
+    import concurrent.futures
+    t0 = time.perf_counter()
+    # the two launches side by side: four ranks on the card
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        cli = [f.result() for f in [ex.submit(_dist_cli, "dense", "raw"),
+                                    ex.submit(_dist_cli, "bucketed",
+                                              "varint")]]
+    emit(phase="dist", part="worker_cli", graph="dblp_bench hash/2",
+         runs=cli, added_s=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    if g is None:
+        g = powerlaw_graph(n, 6, seed=1)
+        expect = _triangles(g)
+    pg = partition(g, DIST_RANKS, method="bfs")
+    setup_s = time.perf_counter() - t0
+    pat = Pattern.from_edges(QUERIES["q1"])
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    memb.launches = 0
+    t0 = time.perf_counter()
+    sim = rads_enumerate(pg, pat, DEFAULT_ENGINE, mode="sim",
+                         return_embeddings=False, device=DEVICE)
+    torch.cuda.synchronize()
+    sim_wall = time.perf_counter() - t0
+    sim_peak = torch.cuda.max_memory_allocated()
+    sim_launches = memb.launches
+    check(sim.count == expect, f"dist phase: sim count {sim.count} != "
+                               f"scipy triangles {expect}")
+    # the ranks get the card's memory: the parent keeps only its context
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _dist_spawn(pg, tmp)
+    dist_s = time.perf_counter() - t0
+    for r in ranks:
+        check(r["count"] == expect,
+              f"dist rank {r['rank']}: count {r['count']} != scipy "
+              f"triangles {expect}")
+        check(r["membership_launches"] > 0,
+              f"dist rank {r['rank']}: membership never launched")
+        _check_same_logical(r["stats"], sim.stats, f"dist rank {r['rank']}")
+    merged = merge_process_stats([r["stats"] for r in ranks])
+    st = merged
+    emit(phase="dist", part="full", n=n, published_n=FULL_N,
+         cut=n != FULL_N, cut_reason=CUT_REASON if n == SMOKE_N else None,
+         ranks=DIST_RANKS, setup_s=setup_s,
+         count=expect, triangles_scipy=expect,
+         per_rank=[{k: r[k] for k in ("rank", "wall_s",
+                                      "max_memory_allocated",
+                                      "resident_adj_bytes",
+                                      "membership_launches")}
+                   for r in ranks],
+         spawn_to_exit_s=dist_s, wall_skew=st["wall_skew"],
+         per_process_wall_us=st["per_process_wall_us"],
+         n_waves=st["n_waves"], cap_escalations=st["cap_escalations"],
+         final_caps=st["final_caps"],
+         bytes_fetch=st["bytes_fetch"], bytes_verify=st["bytes_verify"],
+         bytes_wire_fetch=st["bytes_wire_fetch"],
+         bytes_wire_verify=st["bytes_wire_verify"],
+         bytes_wire_fetch_dev=st["bytes_wire_fetch_dev"],
+         bytes_wire_verify_dev=st["bytes_wire_verify_dev"],
+         peak_adj_bytes=st["peak_adj_bytes"],
+         sim=dict(wall_s=sim_wall, max_memory_allocated=sim_peak,
+                  membership_launches=sim_launches))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--full-n", type=int, default=SMOKE_N,
@@ -3745,6 +4005,12 @@ def main():
     ap.add_argument("--gnn-train-only", action="store_true",
                     help="run the device and build phases, then only the "
                          "GNN training phases (15-17), printing no result")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="run the device and build phases, then only the "
+                         "dist phase (18), printing no result")
+    ap.add_argument("--dist-n", type=int, default=DIST_N,
+                    help=f"vertices of the dist phase's graph (published: "
+                         f"{FULL_N})")
     args = ap.parse_args()
     # growable segments instead of fixed blocks: the escalated stages
     # allocate and free tensors of several GB, which fragments fixed blocks
@@ -3774,6 +4040,9 @@ def main():
         phase_gnn_train_kernels(products)
         phase_gnn_train_parity()
         phase_gnn_train(products)
+        return
+    if args.dist_only:
+        phase_dist(args.dist_n)
         return
     # the full-scale graph: its shapes and degrees drive the kernel timings
     t0 = time.perf_counter()
@@ -3819,8 +4088,8 @@ def main():
                           "varint": coded["bytes_wire_fetch"]})
 
     # the LM serving path: its own kernels, each launch count read around
-    # the serving run (a)
-    del g, pg
+    # the serving run (a); the graph stays on the host for phase 18
+    del pg
     torch.cuda.empty_cache()
     lm_rows = phase_lm_kernels()
     phase_lm_parity()
@@ -3856,6 +4125,13 @@ def main():
     phase_gnn_train_parity()
     gat_train_launches, graphcast_train_launches = phase_gnn_train(products)
     del products
+
+    # the dist exchange: two ranks sharing the card, on phase 5's graph
+    torch.cuda.empty_cache()
+    if args.dist_n == args.full_n:
+        phase_dist(args.dist_n, g, expect)
+    else:
+        phase_dist(args.dist_n)
 
     # membership on the back-edge filter's own inputs, against the bound
     # of what those inputs need

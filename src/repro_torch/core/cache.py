@@ -5,8 +5,9 @@ and again (hubs appear as ``f(pivot)`` in many partial embeddings).  Each
 virtual machine keeps a set-associative cache of fetched foreign rows, so a
 repeat request is answered locally and masked off the all-to-all.
 
-Layout, in the engine's stacked ``(ndev, ...)`` form (one cache per
-machine), as in the reference:
+Layout, in the engine's stacked ``(nloc, ...)`` form (one cache per
+machine this process holds: every machine under ``sim``/``gather``, the
+rank's own under ``spmd``/``dist``), as in the reference:
 
 * ``keys``    ``(ndev, slots, ways)`` int32 vertex ids, sentinel ``n`` =
   invalid line; vertex ``v`` lives only in set ``v & (slots - 1)``;
@@ -48,7 +49,7 @@ class AdjCache:
     docstring).  Updates return a new state, as in the reference; the
     scheduler threads it through the fetches in dispatch order."""
 
-    ndev: int
+    ndev: int         # machines of the whole stack (the tensors hold nloc)
     slots: int        # sets per device (power of two)
     ways: int         # associativity (1 = direct-mapped)
     n: int            # sentinel / invalid key (== graph.n)
@@ -63,23 +64,26 @@ class AdjCache:
     @classmethod
     def build(cls, ndev: int, slots: int, ways: int, n: int,
               line_width: int, decay: int = 0,
-              device=None) -> "AdjCache":
-        """An all-invalid cache of the given geometry."""
+              device=None, nloc: int | None = None) -> "AdjCache":
+        """An all-invalid cache of the given geometry for ``nloc`` of the
+        ``ndev`` machines (default all)."""
+        nloc = ndev if nloc is None else nloc
         i32 = dict(dtype=torch.int32, device=device)
         return cls(ndev=ndev, slots=slots, ways=ways, n=n,
                    line_width=line_width, decay=decay,
-                   keys=torch.full((ndev, slots, ways), n, **i32),
-                   rows=torch.full((ndev, slots, ways, line_width), n, **i32),
-                   benefit=torch.full((ndev, slots, ways), _EMPTY_BENEFIT,
+                   keys=torch.full((nloc, slots, ways), n, **i32),
+                   rows=torch.full((nloc, slots, ways, line_width), n, **i32),
+                   benefit=torch.full((nloc, slots, ways), _EMPTY_BENEFIT,
                                       **i32),
-                   tick=torch.zeros((ndev,), **i32))
+                   tick=torch.zeros((nloc,), **i32))
 
     @property
     def cache_bytes(self) -> int:
-        """Resident device footprint of the cache tensors."""
-        return int(sum(x.numel() * x.element_size()
-                       for x in (self.keys, self.rows, self.benefit,
-                                 self.tick)))
+        """Device footprint of the whole stack's caches (every machine's
+        is the same size; this process holds ``nloc`` of them)."""
+        local = sum(x.numel() * x.element_size()
+                    for x in (self.keys, self.rows, self.benefit, self.tick))
+        return int(local * self.ndev // self.keys.shape[0])
 
     def register_metrics(self, reg) -> None:
         reg["cache_enabled"] = True
@@ -103,14 +107,14 @@ class AdjCache:
 
 
 def build_cache(cfg, g) -> AdjCache | None:
-    """The cache ``EngineConfig`` asks for (``None`` = disabled), on the
-    device graph's device."""
+    """The cache ``EngineConfig`` asks for (``None`` = disabled), for the
+    device graph's block of machines, on its device."""
     if not cfg.enable_cache:
         return None
     return AdjCache.build(ndev=g.ndev, slots=cfg.cache_slots,
                           ways=cfg.cache_ways, n=g.n,
                           line_width=g.max_degree, decay=cfg.cache_decay,
-                          device=g.device)
+                          device=g.device, nloc=g.nloc)
 
 
 # --------------------------------------------------------------------------- #

@@ -6,7 +6,8 @@ splits, capacity escalation, queue rebalancing, the async pipeline — lives
 in :mod:`repro_torch.core.scheduler`; this module
 
 * classifies seeds (SM-E vs distributed, Prop. 1),
-* puts the partition on the device (dense storage),
+* puts the partition on the device (dense or bucketed storage; under
+  ``spmd``/``dist`` only the rank's own machine),
 * builds the device-resident adjacency cache from ``EngineConfig``,
 * preloads / persists the per-(pattern, graph) capacity and cost priors
   (:mod:`repro_torch.core.priors`),
@@ -17,7 +18,9 @@ in :mod:`repro_torch.core.scheduler`; this module
 The stats dict has the reference's keys and, for the same inputs, the
 same values, except wall-clock timings and the compile group: the port
 runs eagerly, so ``compiles=0``, ``compile_s=0.0``,
-``compile_cache_hits=0.0`` and ``exec_cache_enabled=False``.
+``compile_cache_hits=0.0`` and ``exec_cache_enabled=False``.  Under
+``dist`` every rank returns the whole result (the finalize is
+replicated); :func:`merge_process_stats` merges the ranks' stats dicts.
 """
 from __future__ import annotations
 
@@ -72,20 +75,34 @@ def rads_enumerate(pg: PartitionedGraph, pattern: Pattern,
 
     ``device=None`` runs on the card (``cuda``) and raises if there is
     none; ``device="cpu"`` runs the plain PyTorch versions of the kernels.
-    ``mode="sim"`` runs with both storage formats (``dense``,
-    ``bucketed``) and both wire formats (``raw``, ``varint``); the other
-    exchange modes raise ``NotImplementedError`` naming their ROADMAP
-    item.
+    ``mode`` selects a registered exchange backend: ``sim`` (the
+    reference), ``gather`` (per-destination gathers, bit-identical), or
+    ``spmd``/``dist``, one rank per partition over an initialized
+    ``torch.distributed`` process group (see
+    :mod:`repro_torch.launch.dist_worker`; each rank's ``device`` holds
+    its own machine).  Every mode runs both storage formats (``dense``,
+    ``bucketed``) and both wire formats (``raw``, ``varint``).
 
     ``tracer``: optional :class:`repro_torch.obs.trace.TraceRecorder` —
     wave / stage / scheduler spans land in it for Chrome-trace export."""
     tracer = tracer if tracer is not None else NULL_TRACER
     plan = plan or best_plan(pattern, cfg.plan_rho)
     pd = build_plan_data(plan)
+    exch = Exchange(mode=mode, wire_format="raw")   # validates the mode
+    rank0 = exch.process_topology()[0] == 0
+
+    if not exch.whole_stack and cfg.pipeline_depth == "auto":
+        # every rank must dispatch the same collectives in the same order,
+        # and the adaptive depth steers from each rank's own wall time
+        cfg = dataclasses.replace(cfg, pipeline_depth=2)
 
     # ---- capacity / cost priors (persisted §6 calibration) ---------------- #
     pkey = priors_key(pattern, pg) if cfg.priors_path else None
     prior = load_priors(cfg.priors_path).get(pkey) if pkey else None
+    if not exch.whole_stack:
+        # rank 0's priors on every rank: the wire choice, the caps and the
+        # depth are host decisions that must agree
+        prior = exch.broadcast_object(prior)
     requested_wire = cfg.wire_format
     wire_fmt, wire_reason = resolve_wire_format(requested_wire, mode, prior)
     if wire_fmt != cfg.wire_format:
@@ -100,7 +117,7 @@ def rads_enumerate(pg: PartitionedGraph, pattern: Pattern,
 
     exch = Exchange(mode=mode, wire_format=cfg.wire_format,
                     comm_chunks=cfg.comm_chunks if cfg.comm_pipeline else 1)
-    g = device_graph(pg, cfg.storage_format, device)
+    g = device_graph(pg, cfg.storage_format, device, exch.block(pg.ndev))
     runner = StageRunner(g, pd, cfg, exch, cache=build_cache(cfg, g),
                          tracer=tracer)
 
@@ -251,7 +268,9 @@ def rads_enumerate(pg: PartitionedGraph, pattern: Pattern,
     mean_dev = float(comm_dev.mean()) if ndev else 0.0
     stats["comm_skew"] = (float(comm_dev.max()) / mean_dev
                           if mean_dev > 0 else 1.0)
-    if pkey:
+    if pkey and rank0:
+        # under dist every rank holds the same logical stats, so only
+        # rank 0 writes the shared priors file
         entry = dict(per_seed_cost=float(per_seed_cost),
                      caps=stats["final_caps"],
                      node_hist=node_hist.tolist())
@@ -274,3 +293,55 @@ def rads_enumerate(pg: PartitionedGraph, pattern: Pattern,
     return EnumerationResult(count=total,
                              embeddings=embs if return_embeddings else None,
                              stats=stats.to_stats(), registry=stats)
+
+
+# logical stats every rank must agree on bit for bit under dist (the
+# replicated finalize hands every rank identical wave tuples, so any
+# divergence here means the collectives themselves diverged)
+_MERGE_EQUAL_KEYS = (
+    "bytes_fetch", "bytes_verify", "bytes_wire_fetch", "bytes_wire_verify",
+    "bytes_wire_fetch_dev", "bytes_wire_verify_dev", "bytes_wire_max_dev",
+    "bytes_fetch_compressed", "bytes_saved_cache", "cache_hits",
+    "cache_probes", "comm_skew", "n_waves", "n_groups", "sme_count",
+    "dist_count", "overflow_retries", "cap_escalations", "wire_format")
+# host-local wall timings: the run is as slow as its slowest rank
+_MERGE_MAX_KEYS = ("wave_s_total", "compile_s", "sme_pipeline_s",
+                   "dist_pipeline_s", "sme_wall_us", "dist_wall_us",
+                   "wall_us")
+
+
+def merge_process_stats(per_proc_stats: list[dict]) -> dict:
+    """Merge the per-rank stats dicts of one multi-process ``dist`` run.
+
+    Logical counters (bytes, counts, waves) are replicated state, so their
+    equality across ranks is checked, not averaged: a mismatch is a
+    determinism bug.  Wall-clock keys are host-local and merge by max;
+    ``wall_skew`` is the max over the mean of the ranks' ``wall_us``."""
+    if not per_proc_stats:
+        raise ValueError("merge_process_stats needs at least one stats dict")
+    base = per_proc_stats[0]
+    mismatches = []
+    for key in _MERGE_EQUAL_KEYS:
+        if key not in base:
+            continue
+        for i, st in enumerate(per_proc_stats[1:], start=1):
+            if key in st and st[key] != base[key]:
+                mismatches.append(
+                    f"{key}: proc0={base[key]!r} proc{i}={st[key]!r}")
+    if mismatches:
+        raise ValueError(
+            "per-process logical stats diverged (determinism bug): "
+            + "; ".join(mismatches))
+    merged = dict(base)
+    for key in _MERGE_MAX_KEYS:
+        vals = [st[key] for st in per_proc_stats if key in st]
+        if vals:
+            merged[key] = max(float(v) for v in vals)
+    merged["process_count"] = len(per_proc_stats)
+    merged["per_process_wall_s"] = [
+        float(st.get("wave_s_total", 0.0)) for st in per_proc_stats]
+    walls = [float(st.get("wall_us", 0.0)) for st in per_proc_stats]
+    merged["per_process_wall_us"] = walls
+    mean_wall = sum(walls) / len(walls)
+    merged["wall_skew"] = (max(walls) / mean_wall if mean_wall > 0 else 1.0)
+    return merged

@@ -1,6 +1,6 @@
 """R-Meef: region-grouped multi-round expand, verify & filter (§3, App. B).
 
-The port of the reference engine (``sim`` exchange, every storage and
+The port of the reference engine (every exchange backend, storage and
 wire format).  One vectorized, static-shape engine serves two roles:
 
 * **SM-E** (``local_only=True``): the single-machine pass over seeds whose
@@ -10,9 +10,15 @@ wire format).  One vectorized, static-shape engine serves two roles:
   cache), per-leaf expansion with local verification, then one batched
   ``verifyE`` exchange over the EVI (deduped undetermined edges; Def. 5).
 
-All ``ndev`` virtual machines share one device: every tensor carries a
-leading ``ndev`` axis, and the per-device functions the reference vmaps
-are written batched over it.  Shapes come from ``EngineConfig``; every
+Every tensor carries a leading axis of the machines this process holds,
+the device graph's block ``g.dev0 .. g.dev0 + g.nloc - 1`` of ``g.ndev``:
+all of them under ``sim`` and ``gather``, the rank's own under
+``spmd``/``dist``, where the two exchanges are real collectives between
+processes.  The per-device functions the reference vmaps are written
+batched over that axis; machine ids in the data (owners, peers) are
+global.  The byte stats are computed from per-peer matrices of every
+machine (``exch.gather_rows``), so each rank holds ``sim``'s stats, bit
+for bit.  Shapes come from ``EngineConfig``; every
 overflow is flagged, and the scheduler reacts by splitting region groups
 (§6 memory control).  Nothing here synchronises with the host: stages
 only enqueue work, and a wave's results reach the host in one copy when
@@ -54,8 +60,8 @@ import torch
 from repro_torch.configs.rads import EngineConfig
 from repro_torch.core import wire as wire_codec
 from repro_torch.core.cache import AdjCache, probe_lines
-from repro_torch.core.exchange import (SimExchange, compact_index, masked,
-                                       unique_ids, unique_pairs)
+from repro_torch.core.exchange import (ExchangeBackend, compact_index,
+                                       masked, unique_ids, unique_pairs)
 from repro_torch.core.plan import Plan
 from repro_torch.graph.storage import DeviceGraph
 from repro_torch.kernels.intersect.ops import intersect
@@ -171,16 +177,16 @@ def build_plan_data(plan: Plan) -> PlanData:
 # --------------------------------------------------------------------------- #
 def _per_peer_compact(ids, mask, owners, ndev: int, cap_out: int, fill: int,
                       extras: tuple = ()):
-    """Split sorted id lists ``(ndev, N)`` into per-peer request buffers
-    ``(ndev, ndev, cap_out)``.
+    """Split sorted id lists ``(nloc, N)`` into per-peer request buffers
+    ``(nloc, ndev, cap_out)``.
 
-    ``extras``: ``(tensor (ndev, N, ...), fill)`` pairs co-compacted with
-    ``ids``.  Returns ``(reqs, *extras_compacted, counts (ndev, ndev),
+    ``extras``: ``(tensor (nloc, N, ...), fill)`` pairs co-compacted with
+    ``ids``.  Returns ``(reqs, *extras_compacted, counts (nloc, ndev),
     overflow)``; order within a peer stays sorted."""
     peers = torch.arange(ndev, dtype=owners.dtype, device=ids.device)
     m = mask[:, None, :] & (owners[:, None, :] == peers[None, :, None])
-    new_mask, ov, take = compact_index(m, cap_out)      # (ndev, ndev, cap)
-    t = torch.arange(ndev, device=ids.device).view(ndev, 1, 1)
+    new_mask, ov, take = compact_index(m, cap_out)      # (nloc, ndev, cap)
+    t = torch.arange(ids.shape[0], device=ids.device).view(-1, 1, 1)
     outs = []
     for a, fl in ((ids, fill), *extras):
         outs.append(masked(a[t, take], new_mask, fl))
@@ -190,7 +196,7 @@ def _per_peer_compact(ids, mask, owners, ndev: int, cap_out: int, fill: int,
 def _varint_id_bytes(wire: torch.Tensor, n: int) -> torch.Tensor:
     """Modeled delta+varint size of the fetchV id payloads.
 
-    ``wire``: (ndev, peer, fcap) request buffers — ids ascending among the
+    ``wire``: (nloc, peer, fcap) request buffers — ids ascending among the
     valid (< n) entries, sentinel holes allowed.  Each peer stream is
     delta-coded against the previous valid id (the first id absolute) and
     each delta LEB128-sized; returns the per-(src, peer) byte matrix."""
@@ -207,14 +213,14 @@ def _varint_id_bytes(wire: torch.Tensor, n: int) -> torch.Tensor:
     return masked(vlen, valid, 0).sum(-1)
 
 
-def fetch_exchange(g: DeviceGraph, exch: SimExchange, pivots, need,
+def fetch_exchange(g: DeviceGraph, exch: ExchangeBackend, pivots, need,
                    fcap: int, cache: AdjCache | None = None):
     """Batched fetchV (§3.2 Expand): dedup foreign pivot ids, probe the
     adjacency cache, exchange the misses, answer with local adjacency rows,
     exchange back, merge cached rows in, and admit the miss responses.
 
-    pivots/need: (ndev, cap).  Returns ``(req_ids (ndev, ndev, fcap) sorted
-    per peer — hits included, fetched_adj (ndev, ndev, fcap, max_degree)
+    pivots/need: (nloc, cap).  Returns ``(req_ids (nloc, ndev, fcap) sorted
+    per peer — hits included, fetched_adj (nloc, ndev, fcap, max_degree)
     with cached rows merged in, overflow, fstats, cache')``.  ``fstats``
     counts only what crossed the wire in ``bytes_fetch``; the hit-masked
     remainder is ``bytes_saved_cache``.
@@ -225,8 +231,9 @@ def fetch_exchange(g: DeviceGraph, exch: SimExchange, pivots, need,
     back onto their hole positions: the rows are bit-identical to the raw
     path's, and only ``bytes_wire_fetch`` (the stream lengths) changes."""
     ndev, stride, n, D = g.ndev, g.stride, g.n, g.max_degree
+    dev0, nloc = g.dev0, g.nloc
     use_cache = cache is not None
-    t2 = _dev_ids(0, ndev, pivots.device, 2)
+    t2 = _dev_ids(dev0, dev0 + nloc, pivots.device, 2)
     foreign = need & (pivots // stride != t2) & (pivots < n)
     uids, umask = unique_ids(pivots, foreign, n)
     owners = (uids // stride).clamp(0, ndev - 1)
@@ -235,8 +242,8 @@ def fetch_exchange(g: DeviceGraph, exch: SimExchange, pivots, need,
         # the reference probes every unique id, then compacts the outcomes;
         # probing the compacted requests gives the same flags, ways and
         # rows (a sentinel slot misses with way 0 and a sentinel row) for
-        # (ndev, ndev, fcap) ids instead of (ndev, frontier_cap)
-        hit_c, slot_c, way_c = probe_lines(cache.keys, reqs.view(ndev, -1),
+        # (nloc, ndev, fcap) ids instead of (nloc, frontier_cap)
+        hit_c, slot_c, way_c = probe_lines(cache.keys, reqs.view(nloc, -1),
                                            n)
         hit_c = hit_c.view(reqs.shape)
         # hits never cross the wire: mask them out of the request
@@ -246,14 +253,21 @@ def fetch_exchange(g: DeviceGraph, exch: SimExchange, pivots, need,
         wire = reqs
         counts_hit = torch.zeros_like(counts)
 
-    # The response rows are the one large tensor here, (ndev, ndev, fcap,
+    # The response rows are the one large tensor here, (nloc, ndev, fcap,
     # max_degree).  It is built once, in the requesters' layout: owners
     # answer in device chunks whose exchange lands in its slice, and the
-    # cached rows of hits are merged in place, chunk by chunk.
+    # cached rows of hits are merged in place, chunk by chunk.  A rank
+    # holding one machine is one responder: one chunk, a whole exchange.
     fetched = torch.empty(reqs.shape + (D,), dtype=torch.int32,
-                          device=reqs.device)           # (ndev, peer, fcap, D)
-    chunks = _device_chunks(ndev, ndev * fcap * D)
-    wire_stream_bytes = model_ids = None
+                          device=reqs.device)           # (nloc, peer, fcap, D)
+    chunks = (_device_chunks(nloc, ndev * fcap * D) if exch.whole_stack
+              else [(0, nloc)])
+
+    def peers(p0: int, p1: int) -> slice:
+        """The requesters' peer slots a responder chunk's exchange fills."""
+        return slice(p0, p1) if exch.whole_stack else slice(None)
+
+    model_ids = None
     wire_ov = torch.zeros((), dtype=torch.bool, device=reqs.device)
     if exch.wire_format == "varint":
         # coded path: compacted varint id streams out, degree+delta coded
@@ -264,11 +278,11 @@ def fetch_exchange(g: DeviceGraph, exch: SimExchange, pivots, need,
             wire_codec.encode_ids_lanes(wire, n, req_cap)
         recv_s, recv_len, recv_raw = exch.a2a_tree((req_s, req_len, req_raw))
         dec_ids, dec_mask = wire_codec.decode_ids_lanes(
-            recv_s, recv_len, recv_raw, fcap, n)        # (ndev, src, fcap)
+            recv_s, recv_len, recv_raw, fcap, n)        # (nloc, src, fcap)
         del req_s, recv_s
         resp_len = torch.empty_like(req_len)    # row stream bytes, [p, t]
         for p0, p1 in chunks:
-            resp = _fetch_answer(g, dec_ids[p0:p1], p0)
+            resp = _fetch_answer(g, dec_ids[p0:p1], dev0 + p0)
             dg_s, dg_len, ri_s, ri_len, resp_raw, r_ov = \
                 wire_codec.encode_rows_lanes(resp, dec_mask[p0:p1], n,
                                              degs_cap, rows_cap)
@@ -276,12 +290,43 @@ def fetch_exchange(g: DeviceGraph, exch: SimExchange, pivots, need,
             # decoded straight onto the requesters' slots of this chunk
             wire_codec.decode_rows_lanes(
                 *exch.a2a_tree((dg_s, dg_len, ri_s, ri_len, resp_raw)),
-                fcap, D, n, valid=wire[:, p0:p1] < n,
-                out=fetched[:, p0:p1])                  # (ndev, d, fcap, D)
+                fcap, D, n, valid=wire[:, peers(p0, p1)] < n,
+                out=fetched[:, peers(p0, p1)])          # (nloc, d, fcap, D)
             del dg_s, ri_s
             resp_len[p0:p1] = dg_len + ri_len
             wire_ov = wire_ov | r_ov
         wire_ov = wire_ov | e_ov
+    else:
+        recv = exch.a2a(wire)                           # (nloc, src, fcap)
+        for p0, p1 in chunks:
+            fetched[:, peers(p0, p1)] = exch.a2a(
+                _fetch_answer(g, recv[p0:p1], dev0 + p0))
+    if use_cache:
+        for t0, t1 in _device_chunks(nloc, ndev * fcap * D):
+            f = fetched[t0:t1]
+            i2 = torch.arange(t0, t1, device=f.device)[:, None]
+            crow = cache.rows[i2, slot_c[t0:t1], way_c[t0:t1]].view(f.shape)
+            torch.where(hit_c[t0:t1, ..., None], crow, f, out=f)
+        # the admission pass over this batch's probe outcomes
+        cache = cache.updated(reqs.view(nloc, -1), hit_c.view(nloc, -1),
+                              way_c.to(torch.int32),
+                              fetched.view(nloc, -1, D))
+
+    # the modeled column reuses the codec's sizing pass when it already ran
+    if model_ids is None:
+        model_ids = _varint_id_bytes(wire, n)
+    lens = (req_len, resp_len) if exch.wire_format == "varint" else ()
+    # every machine's per-peer matrices, (ndev, ndev): the stats below are
+    # sim's own arithmetic on them
+    counts, counts_hit, model_ids, *lens = exch.gather_rows(
+        counts, counts_hit, model_ids, *lens)
+    # 4B request id + 4B * max_degree response row per off-device entry
+    elem = 4 * (1 + D)
+    eff = counts - counts_hit                    # entries that cross the wire
+    full_bytes = exch.off_device_bytes(counts, elem)
+    wire_bytes = exch.off_device_bytes(eff, elem)
+    if lens:
+        req_len, resp_len = lens
         wire_stream_bytes = (exch.off_device_payload_bytes(req_len)
                              + exch.off_device_payload_bytes(resp_len))
         # requesters send the id streams, responders the row streams: the
@@ -289,34 +334,11 @@ def fetch_exchange(g: DeviceGraph, exch: SimExchange, pivots, need,
         wire_dev = (exch.per_dev_sent_bytes(req_len)
                     + exch.per_dev_sent_bytes(resp_len))
     else:
-        recv = exch.a2a(wire)                           # (ndev, src, fcap)
-        for p0, p1 in chunks:
-            fetched[:, p0:p1] = exch.a2a(_fetch_answer(g, recv[p0:p1], p0))
-    if use_cache:
-        for t0, t1 in _device_chunks(ndev, ndev * fcap * D):
-            f = fetched[t0:t1]
-            i2 = torch.arange(t0, t1, device=f.device)[:, None]
-            crow = cache.rows[i2, slot_c[t0:t1], way_c[t0:t1]].view(f.shape)
-            torch.where(hit_c[t0:t1, ..., None], crow, f, out=f)
-        # the admission pass over this batch's probe outcomes
-        cache = cache.updated(reqs.view(ndev, -1), hit_c.view(ndev, -1),
-                              way_c.to(torch.int32),
-                              fetched.view(ndev, -1, D))
-
-    # 4B request id + 4B * max_degree response row per off-device entry
-    elem = 4 * (1 + D)
-    eff = counts - counts_hit                    # entries that cross the wire
-    full_bytes = exch.off_device_bytes(counts, elem)
-    wire_bytes = exch.off_device_bytes(eff, elem)
-    if wire_stream_bytes is None:
         # requester t sends 4B ids (eff[t, p]), responder p sends 4*D-byte
         # rows back (eff.T); the two row sums add up to wire_bytes exactly
         wire_dev = (exch.per_dev_sent_bytes(eff * 4.0)
                     + exch.per_dev_sent_bytes(eff.T * (4.0 * D)))
         wire_stream_bytes = wire_bytes
-    # the modeled column reuses the codec's sizing pass when it already ran
-    if model_ids is None:
-        model_ids = _varint_id_bytes(wire, n)
     comp_bytes = (exch.off_device_payload_bytes(model_ids)
                   + exch.off_device_bytes(eff, 4.0 * D))
     zero = torch.zeros((), dtype=torch.float32, device=pivots.device)
@@ -334,7 +356,8 @@ def fetch_exchange(g: DeviceGraph, exch: SimExchange, pivots, need,
 
 
 def _fetch_answer(g: DeviceGraph, rc, p0: int):
-    """Owner-side fetchV answer of devices ``p0..``: the local adjacency
+    """Owner-side fetchV answer of the machines ``p0..`` (global ids,
+    inside the graph's block): the local adjacency
     row of each requested id ``rc (d, src, fcap)``, sentinel rows where the
     id is not local."""
     stride, n = g.stride, g.n
@@ -344,10 +367,10 @@ def _fetch_answer(g: DeviceGraph, rc, p0: int):
     return resp.masked_fill_(~ok[..., None], n)
 
 
-def verify_exchange(g: DeviceGraph, exch: SimExchange, pa, pb, pmask,
+def verify_exchange(g: DeviceGraph, exch: ExchangeBackend, pa, pb, pmask,
                     vcap: int):
-    """Batched verifyE over the EVI (§3.2).  pa/pb/pmask: (ndev, R, K).
-    Pairs are routed to owner(pa).  Returns ``(ok (ndev, R, K) — True
+    """Batched verifyE over the EVI (§3.2).  pa/pb/pmask: (nloc, R, K).
+    Pairs are routed to owner(pa).  Returns ``(ok (nloc, R, K) — True
     where the edge exists or the slot is inactive, overflow, off_bytes,
     wire_bytes, wire_dev)``.  ``off_bytes`` is the raw-equivalent
     accounting (8 B per pair + 1 B per answer); ``wire_bytes`` is what
@@ -355,9 +378,9 @@ def verify_exchange(g: DeviceGraph, exch: SimExchange, pa, pb, pmask,
     varint wire (Elias-Fano ``a``, run-delta varint ``b``, bit-packed
     answers).  ``wire_dev`` attributes ``wire_bytes`` to the sending
     devices."""
-    ndev, stride, n = g.ndev, g.stride, g.n
+    ndev, stride, n, nloc = g.ndev, g.stride, g.n, g.nloc
     R, K = pa.shape[1], pa.shape[2]
-    fa, fb, fm = (x.reshape(ndev, R * K) for x in (pa, pb, pmask))
+    fa, fb, fm = (x.reshape(nloc, R * K) for x in (pa, pb, pmask))
 
     ua, ub, umask, rank = unique_pairs(fa, fb, fm, n)
     owners = (ua // stride).clamp(0, ndev - 1)
@@ -370,8 +393,8 @@ def verify_exchange(g: DeviceGraph, exch: SimExchange, pa, pb, pmask,
 
     def answer(ra, rb):
         return torch.cat([
-            _verify_answer(g, ra[t0:t1], rb[t0:t1], t0)
-            for t0, t1 in _device_chunks(ndev, ndev * vcap * g.max_degree)])
+            _verify_answer(g, ra[t0:t1], rb[t0:t1], g.dev0 + t0)
+            for t0, t1 in _device_chunks(nloc, ndev * vcap * g.max_degree)])
 
     if exch.wire_format == "varint":
         # coded path: EF(a) + run-delta varint(b) out, bit-packed bools back
@@ -385,23 +408,27 @@ def verify_exchange(g: DeviceGraph, exch: SimExchange, pa, pb, pmask,
         ans_s, ans_len = wire_codec.pack_bools_lanes(answer(dec_a, dec_b),
                                                      r_counts, ans_cap)
         back = wire_codec.unpack_bools_lanes(exch.a2a(ans_s), counts, vcap)
-        wire_bytes = (exch.off_device_payload_bytes(a_len + b_len)
-                      + exch.off_device_payload_bytes(ans_len))
-        wire_dev = (exch.per_dev_sent_bytes(a_len + b_len)
-                    + exch.per_dev_sent_bytes(ans_len))
+        lens = (a_len + b_len, ans_len)
         ov = ov | p_ov
     else:
         recv_a, recv_b = exch.a2a_tree((reqs_a, reqs_b))
-        back = exch.a2a(answer(recv_a, recv_b))         # (ndev, peer, vcap)
-        wire_bytes = wire_dev = None
+        back = exch.a2a(answer(recv_a, recv_b))         # (nloc, peer, vcap)
+        lens = ()
 
-    t2 = torch.arange(ndev, device=owners.device)[:, None]
+    t2 = torch.arange(nloc, device=owners.device)[:, None]
     sl_c = slots.clamp(0, vcap - 1)
     ok_unique = back[t2, owners, sl_c] & umask & (slots < vcap)
     ok_flat = ok_unique.gather(1, rank.long().clamp_(0, R * K - 1))
-    ok = ok_flat.view(ndev, R, K) | ~pmask
+    ok = ok_flat.view(nloc, R, K) | ~pmask
+    # every machine's per-peer matrices, (ndev, ndev), as in fetch_exchange
+    counts, *lens = exch.gather_rows(counts, *lens)
     off_bytes = exch.off_device_bytes(counts, 8 + 1)
-    if wire_bytes is None:
+    if lens:
+        wire_bytes = (exch.off_device_payload_bytes(lens[0])
+                      + exch.off_device_payload_bytes(lens[1]))
+        wire_dev = (exch.per_dev_sent_bytes(lens[0])
+                    + exch.per_dev_sent_bytes(lens[1]))
+    else:
         wire_bytes = off_bytes
         # requester t sends 8B pairs (counts[t, p]); owner p sends 1B
         # answers back (counts.T) — row sums add up to off_bytes exactly
@@ -411,7 +438,8 @@ def verify_exchange(g: DeviceGraph, exch: SimExchange, pa, pb, pmask,
 
 
 def _verify_answer(g: DeviceGraph, ra, rb, t0: int):
-    """Owner-side verifyE answer of devices ``t0..``: is ``rb`` in the
+    """Owner-side verifyE answer of the machines ``t0..`` (global ids):
+    is ``rb`` in the
     local adjacency row of ``ra``?  ``ra``/``rb``: (d, src, vcap)."""
     stride, n, D = g.stride, g.n, g.max_degree
     t3 = _dev_ids(t0, t0 + ra.shape[0], ra.device, 3)
@@ -432,12 +460,13 @@ def _leaf_step(g: DeviceGraph, cfg: EngineConfig, spec: StepSpec,
     (injectivity, symmetry, degree, local back-edge membership — Alg.
     1+2); compact to ``frontier_cap``; record undetermined edges into the
     pending (EVI) buffers.  Runs the devices in memory-bounded chunks."""
-    outs = [_leaf_devs(g, cfg, spec, k_off, t0, rows[t0:t1], alive[t0:t1],
+    outs = [_leaf_devs(g, cfg, spec, k_off, g.dev0 + t0, rows[t0:t1],
+                       alive[t0:t1],
                        seed_slot[t0:t1], pend_a[t0:t1], pend_b[t0:t1],
                        pend_m[t0:t1],
                        None if local_only else req_ids[t0:t1],
                        None if local_only else fetched[t0:t1], local_only)
-            for t0, t1 in _device_chunks(g.ndev,
+            for t0, t1 in _device_chunks(g.nloc,
                                          rows.shape[1] * g.max_degree)]
     if len(outs) == 1:
         return outs[0]
@@ -449,8 +478,8 @@ def _leaf_step(g: DeviceGraph, cfg: EngineConfig, spec: StepSpec,
 def _leaf_devs(g: DeviceGraph, cfg: EngineConfig, spec: StepSpec,
                k_off: int, t0: int, rows, alive, seed_slot,
                pend_a, pend_b, pend_m, req_ids, fetched, local_only: bool):
-    """:func:`_leaf_step` for the devices ``t0..t0+d-1`` (the slices
-    passed in)."""
+    """:func:`_leaf_step` for the machines ``t0..t0+d-1`` (global ids;
+    the slices passed in)."""
     ndev, stride, n, D = g.ndev, g.stride, g.n, g.max_degree
     cap = cfg.frontier_cap
     d, R, w = rows.shape
@@ -550,9 +579,9 @@ class WaveState:
     Byte counters are f32 scalars, as in the reference, exact up to 2^24
     bytes *per wave*; the driver accumulates waves in Python floats."""
 
-    rows: torch.Tensor           # (ndev, cap, width) partial embeddings
-    alive: torch.Tensor          # (ndev, cap) bool
-    seed_slot: torch.Tensor      # (ndev, cap) originating seed slot
+    rows: torch.Tensor           # (nloc, cap, width) partial embeddings
+    alive: torch.Tensor          # (nloc, cap) bool
+    seed_slot: torch.Tensor      # (nloc, cap) originating seed slot
     overflow: torch.Tensor       # () bool — any capacity overflow so far
     lost: torch.Tensor           # () bool — any dropped fetchV response
     bytes_fetch: torch.Tensor    # () f32 — off-device fetchV wire traffic
@@ -565,27 +594,30 @@ class WaveState:
     bytes_saved_cache: torch.Tensor       # () f32 — fetchV bytes hit-masked
     cache_hits: torch.Tensor     # () f32 — unique foreign ids served by cache
     cache_probes: torch.Tensor   # () f32 — unique foreign ids requested
-    node_counts: torch.Tensor    # (ndev, scap) trie nodes per seed
-    rounds_alive: tuple = ()     # per-unit (ndev,) alive counts
-    pend_a: torch.Tensor | None = None   # (ndev, cap, K) EVI endpoint a
-    pend_b: torch.Tensor | None = None   # (ndev, cap, K) EVI endpoint b
-    pend_m: torch.Tensor | None = None   # (ndev, cap, K) EVI slot active
+    node_counts: torch.Tensor    # (nloc, scap) trie nodes per seed
+    rounds_alive: tuple = ()     # per-unit (nloc,) alive counts
+    pend_a: torch.Tensor | None = None   # (nloc, cap, K) EVI endpoint a
+    pend_b: torch.Tensor | None = None   # (nloc, cap, K) EVI endpoint b
+    pend_m: torch.Tensor | None = None   # (nloc, cap, K) EVI slot active
 
 
 def init_wave(g: DeviceGraph, seeds, seed_mask) -> WaveState:
-    """Stage 0: lift a padded (ndev, scap) seed block into a WaveState."""
+    """Stage 0: lift the graph's block of rows of a padded (ndev, scap)
+    seed block into a WaveState."""
     dev = g.device
+    part = slice(g.dev0, g.dev0 + g.nloc)
     # pinned host buffers let the copies run behind the queued work
     # instead of synchronising the stream
-    seeds = _to_device(np.asarray(seeds, dtype=np.int32), dev)
-    seed_mask = _to_device(np.asarray(seed_mask, dtype=np.bool_), dev)
-    ndev, scap = seeds.shape
+    seeds = _to_device(np.asarray(seeds, dtype=np.int32)[part], dev)
+    seed_mask = _to_device(np.asarray(seed_mask, dtype=np.bool_)[part], dev)
+    nloc, scap = seeds.shape
+    ndev = g.ndev
     f32 = dict(dtype=torch.float32, device=dev)
     return WaveState(
         rows=seeds[..., None],
         alive=seed_mask,
         seed_slot=torch.arange(scap, dtype=torch.int32, device=dev)
-        .expand(ndev, scap).contiguous(),
+        .expand(nloc, scap).contiguous(),
         overflow=torch.zeros((), dtype=torch.bool, device=dev),
         lost=torch.zeros((), dtype=torch.bool, device=dev),
         bytes_fetch=torch.zeros((), **f32),
@@ -598,7 +630,7 @@ def init_wave(g: DeviceGraph, seeds, seed_mask) -> WaveState:
         bytes_saved_cache=torch.zeros((), **f32),
         cache_hits=torch.zeros((), **f32),
         cache_probes=torch.zeros((), **f32),
-        node_counts=torch.zeros((ndev, scap), dtype=torch.int32, device=dev))
+        node_counts=torch.zeros((nloc, scap), dtype=torch.int32, device=dev))
 
 
 def unit_evi_width(pd: PlanData, ui: int) -> int:
@@ -607,7 +639,7 @@ def unit_evi_width(pd: PlanData, ui: int) -> int:
 
 
 def fetch_stage(g: DeviceGraph, pd: PlanData, cfg: EngineConfig,
-                exch: SimExchange, ui: int, state: WaveState,
+                exch: ExchangeBackend, ui: int, state: WaveState,
                 local_only: bool, cache: AdjCache | None = None):
     """Pipeline stage 1 of unit ``ui``: batched fetchV on the unit pivot,
     with the adjacency cache probed before and fed after the exchange.
@@ -642,7 +674,7 @@ def expand_stage(g: DeviceGraph, pd: PlanData, cfg: EngineConfig,
     K = max(unit_evi_width(pd, ui), 1)
     rows, alive, seed_slot = state.rows, state.alive, state.seed_slot
     overflow, lost, node_counts = state.overflow, state.lost, state.node_counts
-    shape = (g.ndev, rows.shape[1], K)
+    shape = (rows.shape[0], rows.shape[1], K)
     pend_a = torch.full(shape, g.n, dtype=torch.int32, device=rows.device)
     pend_b = torch.full(shape, g.n, dtype=torch.int32, device=rows.device)
     pend_m = torch.zeros(shape, dtype=torch.bool, device=rows.device)
@@ -666,7 +698,7 @@ def expand_stage(g: DeviceGraph, pd: PlanData, cfg: EngineConfig,
 
 
 def verify_stage(g: DeviceGraph, pd: PlanData, cfg: EngineConfig,
-                 exch: SimExchange, ui: int, state: WaveState,
+                 exch: ExchangeBackend, ui: int, state: WaveState,
                  local_only: bool) -> WaveState:
     """Pipeline stage 3 of unit ``ui``: batched verifyE over the EVI, then
     alive-masking.  Consumes the ``pend_*`` buffers and appends the unit's
@@ -719,7 +751,7 @@ def finalize_wave(state: WaveState):
 # Full multi-round run (synchronous composition of the stages)
 # --------------------------------------------------------------------------- #
 def run_rounds(g: DeviceGraph, pd: PlanData, cfg: EngineConfig,
-               exch: SimExchange, seeds, seed_mask, local_only: bool,
+               exch: ExchangeBackend, seeds, seed_mask, local_only: bool,
                cache: AdjCache | None = None):
     """All units, all leaves, exchanges per round: ``fetch→expand→verify``
     per unit, with the (optional) adjacency cache threaded through the

@@ -34,6 +34,16 @@ The robustness mechanisms are the reference's:
 * **wave-level tracing** through :mod:`repro_torch.obs`, every record
   site guarded by ``tracer.enabled``.
 
+Under the ``dist`` (and ``spmd``) exchange each rank holds its own
+machine's slice of every wave.  :meth:`StageRunner.finalize` then makes
+one all-gather of the packed result, and :meth:`StageRunner.retire`
+reassembles the whole ``(ndev, ...)`` tuple on every rank, so the
+group, retry, escalation and stealing logic below runs unchanged and
+identically on every rank and each rank dispatches the same collectives
+in the same order.  Under gloo a collective waits for the card's queued
+work (its buffers cross through the host), so the pipeline's overlap of
+host and card is lost there.
+
 The adjacency cache is threaded through the fetches in dispatch order,
 including waves later discarded for overflow, exactly as the reference
 does, so the byte accounting matches it.  The stages run eagerly, so
@@ -54,7 +64,7 @@ from repro_torch.core.cache import AdjCache, build_cache
 from repro_torch.core.engine import (PlanData, WaveState, expand_stage,
                                      fetch_stage, finalize_wave, init_wave,
                                      verify_stage)
-from repro_torch.core.exchange import SimExchange
+from repro_torch.core.exchange import ExchangeBackend
 from repro_torch.graph.storage import DeviceGraph
 from repro_torch.obs.trace import (NULL_TRACER, TRACK_RETIRE, TRACK_SCHED,
                                    TRACK_WAVE0, now_us)
@@ -98,9 +108,7 @@ def pack_result(fin) -> tuple[torch.Tensor, list]:
     return torch.cat(parts), layout
 
 
-def unpack_result(host: np.ndarray, layout: list) -> tuple:
-    """Inverse of :func:`pack_result` on the host copy: numpy arrays in
-    the ``(rows, alive, counts, complete, stats)`` layout."""
+def _unpack_fields(host: np.ndarray, layout: list) -> dict:
     out, off = {}, 0
     for name, shape, dtype in layout:
         size = int(np.prod(shape))
@@ -109,9 +117,48 @@ def unpack_result(host: np.ndarray, layout: list) -> tuple:
         chunk = (chunk.view(np.float32) if dtype is np.float32
                  else chunk.astype(dtype))
         out[name] = chunk.reshape(shape)
+    return out
+
+
+def _split_result(out: dict) -> tuple:
     rows, alive, counts, complete = (out.pop(k) for k in
                                      ("rows", "alive", "counts", "complete"))
     return rows, alive, counts, bool(complete), out
+
+
+def unpack_result(host: np.ndarray, layout: list) -> tuple:
+    """Inverse of :func:`pack_result` on the host copy: numpy arrays in
+    the ``(rows, alive, counts, complete, stats)`` layout."""
+    return _split_result(_unpack_fields(host, layout))
+
+
+# the fields of a finalize tuple that each rank holds for its own machines,
+# by the axis of the machines; every other field but ``complete`` is
+# replicated (the byte stats come from every machine's matrices)
+_RANK_AXIS = {"rows": 0, "alive": 0, "counts": 0, "node_counts": 0,
+              "rows_per_round": 1}
+
+
+def unpack_gathered(host: np.ndarray, layout: list) -> tuple:
+    """:func:`unpack_result` of every rank's packed result ``host (world,
+    L)``: the per-machine fields concatenated by rank, ``complete`` the AND
+    over ranks, and the replicated fields rank 0's, checked equal on every
+    rank."""
+    parts = [_unpack_fields(h, layout) for h in host]
+    out = {}
+    for name, _, _ in layout:
+        vals = [p[name] for p in parts]
+        if name in _RANK_AXIS:
+            out[name] = np.concatenate(vals, axis=_RANK_AXIS[name])
+        elif name == "complete":
+            out[name] = np.logical_and.reduce(vals)
+        else:
+            if any(v.tobytes() != vals[0].tobytes() for v in vals[1:]):
+                raise RuntimeError(
+                    f"replicated wave field {name!r} differs between ranks: "
+                    f"{[v.tolist() for v in vals]}")
+            out[name] = vals[0]
+    return _split_result(out)
 
 
 # --------------------------------------------------------------------------- #
@@ -175,7 +222,8 @@ class StageRunner:
     ``cfg`` (``None`` when disabled)."""
 
     def __init__(self, g: DeviceGraph, pd: PlanData, cfg: EngineConfig,
-                 exch: SimExchange, cache: AdjCache | None | str = "auto",
+                 exch: ExchangeBackend,
+                 cache: AdjCache | None | str = "auto",
                  tracer=NULL_TRACER):
         self.g = g
         self.pd, self.exch = pd, exch
@@ -218,14 +266,21 @@ class StageRunner:
                             local_only)
 
     def finalize(self, state: WaveState):
-        """Enqueue ``finalize_wave`` and pack its tuple for one copy."""
-        return pack_result(finalize_wave(state))
+        """Enqueue ``finalize_wave`` and pack its tuple for one copy; with
+        a rank per machine, all-gather every rank's packed tuple (shapes
+        static and equal on every rank)."""
+        buf, layout = pack_result(finalize_wave(state))
+        if not self.exch.whole_stack:
+            buf = self.exch.all_gather(buf)
+        return buf, layout
 
-    @staticmethod
-    def retire(fin) -> tuple:
+    def retire(self, fin) -> tuple:
         """The wave's only synchronisation: one device-to-host copy."""
         buf, layout = fin
-        return unpack_result(buf.cpu().numpy(), layout)
+        host = buf.cpu().numpy()
+        if not self.exch.whole_stack:
+            return unpack_gathered(host, layout)
+        return unpack_result(host, layout)
 
 
 # --------------------------------------------------------------------------- #

@@ -4,8 +4,8 @@ style), as the reference's ``distributed/compression.py``.
 ``compress_roundtrip(g, err)`` quantizes and dequantizes each gradient
 with its error-feedback state; the trainer applies it every step under
 ``grad_compression="int8_ef"``.  The reference's ``compressed_psum``
-(an int8-payload all-reduce over a mesh axis) comes with the multi-card
-slices (ROADMAP.md queue A items 13 and 16).
+(an int8-payload all-reduce over a mesh axis) comes with the mesh slice
+(ROADMAP.md queue A item 16).
 """
 from __future__ import annotations
 

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.graph.storage import Graph, PartitionedGraph, build_partitioned
+from repro_torch.graph.storage import (DeviceGraph, Graph, PartitionedGraph,
+                                       build_partitioned, device_graph)
 
 
 def assign_block(graph: Graph, ndev: int) -> np.ndarray:
@@ -95,6 +96,17 @@ def partition(graph: Graph, ndev: int, method: str = "bfs",
     assignment = _METHODS[method](graph, ndev, **kw) if method == "bfs" \
         else _METHODS[method](graph, ndev)
     return build_partitioned(graph, ndev, assignment, max_degree=max_degree)
+
+
+def partition_device(graph: Graph, ndev: int, method: str = "bfs",
+                     fmt: str = "dense", max_degree: int | None = None,
+                     device=None, block: tuple[int, int] | None = None,
+                     **kw) -> tuple[PartitionedGraph, DeviceGraph]:
+    """Partition and export in one go: the host-side partition plus its
+    on-device adjacency in the registered storage format ``fmt`` (every
+    machine, or only ``block = (dev0, nloc)``)."""
+    pg = partition(graph, ndev, method=method, max_degree=max_degree, **kw)
+    return pg, device_graph(pg, fmt, device, block)
 
 
 def edge_cut(graph: Graph, assignment: np.ndarray) -> float:

@@ -7,13 +7,16 @@ code: an undirected, unlabeled data graph in CSR form with sorted rows,
 renumbered device-contiguously so ``owner(v) = v // stride``.
 
 On the card the engine reads adjacency only through :class:`DeviceGraph`:
-``rows_at``/``deg_at`` over the stacked ``(ndev, ...)`` layout, returning
-sentinel ``n``-padded rows of width ``max_degree``.  The ``ndev`` virtual
-machines share one card, so every accessor takes per-device local indices
-with a leading ``ndev`` axis — the batch dimension that replaces the
-reference's ``jax.vmap`` over devices.  Two formats: ``dense`` (the padded
-reference layout) and ``bucketed`` (degree-bucketed slabs, whose windows
-are byte-identical to the dense ones).
+``rows_at``/``deg_at`` over the stacked layout, returning sentinel
+``n``-padded rows of width ``max_degree``.  A device graph holds a block
+of the machines, ``dev0 .. dev0 + nloc - 1`` of ``ndev`` (all of them
+under the ``sim`` and ``gather`` exchanges, the rank's own under
+``spmd``/``dist``: the reference's ``g.shard(mesh)``), and every accessor
+takes per-machine local indices with a leading ``nloc`` axis — the batch
+dimension that replaces the reference's ``jax.vmap`` over devices.  Two
+formats: ``dense`` (the padded reference layout) and ``bucketed``
+(degree-bucketed slabs, whose windows are byte-identical to the dense
+ones).
 """
 from __future__ import annotations
 
@@ -121,9 +124,11 @@ class PartitionedGraph:
         j = np.searchsorted(row, v)
         return bool(j < row.shape[0] and row[j] == v)
 
-    def to_device(self, fmt: str = "dense", device=None) -> "DeviceGraph":
-        """Export this partition in a registered on-device format."""
-        return device_graph(self, fmt, device)
+    def to_device(self, fmt: str = "dense", device=None,
+                  block: tuple[int, int] | None = None) -> "DeviceGraph":
+        """Export this partition (or the machines ``block = (dev0, nloc)``
+        of it) in a registered on-device format."""
+        return device_graph(self, fmt, device, block)
 
 
 def build_partitioned(graph: Graph, ndev: int, assignment: np.ndarray,
@@ -209,15 +214,20 @@ def _border_distance(adj: np.ndarray, deg: np.ndarray, border: np.ndarray,
 # --------------------------------------------------------------------------- #
 @dataclass(frozen=True)
 class DeviceGraph:
-    """Abstract on-device adjacency in the stacked ``(ndev, ...)`` layout.
+    """Abstract on-device adjacency of the machines ``dev0 .. dev0 + nloc
+    - 1`` in the stacked ``(nloc, ...)`` layout.
 
-    For local indices ``li`` of shape ``(d, ...)`` — device ``t0 + i``'s
-    entries in ``li[i]``, each in ``[0, stride)`` — with ``d`` devices
-    starting at ``t0``:
+    For local indices ``li`` of shape ``(d, ...)`` — machine ``t0 + i``'s
+    entries in ``li[i]``, each in ``[0, stride)`` — with ``d`` machines
+    starting at the *global* machine id ``t0`` (inside the block):
 
     * ``rows_at(li, t0)`` -> ``(d, ..., max_degree)`` int32 adjacency
       windows — sorted neighbor ids then sentinel ``n`` padding;
     * ``deg_at(li, t0)``  -> ``(d, ...)`` int32 degrees.
+
+    ``ndev``, ``stride`` and ``n`` stay global.  ``adj_bytes`` is the
+    whole stack's footprint, as the reference reports it for a sharded
+    graph; ``resident_bytes`` is what this block holds.
     """
 
     format: ClassVar[str] = "abstract"
@@ -230,6 +240,8 @@ class DeviceGraph:
     stride: int
     n: int            # sentinel == n
     max_degree: int
+    dev0: int         # first machine of the block held here
+    nloc: int         # machines in the block
 
     def rows_at(self, li: torch.Tensor, t0: int = 0) -> torch.Tensor:
         raise NotImplementedError
@@ -242,16 +254,31 @@ class DeviceGraph:
         raise NotImplementedError
 
     @property
-    def adj_bytes(self) -> int:
+    def resident_bytes(self) -> int:
+        """Device adjacency footprint of this block."""
         raise NotImplementedError
 
+    @property
+    def adj_bytes(self) -> int:
+        """Device adjacency footprint of the whole stack: every block has
+        the same shapes."""
+        return self.resident_bytes * self.ndev // self.nloc
 
-def _dev_index(li: torch.Tensor, t0: int) -> torch.Tensor:
-    """Device ids ``t0..t0+d-1`` shaped ``(d, 1, ...)`` to pair with local
-    indices ``li (d, ...)`` in one advanced index: the index kernel
-    broadcasts the two, so no full-size flat index is built."""
-    t = torch.arange(t0, t0 + li.shape[0], device=li.device)
-    return t.view((-1,) + (1,) * (li.dim() - 1))
+    def _dev_index(self, li: torch.Tensor, t0: int) -> torch.Tensor:
+        """Block rows of the machines ``t0..t0+d-1`` shaped ``(d, 1,
+        ...)`` to pair with local indices ``li (d, ...)`` in one advanced
+        index: the index kernel broadcasts the two, so no full-size flat
+        index is built."""
+        t = torch.arange(t0 - self.dev0, t0 - self.dev0 + li.shape[0],
+                         device=li.device)
+        return t.view((-1,) + (1,) * (li.dim() - 1))
+
+
+def _block(pg: PartitionedGraph, block) -> tuple[int, int]:
+    dev0, nloc = (0, pg.ndev) if block is None else block
+    if not (0 <= dev0 and nloc >= 1 and dev0 + nloc <= pg.ndev):
+        raise ValueError(f"block {block} is not inside {pg.ndev} machines")
+    return dev0, nloc
 
 
 @dataclass(frozen=True)
@@ -265,31 +292,32 @@ class DenseDeviceGraph(DeviceGraph):
     deg: torch.Tensor   # (ndev, stride) int32
 
     @classmethod
-    def from_partitioned(cls, pg: PartitionedGraph,
-                         device=None) -> "DenseDeviceGraph":
+    def from_partitioned(cls, pg: PartitionedGraph, device=None,
+                         block=None) -> "DenseDeviceGraph":
         device = resolve_device(device)
+        dev0, nloc = _block(pg, block)
+        part = slice(dev0, dev0 + nloc)
         return cls(ndev=pg.ndev, stride=pg.stride, n=pg.n,
-                   max_degree=pg.max_degree,
-                   adj=torch.as_tensor(pg.adj, device=device),
-                   deg=torch.as_tensor(pg.deg, device=device))
+                   max_degree=pg.max_degree, dev0=dev0, nloc=nloc,
+                   adj=torch.as_tensor(pg.adj[part], device=device),
+                   deg=torch.as_tensor(pg.deg[part], device=device))
 
     @property
     def device(self) -> torch.device:
         return self.adj.device
 
     @property
-    def adj_bytes(self) -> int:
-        """Resident device adjacency footprint."""
+    def resident_bytes(self) -> int:
         return int(sum(x.numel() * x.element_size()
                        for x in (self.adj, self.deg)))
 
     def rows_at(self, li, t0=0):
         li = li.contiguous()          # the result takes the index's layout
-        return self.adj[_dev_index(li, t0), li]
+        return self.adj[self._dev_index(li, t0), li]
 
     def deg_at(self, li, t0=0):
         li = li.contiguous()
-        return self.deg[_dev_index(li, t0), li]
+        return self.deg[self._dev_index(li, t0), li]
 
 
 @dataclass(frozen=True)
@@ -315,7 +343,8 @@ class BucketedDeviceGraph(DeviceGraph):
     stays inside it (none unless ``max_degree`` was padded above the real
     maximum).  ``base``/``caps`` are the device copy of the static bucket
     table and, like the reference's ``bucket_caps``, are not counted in
-    :attr:`adj_bytes`."""
+    :attr:`adj_bytes`.  The bucket table (caps and slab rows) is the whole
+    stack's, so a block's slabs are laid out as in the full graph."""
 
     format: ClassVar[str] = "bucketed"
     intersect_backedge: ClassVar[bool] = True
@@ -330,9 +359,10 @@ class BucketedDeviceGraph(DeviceGraph):
     caps: torch.Tensor       # (n_buckets,) int32 == bucket_caps
 
     @classmethod
-    def from_partitioned(cls, pg: PartitionedGraph,
-                         device=None) -> "BucketedDeviceGraph":
+    def from_partitioned(cls, pg: PartitionedGraph, device=None,
+                         block=None) -> "BucketedDeviceGraph":
         device = resolve_device(device)
+        dev0, nloc = _block(pg, block)
         ndev, stride, n, D = pg.ndev, pg.stride, pg.n, pg.max_degree
         deg = np.asarray(pg.deg, dtype=np.int32)
         real_max = int(deg.max()) if deg.size else 0
@@ -358,51 +388,52 @@ class BucketedDeviceGraph(DeviceGraph):
                 for b in range(len(caps))]
         sizes = [r * cap for r, cap in zip(rows, caps)]
         base = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
-        flat = np.full((ndev, sum(sizes) + max(0, D - caps[-1])), n,
+        flat = np.full((nloc, sum(sizes) + max(0, D - caps[-1])), n,
                        dtype=np.int32)
-        for t in range(ndev):
+        for i in range(nloc):
             for b, cap in enumerate(caps):
-                m = members[t][b]
+                m = members[dev0 + i][b]
                 if len(m):
-                    flat[t, base[b]:base[b] + len(m) * cap] = \
-                        pg.adj[t, m, :cap].reshape(-1)
+                    flat[i, base[b]:base[b] + len(m) * cap] = \
+                        pg.adj[dev0 + i, m, :cap].reshape(-1)
+        part = slice(dev0, dev0 + nloc)
         as_t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
-        return cls(ndev=ndev, stride=stride, n=n, max_degree=D,
-                   bucket_caps=tuple(caps), bucket_rows=tuple(rows),
-                   deg=as_t(deg), bucket_of=as_t(bucket_of),
-                   slot_of=as_t(slot_of), flat=as_t(flat), base=as_t(base),
-                   caps=as_t(caps_arr))
+        return cls(ndev=ndev, stride=stride, n=n, max_degree=D, dev0=dev0,
+                   nloc=nloc, bucket_caps=tuple(caps),
+                   bucket_rows=tuple(rows), deg=as_t(deg[part]),
+                   bucket_of=as_t(bucket_of[part]),
+                   slot_of=as_t(slot_of[part]), flat=as_t(flat),
+                   base=as_t(base), caps=as_t(caps_arr))
 
     @property
     def device(self) -> torch.device:
         return self.flat.device
 
     @property
-    def adj_bytes(self) -> int:
-        """Resident device adjacency footprint: the slabs and the three
-        per-vertex maps."""
+    def resident_bytes(self) -> int:
+        """The slabs and the three per-vertex maps."""
         return int(sum(x.numel() * x.element_size()
                        for x in (self.deg, self.bucket_of, self.slot_of,
                                  self.flat)))
 
     @property
     def slabs(self) -> tuple:
-        """Per bucket, the ``(ndev, n_b_max, cap_b)`` view of its slab."""
+        """Per bucket, the ``(nloc, n_b_max, cap_b)`` view of its slab."""
         out = []
         for b0, r, cap in zip(self.base.tolist(), self.bucket_rows,
                               self.bucket_caps):
-            out.append(self.flat[:, b0:b0 + r * cap].view(self.ndev, r, cap))
+            out.append(self.flat[:, b0:b0 + r * cap].view(self.nloc, r, cap))
         return tuple(out)
 
     def rows_at(self, li, t0=0):
         li = li.contiguous()
-        dv = _dev_index(li, t0)
+        dv = self._dev_index(li, t0)
         b = self.bucket_of[dv, li]
         start = self.base[b] + self.slot_of[dv, li] * self.caps[b]
         D = self.max_degree
         # windows[t, s] = flat[t, s:s + D], overlapping, never written
         windows = self.flat.as_strided(
-            (self.ndev, self.flat.shape[1] - D + 1, D),
+            (self.nloc, self.flat.shape[1] - D + 1, D),
             (self.flat.shape[1], 1, 1))
         out = windows[dv, start]
         col = torch.arange(D, dtype=torch.int32, device=li.device)
@@ -410,18 +441,21 @@ class BucketedDeviceGraph(DeviceGraph):
 
     def deg_at(self, li, t0=0):
         li = li.contiguous()
-        return self.deg[_dev_index(li, t0), li]
+        return self.deg[self._dev_index(li, t0), li]
 
 
 FORMATS = {"dense": DenseDeviceGraph, "bucketed": BucketedDeviceGraph}
 
 
 def device_graph(pg: PartitionedGraph, fmt: str = "dense",
-                 device=None) -> DeviceGraph:
-    """Export ``pg`` in the on-device format ``fmt``."""
+                 device=None, block: tuple[int, int] | None = None
+                 ) -> DeviceGraph:
+    """Export ``pg`` in the on-device format ``fmt``: every machine, or
+    only the machines ``block = (dev0, nloc)`` (a rank's own under
+    ``spmd``/``dist``; nothing else is uploaded)."""
     try:
         cls = FORMATS[fmt]
     except KeyError:
         raise ValueError(f"unknown storage format {fmt!r}; expected one of "
                          f"{sorted(FORMATS)}") from None
-    return cls.from_partitioned(pg, device)
+    return cls.from_partitioned(pg, device, block)

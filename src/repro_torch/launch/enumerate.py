@@ -3,11 +3,12 @@
 
 The flags are the reference launcher's for what the port supports, plus
 ``--device`` (default ``cuda``).  Both storage formats (``--storage dense
-| bucketed``) and every wire format (``--wire raw | varint | auto``) run,
-e.g. ``--storage bucketed --wire varint --device cuda``.  The exchange
-backends not ported yet (``--mode gather|spmd``) raise
-``NotImplementedError`` naming their ROADMAP item; the reference's
-compile-cache and pre-warm flags have no counterpart in an eager port.
+| bucketed``), every wire format (``--wire raw | varint | auto``) and the
+single-process exchanges (``--mode sim | gather``) run, e.g. ``--storage
+bucketed --wire varint --mode gather --device cuda``.  ``--mode spmd |
+dist`` runs one process per partition: launch it with ``python -m
+repro_torch.launch.dist_worker``.  The reference's compile-cache and
+pre-warm flags have no counterpart in an eager port.
 """
 from __future__ import annotations
 
@@ -31,7 +32,10 @@ def main(argv=None):
                     help="torch device the engine runs on (cuda | cpu)")
     ap.add_argument("--no-sme", action="store_true")
     ap.add_argument("--no-steal", action="store_true")
-    ap.add_argument("--mode", default="sim", choices=["sim", "gather", "spmd"])
+    ap.add_argument("--mode", default="sim",
+                    choices=["sim", "gather", "spmd", "dist"],
+                    help="exchange backend (spmd/dist: one process per "
+                         "partition, through repro_torch.launch.dist_worker)")
     ap.add_argument("--storage", default="dense",
                     choices=["dense", "bucketed"],
                     help="on-device adjacency format")
@@ -68,6 +72,10 @@ def main(argv=None):
                          "*.prom = Prometheus textfile format, anything "
                          "else = JSON document with kind/unit/desc")
     args = ap.parse_args(argv)
+    if args.mode in ("spmd", "dist"):
+        ap.error(f"--mode {args.mode} runs one process per partition: "
+                 f"launch it with `python -m repro_torch.launch.dist_worker "
+                 f"--num-processes {args.ndev} ...` (or its launch_local)")
     depth = args.pipeline_depth if args.pipeline_depth == "auto" \
         else int(args.pipeline_depth)
 

@@ -1,8 +1,8 @@
 """End-to-end parity of the PyTorch port's ``rads_enumerate`` against the
 JAX reference on one partition with the adjacency cache on (the default
 main path): counts, embeddings and every non-timing stat; pipeline depth
-1 and 2; the default device; the exchange backends not ported yet; and
-the port's import isolation from JAX."""
+1 and 2; the default device; the multi-process exchange backends without
+a process group; and the port's import isolation from JAX."""
 import os
 import subprocess
 import sys
@@ -54,17 +54,15 @@ def test_default_device_is_cuda(setup):
     assert got.embeddings == port_run(tpg, "q1").embeddings
 
 
-@pytest.mark.parametrize("mode,wire", [("gather", "raw"),
-                                       ("dist", "varint")])
-def test_unported_configurations_raise(setup, mode, wire):
+@pytest.mark.parametrize("mode,wire", [("spmd", "raw"), ("dist", "varint")])
+def test_multiprocess_modes_need_a_process_group(setup, mode, wire):
+    """``spmd``/``dist`` run one rank per partition: without an
+    initialized ``torch.distributed`` process group they refuse to run."""
     tpg, _ = setup
     pat = Pattern.from_edges(QUERIES["q1"])
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="process group"):
         rads_enumerate(tpg, pat, EngineConfig(**CAPS, wire_format=wire),
                        mode=mode, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        rads_enumerate(tpg, pat, EngineConfig(**CAPS), mode="spmd",
-                       device="cpu")
 
 
 def test_wire_auto_two_runs_match_reference(tmp_path):
@@ -106,7 +104,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.kernels.segment_spmm.kernel, "
             "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
             "repro_torch.runtime, repro_torch.distributed.compression, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.launch.dist_worker, "
+            "repro_torch.core.exchange, repro_torch.graph.partition; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

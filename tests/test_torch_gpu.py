@@ -3,7 +3,8 @@
 with delta_vlen, flash_attn and moe_gemm with their backward kernels,
 segment_spmm in both its variants and their backward kernels) against
 their plain PyTorch versions, the whole engine on the card — dense and
-bucketed storage, raw and varint wire — the reduced OLMoE serving path
+bucketed storage, raw and varint wire, and two ``dist`` ranks sharing the
+card — the reduced OLMoE serving path
 and training step and the four reduced GNNs' forward and training step,
 against the port's CPU path.
 They skip without a CUDA card, and import no JAX, so they run where
@@ -28,6 +29,7 @@ from _codec_cases import (ARBITRARY_STREAM_SEEDS, CODEC_ID_CASES,
                           intersect_inputs)
 from _lm_cases import (FLASH_SWEEP, FLASH_TOL, MOE_ROW_CHECK, MOE_SWEEP,
                        MOE_TOL, flash_inputs, moe_inputs)
+from _dist_rank import run_spawned
 from _membership_cases import CARD_CASES, CASES, edge_inputs, sweep_inputs
 from repro_torch.configs import get_reduced
 from repro_torch.configs.rads import QUERIES, EngineConfig
@@ -269,6 +271,30 @@ def test_engine_on_card_matches_cpu(cuda, q, fmt, wire):
     assert got.count == want.count and got.embeddings == want.embeddings
     for k in set(want.stats) - TIMING_KEYS:
         assert got.stats[k] == want.stats[k], k
+
+
+@pytest.mark.gpu
+def test_dist_two_ranks_on_one_card_match_sim(cuda):
+    """Two ranks of ``rads_enumerate(mode="dist")`` on ``cuda:0`` under
+    gloo, each holding one of two partitions: both equal an in-process
+    ``sim`` run on the card (count, embeddings, every non-timing stat),
+    and membership launches in both."""
+    pg = partition(erdos_graph(120, 5.0, seed=5), 2, method="bfs")
+    runs = [("q1", dict(CAPS)),
+            ("q2", dict(CAPS, storage_format="bucketed",
+                        wire_format="varint"))]
+    ranks = run_spawned(pg, runs, device="cuda:0", timeout_s=240.0)
+    for (q, kw), *per_rank in zip(runs, *ranks):
+        want = rads_enumerate(pg, Pattern.from_edges(QUERIES[q]),
+                              EngineConfig(**kw), device=cuda)
+        for rank, (count, embs, stats, launches) in enumerate(per_rank):
+            assert count == want.count and embs == want.embeddings, (q, rank)
+            assert launches > 0, (q, rank)
+            assert (stats["process_index"], stats["process_count"]) \
+                == (rank, 2)
+            for k in set(want.stats) - TIMING_KEYS - {"process_index",
+                                                      "process_count"}:
+                assert stats[k] == want.stats[k], (q, k)
 
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
