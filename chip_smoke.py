@@ -50,11 +50,13 @@ every phase holds:
               and their device ms estimated from phase 3's per-row times,
               and the varint codec's launches by variant (the
               bucketed/varint run must launch "encode_ids", "encode_rows"
-              and "decode_rows").  Each run is repeated under
+              and "decode_rows").  The main path's run is repeated under
               ``torch.profiler`` (the timed run stays unprofiled): the
-              card's busy time, idle share, membership's, intersect's and
-              the varint codec's device ms and kernels, and the top 8
-              other kernels;
+              card's busy time, idle share, membership's device ms and
+              kernels, and the top 8 other kernels (a profile of the
+              bucketed/varint run takes about 4 minutes, too many for the
+              script's time: ``tools/fetch_profile.py`` splits its fetch
+              path);
 6. lm_kernels — flash_attn and moe_gemm against their plain versions on
               the card in float32 and bfloat16, at the test sweep shapes,
               the bf16 variants' edges and the serving shapes, each row
@@ -149,8 +151,8 @@ every phase holds:
 18. dist — the ``dist`` exchange, one rank per partition over
               ``torch.distributed`` (gloo), two ranks sharing the card:
               (a) ``launch_local`` of two ``repro_torch.launch.dist_worker``
-              ranks on ``cuda:0`` (dblp_bench, q1, hash partition), dense/raw
-              and bucketed/varint, each rank's count and every logical stat
+              ranks on ``cuda:0`` (dblp_bench, q1, hash partition),
+              bucketed/varint, each rank's count and every logical stat
               against an in-process ``sim`` run on the card; (b) the full
               cell's recipe, ``powerlaw_graph(n, 6, seed=1)`` split 2 ways
               (bfs), q1 dense/raw with the default ``EngineConfig``, as two
@@ -3830,8 +3832,8 @@ def _dist_full_rank(rank: int, port: int, src: str, pg_dir: str,
     import torch
     import torch.distributed as dist
     from repro_torch.configs.rads import DEFAULT_ENGINE, QUERIES
-    from repro_torch.core import Pattern, rads_enumerate
-    from repro_torch.graph import PartitionedGraph
+    from repro_torch.core import Exchange, Pattern, rads_enumerate
+    from repro_torch.graph import PartitionedGraph, device_graph
     from repro_torch.kernels.membership import ops as memb
     torch.cuda.set_device(0)
     with open(os.path.join(pg_dir, "ints.json")) as f:
@@ -3844,6 +3846,15 @@ def _dist_full_rank(rank: int, port: int, src: str, pg_dir: str,
                             world_size=DIST_RANKS, rank=rank,
                             timeout=datetime.timedelta(minutes=5))
     try:
+        # the rank's block, built as the driver builds it: its tensors'
+        # bytes, and what the allocator gave them on the card
+        before = torch.cuda.memory_allocated()
+        dg = device_graph(pg, DEFAULT_ENGINE.storage_format, "cuda:0",
+                          Exchange("dist").block(pg.ndev))
+        resident = dict(resident_adj_bytes=dg.resident_bytes,
+                        adj_allocated_bytes=torch.cuda.memory_allocated()
+                        - before, adj_nloc=dg.nloc)
+        del dg
         torch.cuda.reset_peak_memory_stats()
         memb.launches = 0
         t0 = time.perf_counter()
@@ -3855,8 +3866,8 @@ def _dist_full_rank(rank: int, port: int, src: str, pg_dir: str,
         payload = dict(
             rank=rank, count=res.count, wall_s=wall,
             max_memory_allocated=torch.cuda.max_memory_allocated(),
-            resident_adj_bytes=int(pg.adj[rank].nbytes + pg.deg[rank].nbytes),
-            membership_launches=memb.launches, stats=res.stats)
+            membership_launches=memb.launches, stats=res.stats,
+            **resident)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -3908,8 +3919,8 @@ def _dist_spawn(pg, tmp: str) -> list:
 def phase_dist(n: int, g=None, expect: int | None = None):
     """Phase 18: the ``dist`` exchange, one rank per partition over
     ``torch.distributed`` (gloo), two ranks sharing the card.  (a) the
-    worker CLI, dense/raw and bucketed/varint, against ``sim`` on the
-    card; (b) the full cell's recipe split 2 ways, q1 dense/raw with the
+    worker CLI, bucketed/varint (the configuration with the most code;
+    part (b) runs dense/raw), against ``sim`` on the card; (b) the full cell's recipe split 2 ways, q1 dense/raw with the
     default EngineConfig: the count against scipy's triangles, every
     logical stat against an in-process ``sim`` run of the same partition
     on the card, each rank's wall time, peak memory, resident adjacency
@@ -3923,15 +3934,10 @@ def phase_dist(n: int, g=None, expect: int | None = None):
     from repro_torch.core import Pattern, merge_process_stats, rads_enumerate
     from repro_torch.graph import partition, powerlaw_graph
     from repro_torch.kernels.membership import ops as memb
-    import concurrent.futures
     t0 = time.perf_counter()
-    # the two launches side by side: four ranks on the card
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
-        cli = [f.result() for f in [ex.submit(_dist_cli, "dense", "raw"),
-                                    ex.submit(_dist_cli, "bucketed",
-                                              "varint")]]
+    cli = _dist_cli("bucketed", "varint")
     emit(phase="dist", part="worker_cli", graph="dblp_bench hash/2",
-         runs=cli, added_s=time.perf_counter() - t0)
+         runs=[cli], added_s=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     if g is None:
@@ -3965,6 +3971,15 @@ def phase_dist(n: int, g=None, expect: int | None = None):
               f"triangles {expect}")
         check(r["membership_launches"] > 0,
               f"dist rank {r['rank']}: membership never launched")
+        # the rank's block alone is on the card: one machine's tensors, and
+        # the allocator's rounding (under 1 MB a tensor) at most beside them
+        check(r["adj_nloc"] == 1 and r["resident_adj_bytes"]
+              * DIST_RANKS == sim.stats["peak_adj_bytes"]
+              and 0 <= r["adj_allocated_bytes"] - r["resident_adj_bytes"]
+              < 4 << 20,
+              f"dist rank {r['rank']}: the device graph holds "
+              f"{r['resident_adj_bytes']} B ({r['adj_allocated_bytes']} B "
+              f"allocated) of a {sim.stats['peak_adj_bytes']} B stack")
         _check_same_logical(r["stats"], sim.stats, f"dist rank {r['rank']}")
     merged = merge_process_stats([r["stats"] for r in ranks])
     st = merged
@@ -3975,6 +3990,7 @@ def phase_dist(n: int, g=None, expect: int | None = None):
          per_rank=[{k: r[k] for k in ("rank", "wall_s",
                                       "max_memory_allocated",
                                       "resident_adj_bytes",
+                                      "adj_allocated_bytes",
                                       "membership_launches")}
                    for r in ranks],
          spawn_to_exit_s=dist_s, wall_skew=st["wall_skew"],
@@ -4072,7 +4088,7 @@ def main():
     main_launches, dense = phase_full(g, pg, expect, setup_s, "dense", "raw",
                                       per_row_ms, profile=True)
     new_launches, coded = phase_full(g, pg, expect, setup_s, "bucketed",
-                                     "varint", per_row_ms, profile=True)
+                                     "varint", per_row_ms)
     for key in ("bytes_fetch", "bytes_verify", "bytes_saved_cache"):
         check(coded[key] == dense[key],
               f"full-scale {key}: bucketed/varint {coded[key]} != "

@@ -99,10 +99,9 @@ def rads_enumerate(pg: PartitionedGraph, pattern: Pattern,
     # ---- capacity / cost priors (persisted §6 calibration) ---------------- #
     pkey = priors_key(pattern, pg) if cfg.priors_path else None
     prior = load_priors(cfg.priors_path).get(pkey) if pkey else None
-    if not exch.whole_stack:
-        # rank 0's priors on every rank: the wire choice, the caps and the
-        # depth are host decisions that must agree
-        prior = exch.broadcast_object(prior)
+    # rank 0's priors on every rank: the wire choice, the caps and the
+    # depth are host decisions that must agree
+    prior = exch.broadcast_object(prior)
     requested_wire = cfg.wire_format
     wire_fmt, wire_reason = resolve_wire_format(requested_wire, mode, prior)
     if wire_fmt != cfg.wire_format:

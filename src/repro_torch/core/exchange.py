@@ -21,9 +21,9 @@ Built-in backends, selected with ``Exchange(mode)``:
                ``[rank, rank + 1)``), and an a2a is a real
                ``all_to_all_single`` between the processes.
 * ``dist``   — ``spmd`` under the reference's name for its
-               multi-process path.  Under both, the scheduler replicates
-               the finalize, the driver pins ``pipeline_depth="auto"`` and
-               rank 0 alone persists priors (``whole_stack`` is False).
+               multi-process path.  Under both, ``whole_stack`` is False:
+               the driver pins ``pipeline_depth="auto"`` and the fetch
+               answers as one responder.
 
 PyTorch has no single-process multi-device SPMD program, so ``spmd`` here
 *is* one process per partition: where the reference's ``spmd`` shards the
@@ -58,13 +58,15 @@ import torch
 import torch.distributed as dist
 
 
-def _off_diagonal(m: torch.Tensor, dev0: int = 0) -> torch.Tensor:
-    """``m`` with its self-traffic zeroed: ``m[i, p]`` is machine ``dev0 +
-    i``'s entry for peer ``p``, free where ``p == dev0 + i``."""
-    rows, ndev = m.shape[0], m.shape[1]
-    diag = (torch.arange(ndev, device=m.device)
-            == torch.arange(dev0, dev0 + rows, device=m.device)[:, None])
-    return m * (1 - diag.to(m.dtype))
+def _off_diagonal(m: torch.Tensor) -> torch.Tensor:
+    """Square per-peer matrix ``m`` with its self-traffic zeroed.  The byte
+    methods take every machine's rows (``gather_rows`` comes first): a
+    block of rows would be masked at the wrong offset, so it raises."""
+    ndev = m.shape[0]
+    if m.dim() != 2 or m.shape[1] != ndev:
+        raise ValueError(f"byte stats take the gathered (ndev, ndev) "
+                         f"matrix, got {tuple(m.shape)}")
+    return m * (1 - torch.eye(ndev, dtype=m.dtype, device=m.device))
 
 
 # --------------------------------------------------------------------------- #
@@ -117,29 +119,32 @@ class ExchangeBackend:
         as ``sim`` does (the identity where the stack is whole)."""
         return mats
 
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` of every process, stacked by process: ``(process_count,
+        *x.shape)`` (``x[None]`` where one process holds the stack)."""
+        return x[None]
+
+    def broadcast_object(self, obj):
+        """Process 0's ``obj`` on every process (host decisions that must
+        agree, such as the priors a run starts from)."""
+        return obj
+
     def off_device_bytes(self, counts: torch.Tensor,
                          elem_bytes: float) -> torch.Tensor:
         """Wire bytes implied by a per-peer request count matrix
         (``counts[t, p]`` = entries ``t`` sends to ``p``), as f32."""
-        return (self._off(counts).sum().to(torch.float32)
-                * elem_bytes)
+        return _off_diagonal(counts).sum().to(torch.float32) * elem_bytes
 
     def off_device_payload_bytes(self, byte_matrix: torch.Tensor
                                  ) -> torch.Tensor:
         """Like :meth:`off_device_bytes` for pre-summed per-peer byte
         matrices."""
-        return self._off(byte_matrix).sum().to(torch.float32)
+        return _off_diagonal(byte_matrix).sum().to(torch.float32)
 
     def per_dev_sent_bytes(self, byte_matrix: torch.Tensor) -> torch.Tensor:
         """Per-machine off-device sent bytes: row sums with the free
         diagonal masked, f32."""
-        return self._off(byte_matrix).sum(dim=1).to(torch.float32)
-
-    def _off(self, m: torch.Tensor) -> torch.Tensor:
-        """The diagonal of ``m``'s own block masked: a square matrix holds
-        every machine's rows, a ``(nloc, ndev)`` one this process's."""
-        return _off_diagonal(m, 0 if m.shape[0] == m.shape[1]
-                             else self.block(m.shape[1])[0])
+        return _off_diagonal(byte_matrix).sum(dim=1).to(torch.float32)
 
     def process_topology(self) -> tuple[int, int]:
         """``(process_index, process_count)``."""
@@ -266,7 +271,6 @@ class SpmdExchange(ExchangeBackend):
         return y.expand(x.shape)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` of every rank, stacked by rank: ``(world, *x.shape)``."""
         out = torch.empty((dist.get_world_size() * x.shape[0],)
                           + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)
@@ -281,8 +285,6 @@ class SpmdExchange(ExchangeBackend):
         return tuple(f.to(m.dtype) for f, m in zip(full, mats))
 
     def broadcast_object(self, obj):
-        """Rank 0's ``obj`` on every rank (host decisions that must
-        agree, such as the priors a run starts from)."""
         box = [obj]
         dist.broadcast_object_list(box, src=0)
         return box[0]

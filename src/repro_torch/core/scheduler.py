@@ -120,18 +120,6 @@ def _unpack_fields(host: np.ndarray, layout: list) -> dict:
     return out
 
 
-def _split_result(out: dict) -> tuple:
-    rows, alive, counts, complete = (out.pop(k) for k in
-                                     ("rows", "alive", "counts", "complete"))
-    return rows, alive, counts, bool(complete), out
-
-
-def unpack_result(host: np.ndarray, layout: list) -> tuple:
-    """Inverse of :func:`pack_result` on the host copy: numpy arrays in
-    the ``(rows, alive, counts, complete, stats)`` layout."""
-    return _split_result(_unpack_fields(host, layout))
-
-
 # the fields of a finalize tuple that each rank holds for its own machines,
 # by the axis of the machines; every other field but ``complete`` is
 # replicated (the byte stats come from every machine's matrices)
@@ -140,10 +128,11 @@ _RANK_AXIS = {"rows": 0, "alive": 0, "counts": 0, "node_counts": 0,
 
 
 def unpack_gathered(host: np.ndarray, layout: list) -> tuple:
-    """:func:`unpack_result` of every rank's packed result ``host (world,
-    L)``: the per-machine fields concatenated by rank, ``complete`` the AND
-    over ranks, and the replicated fields rank 0's, checked equal on every
-    rank."""
+    """Inverse of :func:`pack_result` on the host copy of every process's
+    packed result ``host (process_count, L)``: numpy arrays in the ``(rows,
+    alive, counts, complete, stats)`` layout, the per-machine fields
+    concatenated by process, ``complete`` the AND over processes, and the
+    replicated fields process 0's, checked equal on every process."""
     parts = [_unpack_fields(h, layout) for h in host]
     out = {}
     for name, _, _ in layout:
@@ -158,7 +147,9 @@ def unpack_gathered(host: np.ndarray, layout: list) -> tuple:
                     f"replicated wave field {name!r} differs between ranks: "
                     f"{[v.tolist() for v in vals]}")
             out[name] = vals[0]
-    return _split_result(out)
+    rows, alive, counts, complete = (out.pop(k) for k in
+                                     ("rows", "alive", "counts", "complete"))
+    return rows, alive, counts, bool(complete), out
 
 
 # --------------------------------------------------------------------------- #
@@ -266,21 +257,16 @@ class StageRunner:
                             local_only)
 
     def finalize(self, state: WaveState):
-        """Enqueue ``finalize_wave`` and pack its tuple for one copy; with
-        a rank per machine, all-gather every rank's packed tuple (shapes
-        static and equal on every rank)."""
+        """Enqueue ``finalize_wave``, pack its tuple for one copy and
+        all-gather every process's packed tuple (shapes static and equal
+        on every process; one process's is the tuple itself)."""
         buf, layout = pack_result(finalize_wave(state))
-        if not self.exch.whole_stack:
-            buf = self.exch.all_gather(buf)
-        return buf, layout
+        return self.exch.all_gather(buf), layout
 
     def retire(self, fin) -> tuple:
         """The wave's only synchronisation: one device-to-host copy."""
         buf, layout = fin
-        host = buf.cpu().numpy()
-        if not self.exch.whole_stack:
-            return unpack_gathered(host, layout)
-        return unpack_result(host, layout)
+        return unpack_gathered(buf.cpu().numpy(), layout)
 
 
 # --------------------------------------------------------------------------- #

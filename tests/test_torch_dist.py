@@ -31,7 +31,7 @@ from repro_torch.configs.rads import EngineConfig
 from repro_torch.core import (Exchange, Pattern, exchange_backends,
                               merge_process_stats, rads_enumerate)
 from repro_torch.core.cache import AdjCache
-from repro_torch.core.exchange import _off_diagonal
+from repro_torch.core.scheduler import pack_result, unpack_gathered
 from repro_torch.graph import (device_graph, load_dataset, partition,
                                partition_device)
 from repro_torch.graph import erdos_graph as torch_erdos_graph
@@ -111,16 +111,69 @@ def test_gather_exchange_matches_sim_and_reference(chunks):
         np.asarray(ref.per_dev_sent_bytes(jnp.asarray(lens))))
 
 
-def test_off_diagonal_of_a_block():
-    """A ``(nloc, ndev)`` block of machines ``dev0..`` masks its own
-    diagonal: the blocks' sums add up to the whole matrix's."""
-    m = torch.from_numpy(
-        np.random.default_rng(0).integers(0, 50, (6, 6)).astype(np.int64))
-    whole = _off_diagonal(m)
-    for dev0, nloc in ((0, 1), (1, 2), (3, 3), (5, 1)):
-        torch.testing.assert_close(
-            _off_diagonal(m[dev0:dev0 + nloc], dev0),
-            whole[dev0:dev0 + nloc], rtol=0, atol=0)
+def _finalize_tuple(rng, ndev: int, complete: bool = True) -> tuple:
+    """A ``finalize_wave``-shaped tuple: per-machine fields, a replicated
+    f32 byte stat and ``complete``."""
+    return (torch.from_numpy(rng.integers(0, 99, (ndev, 5, 3), np.int32)),
+            torch.from_numpy(rng.random((ndev, 5)) < 0.5),
+            torch.from_numpy(rng.integers(0, 9, ndev)),
+            torch.tensor(complete),
+            {"node_counts": torch.from_numpy(
+                rng.integers(0, 9, (ndev, 3), np.int32)),
+             "rows_per_round": torch.from_numpy(
+                 rng.integers(0, 9, (3, ndev), np.int32)),
+             "bytes_fetch": torch.tensor(16777217.0 * 3)})
+
+
+@pytest.mark.parametrize("mode", ["sim", "gather"])
+def test_whole_stack_finalize_round_trip(mode):
+    """One process holds the stack: ``all_gather`` is ``x[None]``,
+    ``broadcast_object`` the object, and the packed finalize tuple comes
+    back field for field; the byte stats refuse a block of rows."""
+    exch = Exchange(mode)
+    fin = _finalize_tuple(np.random.default_rng(3), 4, complete=False)
+    buf, layout = pack_result(fin)
+    gathered = exch.all_gather(buf)
+    assert gathered.shape == (1,) + tuple(buf.shape)
+    assert exch.broadcast_object({"caps": 1}) == {"caps": 1}
+    rows, alive, counts, complete, st = unpack_gathered(
+        gathered.numpy(), layout)
+    for got, want in ((rows, fin[0]), (alive, fin[1]), (counts, fin[2]),
+                      *((st[k], v) for k, v in fin[4].items())):
+        np.testing.assert_array_equal(got, want.numpy())
+    assert complete is False and set(st) == set(fin[4])
+    with pytest.raises(ValueError, match="gathered"):
+        exch.off_device_bytes(torch.ones(1, 4, dtype=torch.int32), 4.0)
+
+
+def test_unpack_gathered_reassembles_ranks():
+    """Two ranks' packed halves: the per-machine fields concatenate by
+    rank, ``complete`` is the AND, replicated fields must agree."""
+    rng = np.random.default_rng(4)
+    whole = _finalize_tuple(rng, 4)
+    halves = []
+    for r, done in ((0, True), (1, False)):
+        part = (whole[0][2 * r:2 * r + 2], whole[1][2 * r:2 * r + 2],
+                whole[2][2 * r:2 * r + 2], torch.tensor(done),
+                {"node_counts": whole[4]["node_counts"][2 * r:2 * r + 2],
+                 "rows_per_round": whole[4]["rows_per_round"][:, 2 * r:
+                                                              2 * r + 2],
+                 "bytes_fetch": whole[4]["bytes_fetch"]})
+        halves.append(pack_result(part))
+    layout = halves[0][1]
+    host = torch.stack([b for b, _ in halves]).numpy()
+    rows, alive, counts, complete, st = unpack_gathered(host, layout)
+    for got, want in ((rows, whole[0]), (alive, whole[1]),
+                      (counts, whole[2]),
+                      *((st[k], v) for k, v in whole[4].items())):
+        np.testing.assert_array_equal(got, want.numpy())
+    assert complete is False
+    names = [name for name, _, _ in layout]
+    off = sum(int(np.prod(shape)) for name, shape, _ in
+              layout[:names.index("bytes_fetch")])
+    host[1, off] += 1
+    with pytest.raises(RuntimeError, match="bytes_fetch"):
+        unpack_gathered(host, layout)
 
 
 @pytest.fixture(scope="module")
