@@ -124,13 +124,17 @@ every phase holds:
               "sum_bwd" (a gather of the output gradient by destination)
               bit for bit at the test sweep and edge cases, timed at the
               products graph's D = 64 and GraphCast's Cora-sized bf16
-              shape; "gat_bwd" (the edge softmax's gradient) at 1e-4 (f32)
-              and 2e-2 (bf16) of max |plain| on a small graph with a hub,
-              masked, empty and all-masked rows at the test head shapes
-              and the forward kernel's limits in every dtype pair, then at
-              GAT's two products-sized layers and the Cora-sized graph,
-              timed beside two bounds and the plain backward; each call
-              made twice and bit-identical;
+              shape in turns with ``dout.index_select``, each call's host
+              and device time apart; "gat_bwd" (the edge softmax's
+              gradient, from the forward's saved row max, denominator and
+              output; the forward with them bit-identical to the forward
+              without) at 1e-4 (f32) and 2e-2 (bf16) of max |plain| on a
+              small graph with a hub, masked, empty and all-masked rows at
+              the test head shapes and the forward kernel's limits in every
+              dtype pair, then at GAT's two products-sized layers and the
+              Cora-sized graph, timed beside two bounds, the plain backward
+              and the earlier design's times (its kernels' split: phase
+              17's profile); each call made twice and bit-identical;
 16. gnn_train_parity — the four GNNs at full width on the Cora-sized
               graph, one training step's loss and every parameter's
               gradient: the kernel path against the plain path in float32
@@ -3198,16 +3202,82 @@ def _gat_bwd_bounds(E: int, n: int, H: int, dout: int, in_size: int,
     return dict(bound_ms=once_ms, bound_by=by, gather_once_bound_ms=gather_ms)
 
 
+# The backward kernels' times at the same shapes before their redesign
+# (the plan-order "sum_bwd" with the longer host path; "gat_bwd" in two
+# kernels, by destination and by source, each destination row walked
+# three times), on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6):
+# printed beside the new times, not measured here.
+BWD_EARLIER_MS = {"sum_bwd_products_d64": 9.835,
+                  "sum_bwd_graphcast_cora_d512_bf16": 0.0495,
+                  "gat_bwd_products_l1": 28.84, "gat_bwd_products_l2": 32.95,
+                  "gat_bwd_products_l1_f32": 44.66}
+
+
+def _device_ms(fn, calls: int) -> float:
+    """The card's time for one call of ``fn``, without the host's: a
+    sleep kernel of about 20 ms first, ``calls`` calls enqueued behind it
+    while it runs, CUDA events around them.  (``torch.profiler`` lost the
+    ctypes-launched kernels after the script's earlier profiles.)"""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _host_ms(fn, calls: int = 200) -> float:
+    """The host's time for one call of ``fn``: ``calls`` calls enqueued
+    back to back, without a synchronise between them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took * 1e3 / calls
+
+
+def _call_split(kernel, library, rounds: int, calls: int) -> dict:
+    """A call's time split between host and device, for the kernel's
+    wrapper and a library call of the same function, in turns (kernel,
+    library, ...) ``rounds`` times, each a median: ``ms`` (CUDA events
+    around 10 calls), ``host_ms`` (``_host_ms`` over ``calls``) and
+    ``device_ms`` (``_device_ms`` over ``calls``)."""
+    runs = {"kernel": [], "library": []}
+    for _ in range(rounds):
+        for side, fn in (("kernel", kernel), ("library", library)):
+            runs[side].append((cuda_ms(fn, iters=10), _host_ms(fn, calls),
+                               _device_ms(fn, calls)))
+    return {side: dict(ms=float(np.median([r[0] for r in rs])),
+                       host_ms=float(np.median([r[1] for r in rs])),
+                       device_ms=float(np.median([r[2] for r in rs])),
+                       ms_runs=[r[0] for r in rs])
+            for side, rs in runs.items()}
+
+
 def _gat_bwd_case(name, src, dst, mask, n, H, dout, dt, acc, gen,
                   timed=False, zero_rows=(), zero_scores=False):
     """``gat_aggregate_bwd`` against ``gat_aggregate_bwd_plain`` on the
-    card, on seeded random hw, s_src, s_dst and output gradient: two
-    calls bit-identical; each gradient within TRAIN_TOL (1e-4 when dt and
-    acc are f32, else 2e-2) of its largest plain value; the ``zero_rows``
-    (no live in-edge) get no ds_dst.  ``zero_scores``: ``s_dst =
-    -s_src``, so every self-loop's pre-activation is exactly 0, where
-    leaky_relu's slope is 1.  Timed: beside both bounds and the plain
-    backward."""
+    card, on seeded random hw, s_src, s_dst and output gradient, both
+    from the forward's saved row statistics and output
+    (``gat_aggregate_with_stats``, whose output must equal the forward's
+    without them bit for bit, its ``m`` the plain ``gat_row_stats_plain``
+    and its ``den`` within float32 rounding): two calls bit-identical;
+    each gradient within TRAIN_TOL (1e-4 when dt and acc are f32, else
+    2e-2) of its largest plain value; the ``zero_rows`` (no live in-edge)
+    get no ds_dst.  ``zero_scores``: ``s_dst = -s_src``, so every
+    self-loop's pre-activation is exactly 0, where leaky_relu's slope is
+    1.  Timed: beside both bounds and the plain backward (its three
+    kernels' split: phase 17's profile)."""
     import torch
     from repro_torch.kernels.segment_spmm import ops
     dev = torch.device(DEVICE)
@@ -3219,7 +3289,20 @@ def _gat_bwd_case(name, src, dst, mask, n, H, dout, dt, acc, gen,
     if zero_scores:
         s_dst = -s_src
     g = torch.randn((n, H, dout), generator=gen, device=dev).to(acc)
-    args = (hw, s_src, s_dst, plan, mask, acc, g)
+    out, m, den = ops.gat_aggregate_with_stats(hw, s_src, s_dst, plan, mask,
+                                               acc)
+    plain_m, plain_den = ops.gat_row_stats_plain(s_src, s_dst, plan, mask,
+                                                 acc)
+    den_rtol = 1e-5 if acc == torch.float32 else 2.0 ** -7
+    stats_err = float(((den - plain_den).abs()
+                       / plain_den.abs()).max()) if n else 0.0
+    check(torch.equal(out, ops.gat_aggregate(hw, s_src, s_dst, plan, mask,
+                                             acc))
+          and torch.equal(m, plain_m) and stats_err <= den_rtol,
+          f"gat {name}: the forward with its row statistics differs "
+          f"(den rel err {stats_err})")
+    del plain_m, plain_den
+    args = (hw, s_src, s_dst, plan, mask, acc, g, m, den, out)
     got = ops.gat_aggregate_bwd(*args, by_src)
     again = ops.gat_aggregate_bwd(*args, by_src)
     want = ops.gat_aggregate_bwd_plain(*args)
@@ -3238,7 +3321,8 @@ def _gat_bwd_case(name, src, dst, mask, n, H, dout, dt, acc, gen,
                max_in_degree=int((plan.rowptr[1:] - plan.rowptr[:-1]).max()),
                max_abs_err=max(float((a.float() - b.float()).abs().max())
                                for a, b in zip(got, want)),
-               ratio=ratio, tol=tol, check="max |diff| / max |plain|")
+               ratio=ratio, tol=tol, check="max |diff| / max |plain|",
+               fwd_stats_bit_equal=True, den_rel_err=stats_err)
     check(max(ratio.values()) <= 1
           and all(bool(torch.isfinite(a).all()) for a in got),
           f"gat_bwd {name} disagrees with its plain version: {row}")
@@ -3248,12 +3332,13 @@ def _gat_bwd_case(name, src, dst, mask, n, H, dout, dt, acc, gen,
     if timed:
         row["kernel_ms"] = cuda_ms(
             lambda: ops.gat_aggregate_bwd(*args, by_src), iters=10)
+        row["earlier_ms"] = BWD_EARLIER_MS.get(name)
         row["plain_ms"] = cuda_ms(
             lambda: ops.gat_aggregate_bwd_plain(*args), warmup=1, iters=2)
         row["library_ms"] = None
         row.update(_gat_bwd_bounds(E, n, H, dout, hw.element_size(),
                                    g.element_size()))
-    del hw, s_src, s_dst, g, got, again, want, plan, by_src, args
+    del hw, s_src, s_dst, g, got, again, want, plan, by_src, args, out, m, den
     torch.cuda.empty_cache()
     return row
 
@@ -3266,8 +3351,11 @@ def phase_gnn_train_kernels(products: dict):
     and bf16 sums; then timed at the products graph's D = 64 (f32) and at
     GraphCast's Cora-sized bf16 shape, which the training cell runs,
     beside the bound, the plain version and ``dout.index_select(0,
-    dst)``.  "gat_bwd" (``gat_aggregate_bwd``) against
-    ``gat_aggregate_bwd_plain`` (1e-4 of max |plain| in f32, 2e-2 with
+    dst)`` (in turns, each call's host and device time apart).
+    "gat_bwd" (``gat_aggregate_bwd``, from the forward's saved row
+    statistics and output, which the forward must give with the same
+    output bits as without them) against ``gat_aggregate_bwd_plain``
+    (1e-4 of max |plain| in f32, 2e-2 with
     bf16 anywhere) on a small graph with a hub, masked slots, an empty and
     an all-masked row, at the test head shapes in every dtype pair and at
     the forward kernel's shape limits, and with self-loops whose scores
@@ -3339,17 +3427,21 @@ def phase_gnn_train_kernels(products: dict):
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"{name}: differs from its plain "
                                       f"version")
+        # the small shape's call is the host's: many rounds in turns
+        small = E * D < 1 << 26
+        split = _call_split(
+            lambda: ops.segment_spmm_bwd(dout, dst, n, plan, m_dt),
+            lambda: dout.index_select(0, dst), rounds=7 if small else 1,
+            calls=200 if small else 10)
         row = dict(kernel="segment_spmm", variant="sum_bwd", shape=name, E=E,
                    n=n, D=D, dtype=str(m_dt).split(".")[-1],
                    dout_dtype=str(o_dt).split(".")[-1], max_abs_err=0.0,
-                   check="bit-exact",
-                   kernel_ms=cuda_ms(lambda: ops.segment_spmm_bwd(
-                       dout, dst, n, plan, m_dt), iters=10),
+                   check="bit-exact", kernel_ms=split["kernel"]["ms"],
+                   earlier_ms=BWD_EARLIER_MS[name],
                    plain_ms=cuda_ms(lambda: ops.segment_spmm_bwd_plain(
                        dout, dst, m_dt), iters=5),
                    library="dout.index_select(0, dst)",
-                   library_ms=cuda_ms(lambda: dout.index_select(0, dst),
-                                      iters=5))
+                   library_ms=split["library"]["ms"], split=split)
         row["bound_ms"], row["bound_by"] = _sum_bwd_bound_ms(
             E, n, D, got.element_size(), dout.element_size())
         emit(phase="gnn_train_kernels", **row)
@@ -3496,8 +3588,9 @@ def phase_gnn_train_parity():
 
 
 _GNN_STEP_SPLIT = (  # (part, kernel-name substrings), matched in this order
-    ("gat_bwd_dst", ("gat_bwd_dst_kernel",)),
+    ("gat_bwd_node", ("gat_bwd_node_kernel",)),
     ("gat_bwd_src", ("gat_bwd_src_kernel",)),
+    ("gat_bwd_dst", ("gat_bwd_dst_kernel",)),
     ("gat_fwd", ("gat_aggregate_kernel",)),
     ("sum_bwd", ("segment_sum_bwd",)),
     ("sum_fwd", ("segment_sum_kernel",)),

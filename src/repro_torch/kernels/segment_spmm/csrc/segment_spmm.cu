@@ -277,12 +277,17 @@ int launch_sum(const void* msgs, const void* perm, const void* spans,
 // for a row of one lane group).  A row without a live edge ends with
 // acc = 0.  A step takes 8 edges in the score passes and 4 in the
 // weighted sum, where each edge's vector of hw stays packed until used:
-// enough loads in flight at 3 blocks of 256 threads an SM.
-template <typename TD, typename TA, int VEC, typename Combine>
+// enough loads in flight at 3 blocks of 256 threads an SM.  With STATS,
+// `stats` holds the row's (H,) slices of the saved max and denominator
+// (or null, for a hub row's slots other than 0): the lane writes the
+// final m and den of the heads whose first value it holds, the
+// backward's starting point.  Without, the kernel is what serving runs.
+template <typename TD, typename TA, int VEC, bool STATS, typename Combine>
 __device__ __forceinline__ void gat_row(const GatArgs<TD>& g,
                                         const GatLane& L, int e0, int end,
                                         int step, float* cache,
-                                        float (&acc)[VEC], Combine combine) {
+                                        float (&acc)[VEC], Combine combine,
+                                        GatStats stats) {
   constexpr int kScoreEdges = 8;
   constexpr int kRowEdges = 4;
   float m[kMaxHeads], den[kMaxHeads];
@@ -300,20 +305,29 @@ __device__ __forceinline__ void gat_row(const GatArgs<TD>& g,
                                         acc);
   combine(1, den);
 #pragma unroll
-  for (int j = 0; j < kMaxHeads; ++j)
+  for (int j = 0; j < kMaxHeads; ++j) {
     den[j] = fmaxf(round_to<TA>(den[j]), 1e-9f);
+    if constexpr (STATS) {
+      if (stats.m != nullptr && head_owner<VEC>(L, j, g.dout)) {
+        stats.m[L.h0 + j] = m[j];
+        stats.den[L.h0 + j] = den[j];
+      }
+    }
+  }
   gat_pass<2, kRowEdges, TD, TA, VEC>(g, L, e0, end, step, cache, m, den,
                                      acc);
 }
 
 // Blocks [0, n_heavy) each take one hub row, spans[blockIdx.x]; the
 // others one row per group of (1 << lpr_log2) lanes, lane `sub` owning
-// vector `sub`, the rows of spans[n_heavy:] in turn.
-template <typename TD, typename TA, int VEC>
+// vector `sub`, the rows of spans[n_heavy:] in turn.  With STATS,
+// `stats` (N, H) each gets the rows' max and denominator (a hub row's
+// slot 0 writes them).
+template <typename TD, typename TA, int VEC, bool STATS>
 __global__ void __launch_bounds__(kThreads, 3)
 gat_aggregate_kernel(GatArgs<TD> g, const int4* __restrict__ spans,
-                     int n_heavy,
-                     TA* __restrict__ out, long long n, int lpr_log2) {
+                     int n_heavy, TA* __restrict__ out, GatStats stats,
+                     long long n, int lpr_log2) {
   const long long D = (long long)g.units * VEC;
   const int lpr = 1 << lpr_log2;
   __shared__ float cache[kCache * kMaxHeads * kThreads];
@@ -346,8 +360,9 @@ gat_aggregate_kernel(GatArgs<TD> g, const int4* __restrict__ spans,
       __syncthreads();
     };
     float acc[VEC];
-    gat_row<TD, TA, VEC>(g, L, sp.y + slot, sp.z, slots,
-                         cache + threadIdx.x, acc, combine);
+    gat_row<TD, TA, VEC, STATS>(
+        g, L, sp.y + slot, sp.z, slots, cache + threadIdx.x, acc, combine,
+        slot == 0 ? stats.row(row, g.heads) : GatStats{});
 #pragma unroll
     for (int k = 0; k < VEC; ++k) part[threadIdx.x * VEC + k] = acc[k];
     __syncthreads();
@@ -370,29 +385,35 @@ gat_aggregate_kernel(GatArgs<TD> g, const int4* __restrict__ spans,
   const long long row = sp.x;
   const GatLane L = gat_lane<TD, VEC>(g, row, sub);
   float acc[VEC];
-  gat_row<TD, TA, VEC>(g, L, sp.y, sp.z, 1, cache + threadIdx.x, acc,
-                       [](int, float(&)[kMaxHeads]) {});
+  gat_row<TD, TA, VEC, STATS>(g, L, sp.y, sp.z, 1, cache + threadIdx.x,
+                              acc, [](int, float(&)[kMaxHeads]) {},
+                              stats.row(row, g.heads));
   store<VEC>(out + row * D + (long long)sub * VEC, acc);
 }
 
 template <typename TD, typename TA, int VEC>
 int launch_gat(const GatArgs<TD>& g, const void* spans, long long n_heavy,
-               void* out, long long n,
+               void* out, GatStats stats, long long n,
                cudaStream_t stream) {
   const int lpr_log2 = lanes_log2(g.units);
   const long long blocks = grid_blocks(n, lpr_log2, n_heavy);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  gat_aggregate_kernel<TD, TA, VEC>
-      <<<dim3((unsigned)blocks), kThreads, 0, stream>>>(
-          g, static_cast<const int4*>(spans), (int)n_heavy,
-          static_cast<TA*>(out), n, lpr_log2);
+  const dim3 grid((unsigned)blocks);
+  if (stats.m != nullptr)
+    gat_aggregate_kernel<TD, TA, VEC, true><<<grid, kThreads, 0, stream>>>(
+        g, static_cast<const int4*>(spans), (int)n_heavy,
+        static_cast<TA*>(out), stats, n, lpr_log2);
+  else
+    gat_aggregate_kernel<TD, TA, VEC, false><<<grid, kThreads, 0, stream>>>(
+        g, static_cast<const int4*>(spans), (int)n_heavy,
+        static_cast<TA*>(out), stats, n, lpr_log2);
   return (int)cudaGetLastError();
 }
 
 template <typename TD, typename TA>
 int dispatch_gat(const void* hw, const void* s_src, const void* s_dst,
                  const void* src, const void* live, const void* spans,
-                 long long n_heavy, void* out, long long n,
+                 long long n_heavy, void* out, GatStats stats, long long n,
                  int heads, int dout, bool vec_ok, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(TD);
   const long long d = (long long)heads * dout;
@@ -406,11 +427,11 @@ int dispatch_gat(const void* hw, const void* s_src, const void* s_dst,
     for (int c = 0; c < g.units; ++c)
       if ((c * V + V - 1) / dout - (c * V) / dout >= kMaxHeads)
         return (int)cudaErrorInvalidValue;
-    return launch_gat<TD, TA, V>(g, spans, n_heavy, out, n, stream);
+    return launch_gat<TD, TA, V>(g, spans, n_heavy, out, stats, n, stream);
   }
   g.units = (int)d;
   if (g.units > kMaxUnits) return (int)cudaErrorInvalidValue;
-  return launch_gat<TD, TA, 1>(g, spans, n_heavy, out, n, stream);
+  return launch_gat<TD, TA, 1>(g, spans, n_heavy, out, stats, n, stream);
 }
 
 }  // namespace
@@ -453,26 +474,32 @@ extern "C" int segment_spmm_launch(const void* msgs, const void* perm,
 // "gat".  hw (N, heads * dout), s_src and s_dst (N, heads), all float32
 // (td_bf16 = 0) or bfloat16 (1); src (E,) int32 = edge_src[perm]; live
 // (E,) one byte per edge, edge_mask[perm]; spans, n_heavy as for "sum";
-// out (N, heads * dout) float32 (ta_bf16 = 0) or bfloat16 (1).
-// A row of heads * dout values takes at most 32 vectors (16 bytes each,
-// or single values when the row is not a multiple of 16 bytes), and a
-// vector may touch at most 2 heads: other shapes return
+// out (N, heads * dout) float32 (ta_bf16 = 0) or bfloat16 (1); m, den
+// (N, heads) float32, both null or both given: each row's and head's
+// max score and clamped denominator, which "gat_bwd" starts from (-inf
+// and 1e-9 for a row without a live edge).  A row of heads * dout
+// values takes at most 32 vectors (16 bytes each, or single values when
+// the row is not a multiple of 16 bytes), and a vector may touch at most
+// 2 heads: other shapes return
 // cudaErrorInvalidValue (the wrapper checks first).  Launches on `stream`
 // and returns cudaGetLastError().  Does not synchronise.
 extern "C" int gat_aggregate_launch(const void* hw, const void* s_src,
                                     const void* s_dst, const void* src,
                                     const void* live, const void* spans,
-                                    long long n_heavy, void* out, long long n,
-                                    int heads, int dout, int td_bf16,
-                                    int ta_bf16, void* stream) {
+                                    long long n_heavy, void* out, void* m,
+                                    void* den, long long n, int heads,
+                                    int dout, int td_bf16, int ta_bf16,
+                                    void* stream) {
   if (n <= 0 || heads <= 0 || dout <= 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   const bool vec_ok = aligned16(hw) && aligned16(out);
+  if ((m == nullptr) != (den == nullptr)) return (int)cudaErrorInvalidValue;
+  const GatStats stats{static_cast<float*>(m), static_cast<float*>(den)};
   using bf16 = __nv_bfloat16;
   const auto go = [&](auto td, auto ta) {
     return dispatch_gat<decltype(td), decltype(ta)>(
-        hw, s_src, s_dst, src, live, spans, n_heavy, out, n, heads, dout,
-        vec_ok, s);
+        hw, s_src, s_dst, src, live, spans, n_heavy, out, stats, n, heads,
+        dout, vec_ok, s);
   };
   if (td_bf16) return ta_bf16 ? go(bf16(), bf16()) : go(bf16(), 0.f);
   return ta_bf16 ? go(0.f, bf16()) : go(0.f, 0.f);

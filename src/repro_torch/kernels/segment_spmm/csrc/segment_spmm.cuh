@@ -3,8 +3,8 @@
 // (segment_spmm_bwd.cu, "sum_bwd" and "gat_bwd").  Vector loads and
 // stores of float32 and bfloat16 rows, the rounding of a float to a
 // tensor's type, the grid of lane groups and hub blocks, and the GAT
-// lane's view of a row with its score passes, so that the backward
-// recomputes each row's max and denominator with the forward's own code.
+// lane's view of a row with its score, so that the backward recomputes
+// each edge's score and weight with the forward's own roundings.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -120,6 +120,18 @@ struct Packed<__nv_bfloat16, 8> {
   }
 };
 
+template <>
+struct Packed<__nv_bfloat16, 4> {
+  uint2 x;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    x = __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ float at(int k) const {
+    const uint32_t w = k < 2 ? x.x : x.y;
+    return __uint_as_float(k & 1 ? w & 0xffff0000u : w << 16);
+  }
+};
+
 // VEC values from a to p, rounded to p's type (VEC * sizeof(*p)-byte
 // aligned)
 template <int VEC>
@@ -194,6 +206,18 @@ struct GatArgs {
   int heads, dout, units;
 };
 
+// The forward's saved row statistics, (N, H) float32 each, or both
+// null: m the max score, den the clamped denominator.
+struct GatStats {
+  float* m = nullptr;
+  float* den = nullptr;
+  // the (H,) slices of row `row` (null stays null)
+  __device__ __forceinline__ GatStats row(long long row, int heads) const {
+    return m == nullptr ? GatStats{}
+                        : GatStats{m + row * heads, den + row * heads};
+  }
+};
+
 // What one lane owns of a GAT row: vector c (values c*VEC .. c*VEC+VEC-1),
 // which touches heads h0 .. h0 + nh - 1 (nh <= kMaxHeads; nh = 0 for a
 // lane past the row's last vector); bit k of `second` is set where value
@@ -204,28 +228,46 @@ struct GatLane {
   float sd[kMaxHeads];
 };
 
+// The lane of vector c of row `row`, with sd[j] = scores[row, h0 + j]
+// for the row's own per-node scores (s_dst of a destination row in the
+// forward, s_src of a source row in the backward's walk by source).
 template <typename TD, int VEC>
-__device__ __forceinline__ GatLane gat_lane(const GatArgs<TD>& g, long long v,
-                                            int c) {
+__device__ __forceinline__ GatLane lane_of(const TD* scores, long long row,
+                                           int c, int heads, int dout,
+                                           int units) {
   GatLane L;
   L.c = c;
   L.nh = 0;
   L.h0 = 0;
   L.second = 0;
-  if (c < g.units) {
+  if (c < units) {
     const int first = c * VEC;
-    L.h0 = first / g.dout;
-    L.nh = (first + VEC - 1) / g.dout - L.h0 + 1;
+    L.h0 = first / dout;
+    L.nh = (first + VEC - 1) / dout - L.h0 + 1;
 #pragma unroll
     for (int k = 0; k < VEC; ++k)
-      if ((first + k) / g.dout != L.h0) L.second |= 1u << k;
+      if ((first + k) / dout != L.h0) L.second |= 1u << k;
   }
 #pragma unroll
   for (int j = 0; j < kMaxHeads; ++j) {
     L.sd[j] = 0.f;
-    if (j < L.nh) load<TD, 1>(g.s_dst + v * g.heads + L.h0 + j, &L.sd[j]);
+    if (j < L.nh) load<TD, 1>(scores + row * heads + L.h0 + j, &L.sd[j]);
   }
   return L;
+}
+
+template <typename TD, int VEC>
+__device__ __forceinline__ GatLane gat_lane(const GatArgs<TD>& g, long long v,
+                                            int c) {
+  return lane_of<TD, VEC>(g.s_dst, v, c, g.heads, g.dout, g.units);
+}
+
+// Whether the lane holds the first value of head h0 + j: the one lane of
+// the row that writes the head's per-row values.
+template <int VEC>
+__device__ __forceinline__ bool head_owner(const GatLane& L, int j,
+                                           int dout) {
+  return j < L.nh && (L.h0 + j) * dout >= L.c * VEC;
 }
 
 // leaky_relu(a + b, 0.2) in TD, as a float: the add and the negative

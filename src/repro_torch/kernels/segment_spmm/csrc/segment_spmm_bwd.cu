@@ -10,10 +10,11 @@
 //         source u = src_e, and the forward's own values
 //           x_e = s_src[u] + s_dst[v],  score_e = leaky_relu(x_e, 0.2),
 //           m_v = max score,  p_e = exp(score_e - m_v),  ex_e = TA(p_e),
-//           den_v = max(TA(sum ex_e), 1e-9),  alpha_e = TD(ex_e / den_v):
+//           den_v = max(TA(sum ex_e), 1e-9),  alpha_e = TD(ex_e / den_v),
+//           out_v = sum of alpha_e * hw[u]  (in TA, as the forward wrote it):
 //           dalpha_e = <TD(dout[v]), hw[u]>        (over the head's values)
-//           T_v      = sum of dalpha_e * ex_e
-//           da_e     = p_e * (dalpha_e - T_v / den_v) / den_v,
+//           delta_v  = <TD(dout[v]), out_v>
+//           da_e     = p_e * (dalpha_e - delta_v) / den_v,
 //                      times 0.2 where score_e < 0 (leaky_relu's slope;
 //                      1 at x_e == 0, as jax.nn.leaky_relu's where(x >= 0)
 //                      gives it)
@@ -21,48 +22,109 @@
 //           ds_src[u] = sum of da_e over u's edges
 //           dhw[u]    = sum of TD(dout[v]) * alpha_e over u's edges
 //         every sum in float32, each gradient rounded to the model's type
-//         TD once (ops.gat_aggregate_bwd_plain computes the same).  The
-//         reference's autodiff passes a gradient through each of the
-//         forward's roundings unchanged, and through the row max, where
-//         the terms cancel: the sums here are that gradient.
+//         TD once (ops.gat_aggregate_bwd_plain computes the same).  delta_v
+//         is the softmax's sum of dalpha_e * alpha_e (flash attention's
+//         "delta" = rowsum(dO * O)), taken from the forward's output, so
+//         no walk over v's edges has to come first.  The reference's
+//         autodiff passes a gradient through each of the forward's
+//         roundings unchanged, and through the row max, where the terms
+//         cancel: the sums here are that gradient.
 //
 // Neither has a TPU kernel: they are the gradient of segment_spmm_pallas
 // (src/repro/kernels/segment_spmm/kernel.py), which the TPU package never
 // differentiates, written for the port's training path.
 //
-// What bounds them: bytes.  "sum_bwd" reads each row of dout once, perm
-// and the row spans once, and writes each edge's row once: at GAT-sized
-// messages on ogbn-products' shape (E = 61,859,140, D = 64, f32) 16.7 GB,
-// about 5.0 ms at 3.35 TB/s.  "gat_bwd" must gather hw[u] and dout[v] once
-// an edge (for dalpha and for dhw), where the forward gathers hw[u] once;
-// it runs in two passes over the edges, one by destination and one by
-// source, so that every sum is a sum of its own lane's terms in a fixed
-// order and no float add is atomic.  dout comes rounded to TD, as the
-// messages' gradient is used: the source pass gathers its rows at TD's
-// width, not the forward output's (half the bytes when that is f32).
+// What bounds them.  "sum_bwd": bytes, or at small shapes the call.  It
+// reads dout, perm and the row spans once and writes each edge's row
+// once: at D = 64 f32 on ogbn-products' shape (E = 61,859,140) 16.7 GB,
+// about 5.0 ms at 3.35 TB/s; at GraphCast's Cora-sized training shape
+// (E = 10,556, D = 512, bf16) 13.7 MB, 0.004 ms, where a call's host
+// time (about 0.02-0.04 ms on an H100 host) is most of its cost.
+// "gat_bwd": bytes gathered at random.  Per edge it must read the dout
+// row of its destination (for dalpha and dhw) and that row's per-head
+// max, denominator, delta and s_dst, where the forward gathers hw[u]
+// once: at GAT's first layer in bf16 about 300 bytes an edge, 18 GB a
+// call at the products shape.  Its scores and weights are recomputed,
+// not stored.
 //
 // Design.  "sum_bwd" walks the forward's plan: a group of lanes per
 // destination row (a block for a hub row, whose edges its slots split),
-// each lane loads its 16-byte vectors of dout[v] once and stores them to
-// each of the row's edges, four edge ids loaded ahead of the stores.
-// "gat_bwd", pass 1, by destination over the forward's plan, with the
-// forward's lane layout (a lane owns one 16-byte vector of a row, so one
-// or two heads), its hub blocks and three blocks an SM: it recomputes m_v
-// with the forward's own score pass (segment_spmm.cuh), then walks the
-// row's edges twice more: once for den_v (the forward's adds in the
-// forward's order), dalpha_e, whose per-head sum runs across the lanes
-// that share the head (warp shuffles within the lane group, in lane
-// order), and T_v; once for alpha_e, da_e and ds_dst[v].  It writes
-// alpha_e and da_e, (E, H) float32 each in the plan's edge order, and
-// ds_dst.  Pass 2, by source, walks a second plan whose rows are the
-// sources and whose "edges" are pass 1's edge positions
-// (ops.source_plan): each lane sums its vector of dhw[u] from the
-// gathered rows of dout and the edges' alpha, and ds_src[u] from their
-// da, and writes both once.  A hub row in either pass takes a block whose
-// slots split its edges; their partials are combined in slot order.
+// each lane loading its 16-byte vectors of dout[v] once and storing them
+// to each of the row's edges, four edge ids loaded ahead of the stores.
+// The stores are streaming (evict-first): at the products shape that
+// took a call from 9.8 to 6.6 ms on an H100.  An edge-order grid (dst
+// read in order, dout gathered per edge, dmsgs written contiguously)
+// was timed beside it and was slower there, 11.7 ms, since dout (627 MB)
+// does not stay in L2 and every edge's row came from device memory; at
+// the Cora shape both take about 0.005 ms on the device.
+// "gat_bwd" starts from what the forward saved (gat_aggregate_launch's m
+// and den, and its output) and runs three kernels:
+//  1. by node (N * H threads): delta_v from dout and the forward's output,
+//     packed with m_v, den_v and s_dst[v] into one 16-byte record per
+//     node and head; dout rounded to TD where the forward summed in
+//     float32 and the model is bfloat16 (else the walk reads dout as it
+//     is, converting exactly).
+//  2. by source, over the source plan (ops.source_plan: each source's
+//     edges, as positions of the forward's plan): a group of lanes per
+//     source row u (a block for a hub row, whose edges its slots split),
+//     each lane owning one 16-byte vector of hw[u] (one or two heads) and
+//     its s_src values, loaded once.  Per edge it gathers the lane's
+//     vector of dout[v] and v's records for its heads, recomputes score,
+//     p and alpha, sums dhw[u] and ds_src[u] in edge order, each written
+//     once, and writes da_e (0 for a masked edge), float32, at the edge's
+//     position in the forward's plan with a streaming store.  Only the
+//     lane that owns a head needs dalpha's sum over it: it adds the
+//     partials of the lanes after it that hold the head, brought down by
+//     shuffles (none where every head lies in one vector).  Four edges a
+//     step, their ids loaded a step ahead; at most 128 registers, two
+//     blocks an SM (three, or eight edges a step, were slower on an
+//     H100, and L2 hints on the record loads changed nothing).
+//  3. by destination, over the forward's plan: ds_dst[v] sums da over
+//     v's positions, contiguous and in plan order, a thread per row and
+//     head (a block for a hub row).
+// A hub row's slots are combined in slot order, and no float add is
+// atomic, so two calls give the same bits.
 #include "segment_spmm.cuh"
 
 namespace {
+
+// ------------------------------------------------------------------------ //
+// streaming (evict-first) stores
+// ------------------------------------------------------------------------ //
+
+// VEC values from a to p with a streaming store, rounded to p's type
+template <int VEC>
+__device__ __forceinline__ void store_cs(float* p, const float* a) {
+  if constexpr (VEC == 1) {
+    __stcs(p, a[0]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4)
+      __stcs(reinterpret_cast<float4*>(p + i),
+             make_float4(a[i], a[i + 1], a[i + 2], a[i + 3]));
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void store_cs(__nv_bfloat16* p, const float* a) {
+  if constexpr (VEC == 1) {
+    const __nv_bfloat16 h = __float2bfloat16_rn(a[0]);
+    __stcs(reinterpret_cast<unsigned short*>(p),
+           *reinterpret_cast<const unsigned short*>(&h));
+  } else {
+    static_assert(VEC == 4 || VEC == 8, "bf16 rows store 1, 4 or 8 values");
+    uint32_t w[VEC / 2];
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a[2 * i], a[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    if constexpr (VEC == 8) {
+      __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
+    } else {
+      __stcs(reinterpret_cast<uint2*>(p), make_uint2(w[0], w[1]));
+    }
+  }
+}
 
 // ------------------------------------------------------------------------ //
 // "sum_bwd"
@@ -72,7 +134,7 @@ namespace {
 // block's kThreads / LPR slots; the others one row per group of LPR
 // lanes, as the forward's grid.  Lane `sub` owns vectors sub, sub + LPR,
 // ... of the row; for each, it loads dout's vector once and stores it to
-// the row's edges.
+// the row's edges (streaming stores), four edge ids loaded ahead.
 template <typename TOut, typename TIn, int VEC>
 __global__ void __launch_bounds__(kThreads)
 segment_sum_bwd_kernel(const TOut* __restrict__ dout,
@@ -109,13 +171,13 @@ segment_sum_bwd_kernel(const TOut* __restrict__ dout,
     for (; e + (U - 1) * step < sp.z; e += U * step) {
       int id[U];
 #pragma unroll
-      for (int u = 0; u < U; ++u) id[u] = __ldg(perm + e + u * step);
+      for (int u = 0; u < U; ++u) id[u] = __ldcs(perm + e + u * step);
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        store<VEC>(dmsgs + (long long)id[u] * D + off, v);
+        store_cs<VEC>(dmsgs + (long long)id[u] * D + off, v);
     }
     for (; e < sp.z; e += step)
-      store<VEC>(dmsgs + (long long)__ldg(perm + e) * D + off, v);
+      store_cs<VEC>(dmsgs + (long long)__ldcs(perm + e) * D + off, v);
   }
 }
 
@@ -136,412 +198,360 @@ int launch_sum_bwd(const void* dout, const void* perm, const void* spans,
 }
 
 // ------------------------------------------------------------------------ //
-// "gat_bwd", pass 1: by destination
+// "gat_bwd", kernel 1: by node
 // ------------------------------------------------------------------------ //
 
-// Which lanes of a lane group hold a lane's heads: the group's lanes in
-// the warp (`mask`, LPR = `width` of them), the group lane holding the
-// first value of head h0 (`first`), how many lanes from there can hold a
-// value of head h0 or h0 + 1 (`span`, the same for every lane of the
-// group), and whether this lane holds the first value of head h0 + j
-// (`owner`: that lane writes the head's per-edge and per-row values).
-struct HeadMap {
-  unsigned mask;
-  int width, first, span;
-  bool owner[kMaxHeads];
+// Thread i = v * H + h: rec[i] = (m, den, delta, s_dst) of node v and
+// head h, delta = sum over the head's values of TD(dout) * out in
+// float32, in order; dout_td (null when the walk reads dout itself)
+// gets TD(dout).
+template <typename TD, typename TA>
+__global__ void __launch_bounds__(kThreads)
+gat_bwd_node_kernel(const TA* __restrict__ dout, const TA* __restrict__ out,
+                    const float* __restrict__ m,
+                    const float* __restrict__ den,
+                    const TD* __restrict__ s_dst, TD* __restrict__ dout_td,
+                    float4* __restrict__ rec, long long nh, int dout_dim) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= nh) return;
+  const long long base = i * dout_dim;
+  float delta = 0.f;
+  for (int k = 0; k < dout_dim; ++k) {
+    float g, o;
+    load<TA, 1>(dout + base + k, &g);
+    load<TA, 1>(out + base + k, &o);
+    g = round_to<TD>(g);
+    if (dout_td != nullptr) store<1>(dout_td + base + k, &g);
+    delta = __fadd_rn(delta, __fmul_rn(g, o));
+  }
+  float sd;
+  load<TD, 1>(s_dst + i, &sd);
+  rec[i] = make_float4(__ldg(m + i), __ldg(den + i), delta, sd);
+}
+
+// ------------------------------------------------------------------------ //
+// "gat_bwd", kernel 2: by source
+// ------------------------------------------------------------------------ //
+
+// The ids of U edges e, e + step, ... of a source row: each one's
+// position in the forward's plan (for every edge below `end`, so a
+// masked edge's da can be written 0), its destination and whether it
+// exists and is live; a lane that owns no vector (on = false) takes none.
+template <int U>
+struct SrcEdges {
+  int pos[U], v[U];
+  bool in[U], ok[U];
 };
 
-template <int VEC>
-__device__ __forceinline__ HeadMap head_map(const GatLane& L, int lpr,
-                                            int dout) {
-  HeadMap hm;
-  const int lane = threadIdx.x & 31;
-  hm.mask = lpr == 32 ? 0xffffffffu
-                      : ((1u << lpr) - 1u) << (lane & ~(lpr - 1));
-  hm.width = lpr;
-  hm.first = L.nh > 0 ? (L.h0 * dout) / VEC : 0;
-  hm.span = min(lpr, (2 * dout + VEC - 1) / VEC + 1);
+template <int U>
+__device__ __forceinline__ void load_src_edges(
+    const int32_t* __restrict__ pos, const int32_t* __restrict__ vdst,
+    const uint8_t* __restrict__ live, int e, int end, int step, bool on,
+    SrcEdges<U>& x) {
 #pragma unroll
-  for (int j = 0; j < kMaxHeads; ++j)
-    hm.owner[j] = j < L.nh && (L.h0 + j) * dout >= L.c * VEC;
-  return hm;
-}
-
-// tot[j] = the sum over the group's lanes, in lane order, of their
-// partials p of head h0 + j.  Every lane of the group calls it together.
-template <int VEC>
-__device__ __forceinline__ void head_totals(const HeadMap& hm,
-                                            const GatLane& L, int dout,
-                                            int units,
-                                            const float (&p)[kMaxHeads],
-                                            float (&tot)[kMaxHeads]) {
-#pragma unroll
-  for (int j = 0; j < kMaxHeads; ++j) tot[j] = 0.f;
-  for (int s = 0; s < hm.span; ++s) {
-    const int l = hm.first + s;
-    const float q0 = __shfl_sync(hm.mask, p[0], l, hm.width);
-    const float q1 = __shfl_sync(hm.mask, p[1], l, hm.width);
-    if (l < units) {
-      const int h = (l * VEC) / dout;
-      const bool two = (l * VEC + VEC - 1) / dout != h;
-#pragma unroll
-      for (int j = 0; j < kMaxHeads; ++j) {
-        if (j >= L.nh) continue;
-        if (h == L.h0 + j) tot[j] = __fadd_rn(tot[j], q0);
-        if (two && h + 1 == L.h0 + j) tot[j] = __fadd_rn(tot[j], q1);
-      }
-    }
+  for (int u = 0; u < U; ++u) {
+    const int ee = e + u * step;
+    x.in[u] = on && ee < end;
+    x.ok[u] = x.in[u] && __ldcs(live + ee) != 0;
+    x.pos[u] = x.in[u] ? __ldcs(pos + ee) : 0;
+    x.v[u] = x.in[u] ? __ldcs(vdst + ee) : 0;   // not waiting on live
   }
 }
 
-// The score of the lane's k-th edge for head h0 + j: from the score cache
-// that the forward's PASS 0 filled for the first kCache edges, else from
-// the gathered s_src value a.
-template <typename TD>
-__device__ __forceinline__ float cached_score(const GatLane& L,
-                                              const float* cache, int k,
-                                              int j, float a) {
-  return k < kCache ? cache[(k * kMaxHeads + j) * kThreads]
-                    : gat_score<TD>(a, L.sd[j]);
-}
+template <typename TD, typename TG>
+struct WalkArgs {
+  const TD* hw;            // (N, H * dout_dim)
+  const TD* s_src;         // (N, H)
+  const TG* dout;          // (N, H * dout_dim): TD(dout) as TG holds it
+  const float4* rec;       // (N, H): m, den, delta, s_dst
+  const int32_t* pos;      // source plan: positions in the forward's plan
+  const int32_t* vdst;     //   their destinations
+  const uint8_t* live;     //   their mask
+  const int4* spans;       //   rows by out-degree
+  int n_heavy;
+  float* da;               // (E, H) in the forward's plan order
+  TD* dhw;                 // (N, H * dout_dim)
+  TD* ds_src;              // (N, H)
+  int heads, dout_dim, units;
+  int reach;               // most lanes after a head's first that hold it
+};
 
-// One pass over the edges e0, e0 + step, ... < end of a destination row,
-// U edges a step, after the row max m is known:
-//   PASS 3: den[j] = sum in f32 of ex_e (the forward's PASS 1, the same
-//           adds in the same order) and t[j] = sum of dalpha_e * ex_e;
-//           the owner of head h0 + j writes dalpha_e into dsc at
-//           e * H + h0 + j;
-//   PASS 4 (den final, clamped; t final): the owner writes alpha_e, turns
-//           dsc[e, h] from dalpha_e into da_e, and sums da_e into acc[j].
-// Masked and missing edges take no part, but every lane of the group
-// runs PASS 3's shuffles for each edge slot.
-template <int PASS, int U, typename TD, typename TA, int VEC>
-__device__ __forceinline__ void gat_bwd_pass(
-    const GatArgs<TD>& g, const GatLane& L, const HeadMap& hm, int e0,
-    int end, int step, const float* cache, const float (&m)[kMaxHeads],
-    float (&den)[kMaxHeads], const float (&dv)[VEC],
-    float* __restrict__ alpha, float* __restrict__ dsc,
-    float (&t)[kMaxHeads], float (&acc)[kMaxHeads]) {
-  Edges<U> cur, nxt;
-  load_edges<TD, U>(g, e0, end, step, L.nh > 0, cur);
-  for (int e = e0, k0 = 0; e < end; e += U * step, k0 += U) {
-    load_edges<TD, U>(g, e + U * step, end, step, L.nh > 0, nxt);
-    float a[U][kMaxHeads];
-    Packed<TD, VEC> v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const long long s = cur.id[u];
-#pragma unroll
-      for (int j = 0; j < kMaxHeads; ++j) {
-        a[u][j] = 0.f;
-        const bool need = PASS == 3 || hm.owner[j];
-        if (cur.ok[u] && j < L.nh && need && k0 + u >= kCache)
-          load<TD, 1>(g.s_src + s * g.heads + L.h0 + j, &a[u][j]);
-      }
-      if (PASS == 3 && cur.ok[u])
-        v[u].load(g.hw + s * ((long long)g.units * VEC) +
-                  (long long)L.c * VEC);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const long long base = (long long)(e + u * step) * g.heads + L.h0;
-      if (PASS == 3) {
-        float p[kMaxHeads] = {0.f, 0.f};
-        if (cur.ok[u]) {
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) {
-            const float x = __fmul_rn(dv[k], v[u].at(k));
-            if ((L.second >> k) & 1u)
-              p[1] = __fadd_rn(p[1], x);
-            else
-              p[0] = __fadd_rn(p[0], x);
-          }
-        }
-        float tot[kMaxHeads];
-        head_totals<VEC>(hm, L, g.dout, g.units, p, tot);
-        if (!cur.ok[u]) continue;
-#pragma unroll
-        for (int j = 0; j < kMaxHeads; ++j) {
-          if (j >= L.nh) continue;
-          const float sc = cached_score<TD>(L, cache, k0 + u, j, a[u][j]);
-          const float ex = gat_exp<TA>(sc, m[j]);
-          den[j] = __fadd_rn(den[j], ex);
-          t[j] = __fadd_rn(t[j], __fmul_rn(tot[j], ex));
-          if (hm.owner[j]) dsc[base + j] = tot[j];
-        }
-      } else {
-        if (!cur.ok[u]) continue;
-#pragma unroll
-        for (int j = 0; j < kMaxHeads; ++j) {
-          if (!hm.owner[j]) continue;
-          const float sc = cached_score<TD>(L, cache, k0 + u, j, a[u][j]);
-          const float p = expf(__fsub_rn(sc, m[j]));
-          alpha[base + j] = round_to<TD>(__fdiv_rn(round_to<TA>(p), den[j]));
-          const float q = __fsub_rn(dsc[base + j], __fdiv_rn(t[j], den[j]));
-          const float ds = __fdiv_rn(__fmul_rn(p, q), den[j]);
-          const float da = sc >= 0.f ? ds : __fmul_rn(ds, 0.2f);
-          dsc[base + j] = da;
-          acc[j] = __fadd_rn(acc[j], da);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      cur.id[u] = nxt.id[u];
-      cur.ok[u] = nxt.ok[u];
-    }
-  }
-}
-
-// Blocks [0, n_heavy) each take one hub row, spans[blockIdx.x]; the
-// others one destination row per group of LPR lanes, lane `sub` owning
-// vector `sub` (the forward's grid).  Every lane of a group stays to the
-// end, since the per-edge head sums shuffle across the group.
-template <typename TD, typename TA, int VEC>
-__global__ void __launch_bounds__(kThreads, 3)
-gat_bwd_dst_kernel(GatArgs<TD> g, const TD* __restrict__ dout,
-                   const int4* __restrict__ spans, int n_heavy,
-                   float* __restrict__ alpha, float* __restrict__ dsc,
-                   TD* __restrict__ ds_dst, long long n, int lpr_log2) {
-  constexpr int kScoreEdges = 8;
-  constexpr int kGradEdges = 4;
-  const long long D = (long long)g.units * VEC;
-  const int lpr = 1 << lpr_log2;
-  __shared__ float cache[kCache * kMaxHeads * kThreads];
-  __shared__ float part[kThreads * kMaxHeads];
-  const bool hub = (int)blockIdx.x < n_heavy;
-  int4 sp;
-  int sub, slot = 0, slots = 1;
-  if (hub) {
-    sp = __ldg(spans + blockIdx.x);
-    slots = kThreads >> lpr_log2;
-    slot = threadIdx.x >> lpr_log2;
-    sub = threadIdx.x & (lpr - 1);
-  } else {
-    const int lane = threadIdx.x & 31;
-    const long long warp =
-        ((long long)(blockIdx.x - n_heavy) * kThreads + threadIdx.x) >> 5;
-    const long long idx =
-        n_heavy + (warp << (5 - lpr_log2)) + (lane >> lpr_log2);
-    if (idx >= n) return;
-    sp = __ldg(spans + idx);
-    sub = lane & (lpr - 1);
-  }
-  const long long row = sp.x;
-  const GatLane L = gat_lane<TD, VEC>(g, row, sub);
-  // a hub row's slots meet in shared memory, as in the forward: sums
-  // (kind 1) in slot order, so every slot goes on with the same values
-  const auto combine = [&](int kind, float(&x)[kMaxHeads]) {
-    if (!hub) return;
-#pragma unroll
-    for (int j = 0; j < kMaxHeads; ++j)
-      part[threadIdx.x * kMaxHeads + j] = x[j];
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kMaxHeads; ++j) {
-      float s = kind == 0 ? -INFINITY : 0.f;
-      for (int q = 0; q < slots; ++q) {
-        const float y = part[(q * lpr + sub) * kMaxHeads + j];
-        s = kind == 0 ? fmaxf(s, y) : __fadd_rn(s, y);
-      }
-      x[j] = s;
-    }
-    __syncthreads();
-  };
-  float m[kMaxHeads], den[kMaxHeads], t[kMaxHeads], dsd[kMaxHeads];
-#pragma unroll
-  for (int j = 0; j < kMaxHeads; ++j) {
-    m[j] = -INFINITY;
-    den[j] = t[j] = dsd[j] = 0.f;
-  }
-  float* cache_t = cache + threadIdx.x;
-  const int e0 = sp.y + slot, end = sp.z;
-  float unused[VEC];
-  gat_pass<0, kScoreEdges, TD, TA, VEC>(g, L, e0, end, slots, cache_t, m,
-                                        den, unused);
-  combine(0, m);
-  // the lane's vector of dout[v] (rounded to TD by the caller): the
-  // gradient of the messages TD(alpha * hw) that the forward summed
-  float dv[VEC];
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) dv[k] = 0.f;
-  if (L.nh > 0) load<TD, VEC>(dout + row * D + (long long)L.c * VEC, dv);
-  const HeadMap hm = head_map<VEC>(L, lpr, g.dout);
-  gat_bwd_pass<3, kGradEdges, TD, TA, VEC>(g, L, hm, e0, end, slots,
-                                           cache_t, m, den, dv, alpha, dsc,
-                                           t, dsd);
-  combine(1, den);
-  combine(1, t);
-#pragma unroll
-  for (int j = 0; j < kMaxHeads; ++j)
-    den[j] = fmaxf(round_to<TA>(den[j]), 1e-9f);
-  gat_bwd_pass<4, kGradEdges, TD, TA, VEC>(g, L, hm, e0, end, slots,
-                                           cache_t, m, den, dv, alpha, dsc,
-                                           t, dsd);
-  combine(1, dsd);
-  if (slot == 0) {
-#pragma unroll
-    for (int j = 0; j < kMaxHeads; ++j)
-      if (hm.owner[j]) store<1>(ds_dst + row * g.heads + L.h0 + j, &dsd[j]);
-  }
-}
-
-// ------------------------------------------------------------------------ //
-// "gat_bwd", pass 2: by source
-// ------------------------------------------------------------------------ //
-
-// One source row u per group of LPR lanes (a block for a hub row), lane
-// `sub` owning vector `sub` of dhw[u]: over the row's edges, four a
-// step, in the source plan's order, acc += dout[v] * alpha_e for its
-// vector (dout in TD) and, for the heads whose first value it holds,
-// ds += da_e.  pos[e] is the edge's position in pass 1's order, vdst[e]
-// its destination, live[e] its mask.
-template <typename TD, typename TA, int VEC>
-__global__ void __launch_bounds__(kThreads)
-gat_bwd_src_kernel(const TD* __restrict__ dout,
-                   const int32_t* __restrict__ pos,
-                   const int32_t* __restrict__ vdst,
-                   const uint8_t* __restrict__ live,
-                   const int4* __restrict__ spans, int n_heavy,
-                   const float* __restrict__ alpha,
-                   const float* __restrict__ dsc, TD* __restrict__ dhw,
-                   TD* __restrict__ ds_src, long long n, int heads, int dout_,
-                   int units, int lpr_log2) {
+// Blocks [0, n_heavy) each take one hub source row, spans[blockIdx.x],
+// its edges split among the block's kThreads / LPR slots; the others one
+// source row per group of LPR lanes, lane `sub` owning vector `sub`,
+// which touches at most MAXH heads.  dalpha's sum over a head is needed
+// only by the head's owner (the lane holding its first value, which
+// writes da): it adds the partials of the `reach` lanes after it that
+// hold the rest of the head, brought down by shuffles, in lane order
+// (none where every head lies in one vector).  Every lane of a group
+// runs those shuffles and stays to the end; a hub block meets at a
+// barrier.
+template <typename TD, typename TG, typename TA, int VEC, int MAXH>
+__global__ void __launch_bounds__(kThreads, 2)
+gat_bwd_src_kernel(WalkArgs<TD, TG> w, long long n, int lpr_log2) {
   constexpr int U = 4;
-  const long long D = (long long)units * VEC;
+  const long long D = (long long)w.units * VEC;
   const int lpr = 1 << lpr_log2;
-  const bool hub = (int)blockIdx.x < n_heavy;
+  const bool hub = (int)blockIdx.x < w.n_heavy;
   int4 sp;
   int sub, slot = 0, slots = 1;
   if (hub) {
-    sp = __ldg(spans + blockIdx.x);
+    sp = __ldg(w.spans + blockIdx.x);
     slots = kThreads >> lpr_log2;
     slot = threadIdx.x >> lpr_log2;
     sub = threadIdx.x & (lpr - 1);
   } else {
     const int lane = threadIdx.x & 31;
     const long long warp =
-        ((long long)(blockIdx.x - n_heavy) * kThreads + threadIdx.x) >> 5;
+        ((long long)(blockIdx.x - w.n_heavy) * kThreads + threadIdx.x) >> 5;
     const long long idx =
-        n_heavy + (warp << (5 - lpr_log2)) + (lane >> lpr_log2);
+        w.n_heavy + (warp << (5 - lpr_log2)) + (lane >> lpr_log2);
+    if (idx >= n) return;   // whole lane groups leave together
+    sp = __ldg(w.spans + idx);
     sub = lane & (lpr - 1);
-    if (idx >= n || sub >= units) return;
-    sp = __ldg(spans + idx);
   }
   const long long row = sp.x;
-  const bool on = sub < units;
-  int h0 = 0, nh = 0;
-  uint32_t second = 0;
-  bool owner[kMaxHeads] = {false, false};
-  if (on) {
-    const int first = sub * VEC;
-    h0 = first / dout_;
-    nh = (first + VEC - 1) / dout_ - h0 + 1;
+  const GatLane L =
+      lane_of<TD, VEC>(w.s_src, row, sub, w.heads, w.dout_dim, w.units);
+  const bool on = L.nh > 0;
+  // for each of the lane's heads it owns: how many lanes after it hold
+  // the rest of the head (their first value is the head's)
+  bool owner[MAXH];
+  int more[MAXH];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k)
-      if ((first + k) / dout_ != h0) second |= 1u << k;
-#pragma unroll
-    for (int j = 0; j < kMaxHeads; ++j)
-      owner[j] = j < nh && (h0 + j) * dout_ >= first;
+  for (int j = 0; j < MAXH; ++j) {
+    owner[j] = head_owner<VEC>(L, j, w.dout_dim);
+    more[j] = owner[j] ? ((L.h0 + j + 1) * w.dout_dim - 1) / VEC - sub : 0;
   }
-  float acc[VEC], ds[kMaxHeads] = {0.f, 0.f};
+  const unsigned mask =
+      lpr == 32 ? 0xffffffffu
+                : ((1u << lpr) - 1u) << ((threadIdx.x & 31) & ~(lpr - 1));
+  Packed<TD, VEC> h;
+  if (on) h.load(w.hw + row * D + (long long)sub * VEC);
+  float acc[VEC], ds[MAXH];
 #pragma unroll
   for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-  for (int e = sp.y + slot; on && e < sp.z; e += U * slots) {
-    int p[U], v[U];
-    bool ok[U];
+#pragma unroll
+  for (int j = 0; j < MAXH; ++j) ds[j] = 0.f;
+
+  SrcEdges<U> cur, nxt;
+  load_src_edges<U>(w.pos, w.vdst, w.live, sp.y + slot, sp.z, slots, on,
+                    cur);
+  for (int e = sp.y + slot; e < sp.z; e += U * slots) {
+    load_src_edges<U>(w.pos, w.vdst, w.live, e + U * slots, sp.z, slots, on,
+                      nxt);
+    Packed<TG, VEC> g[U];
+    float4 r[U][MAXH];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int ee = e + u * slots;
-      ok[u] = ee < sp.z && __ldg(live + ee) != 0;
-      p[u] = ok[u] ? __ldg(pos + ee) : 0;
-      v[u] = ok[u] ? __ldg(vdst + ee) : 0;
+      if (!cur.ok[u]) continue;
+      const long long v = cur.v[u];
+      g[u].load(w.dout + v * D + (long long)sub * VEC);
+#pragma unroll
+      for (int j = 0; j < MAXH; ++j)
+        if (j < L.nh) r[u][j] = __ldg(w.rec + v * w.heads + L.h0 + j);
     }
-    float d[U][VEC], w[U][kMaxHeads], g[U][kMaxHeads];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (!ok[u]) continue;
-      load<TD, VEC>(dout + (long long)v[u] * D + (long long)sub * VEC, d[u]);
-      const long long base = (long long)p[u] * heads + h0;
+      // dalpha: the lane's partial sums by head, then the owner's totals
+      float p[MAXH];
 #pragma unroll
-      for (int j = 0; j < kMaxHeads; ++j) {
-        w[u][j] = j < nh ? __ldg(alpha + base + j) : 0.f;
-        g[u][j] = owner[j] ? __ldg(dsc + base + j) : 0.f;
+      for (int j = 0; j < MAXH; ++j) p[j] = 0.f;
+      if (cur.ok[u]) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float x = __fmul_rn(g[u].at(k), h.at(k));
+          if (MAXH > 1 && ((L.second >> k) & 1u))
+            p[MAXH - 1] = __fadd_rn(p[MAXH - 1], x);
+          else
+            p[0] = __fadd_rn(p[0], x);
+        }
       }
-    }
+      float tot[MAXH];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (!ok[u]) continue;
+      for (int j = 0; j < MAXH; ++j) tot[j] = p[j];
+      for (int k = 1; k <= w.reach; ++k) {
+        const float q = __shfl_down_sync(mask, p[0], k, lpr);
+#pragma unroll
+        for (int j = 0; j < MAXH; ++j)
+          if (k <= more[j]) tot[j] = __fadd_rn(tot[j], q);
+      }
+      if (!cur.in[u]) continue;
+      const long long base = (long long)cur.pos[u] * w.heads + L.h0;
+      float alpha[MAXH];
+#pragma unroll
+      for (int j = 0; j < MAXH; ++j) {
+        alpha[j] = 0.f;
+        if (j >= L.nh) continue;
+        float da = 0.f;
+        if (cur.ok[u]) {
+          const float4 q = r[u][j];   // (m, den, delta, s_dst)
+          const float sc = gat_score<TD>(L.sd[j], q.w);
+          const float pe = expf(__fsub_rn(sc, q.x));
+          alpha[j] = round_to<TD>(__fdiv_rn(round_to<TA>(pe), q.y));
+          if (owner[j]) {
+            const float d =
+                __fdiv_rn(__fmul_rn(pe, __fsub_rn(tot[j], q.z)), q.y);
+            da = sc >= 0.f ? d : __fmul_rn(d, 0.2f);
+          }
+        }
+        if (owner[j]) {
+          __stcs(w.da + base + j, da);
+          ds[j] = __fadd_rn(ds[j], da);
+        }
+      }
+      if (!cur.ok[u]) continue;
 #pragma unroll
       for (int k = 0; k < VEC; ++k)
         acc[k] = __fadd_rn(
             acc[k],
-            __fmul_rn(d[u][k], (second >> k) & 1u ? w[u][1] : w[u][0]));
+            __fmul_rn(g[u].at(k), MAXH > 1 && ((L.second >> k) & 1u)
+                                      ? alpha[MAXH - 1]
+                                      : alpha[0]));
+    }
 #pragma unroll
-      for (int j = 0; j < kMaxHeads; ++j)
-        if (owner[j]) ds[j] = __fadd_rn(ds[j], g[u][j]);
+    for (int u = 0; u < U; ++u) {
+      cur.pos[u] = nxt.pos[u];
+      cur.v[u] = nxt.v[u];
+      cur.in[u] = nxt.in[u];
+      cur.ok[u] = nxt.ok[u];
     }
   }
   if (hub) {
     // the slots' partials, combined in slot order
-    __shared__ float part[kThreads * (kMaxVec + kMaxHeads)];
-    constexpr int W = kMaxVec + kMaxHeads;
+    constexpr int W = VEC + MAXH;
+    __shared__ float part[kThreads * W];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) part[threadIdx.x * W + k] = acc[k];
 #pragma unroll
-    for (int j = 0; j < kMaxHeads; ++j)
-      part[threadIdx.x * W + kMaxVec + j] = ds[j];
+    for (int j = 0; j < MAXH; ++j) part[threadIdx.x * W + VEC + j] = ds[j];
     __syncthreads();
-    if (slot != 0 || !on) return;
+    if (slot != 0) return;
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
+    for (int k = 0; k < W; ++k) {
       float s = 0.f;
       for (int q = 0; q < slots; ++q)
         s = __fadd_rn(s, part[(q * lpr + sub) * W + k]);
-      acc[k] = s;
-    }
-#pragma unroll
-    for (int j = 0; j < kMaxHeads; ++j) {
-      float s = 0.f;
-      for (int q = 0; q < slots; ++q)
-        s = __fadd_rn(s, part[(q * lpr + sub) * W + kMaxVec + j]);
-      ds[j] = s;
+      if (k < VEC)
+        acc[k] = s;
+      else
+        ds[k - VEC] = s;
     }
   }
-  store<VEC>(dhw + row * D + (long long)sub * VEC, acc);
+  if (!on) return;
+  store<VEC>(w.dhw + row * D + (long long)sub * VEC, acc);
 #pragma unroll
-  for (int j = 0; j < kMaxHeads; ++j)
-    if (owner[j]) store<1>(ds_src + row * heads + h0 + j, &ds[j]);
+  for (int j = 0; j < MAXH; ++j)
+    if (owner[j]) store<1>(w.ds_src + row * w.heads + L.h0 + j, &ds[j]);
 }
 
+// ------------------------------------------------------------------------ //
+// "gat_bwd", kernel 3: ds_dst by destination
+// ------------------------------------------------------------------------ //
+
+// Blocks [0, n_heavy) each take one hub row of the forward's plan, thread
+// t summing head t % H over every (kThreads / H)-th of the row's edges,
+// the slots then added in order; the others one (row, head) a thread,
+// the rows of spans[n_heavy:] in turn: ds_dst[v, h] = the sum of da over
+// v's positions in order.
+template <typename TD>
+__global__ void __launch_bounds__(kThreads)
+gat_bwd_dst_kernel(const float* __restrict__ da,
+                   const int4* __restrict__ spans, int n_heavy,
+                   TD* __restrict__ ds_dst, long long n, int heads) {
+  constexpr int U = 4;
+  if ((int)blockIdx.x < n_heavy) {
+    __shared__ float part[kThreads];
+    const int4 sp = __ldg(spans + blockIdx.x);
+    const int slots = kThreads / heads;
+    const int slot = threadIdx.x / heads, h = threadIdx.x % heads;
+    float s = 0.f;
+    if (slot < slots)
+      for (int e = sp.y + slot; e < sp.z; e += slots)
+        s = __fadd_rn(s, __ldcs(da + (long long)e * heads + h));
+    part[threadIdx.x] = s;
+    __syncthreads();
+    if (threadIdx.x < heads) {
+      float t = 0.f;
+      for (int q = 0; q < slots; ++q)
+        t = __fadd_rn(t, part[q * heads + threadIdx.x]);
+      store<1>(ds_dst + (long long)sp.x * heads + threadIdx.x, &t);
+    }
+    return;
+  }
+  const long long i =
+      (long long)(blockIdx.x - n_heavy) * kThreads + threadIdx.x;
+  const long long idx = n_heavy + i / heads;
+  if (idx >= n) return;
+  const int h = (int)(i % heads);
+  const int4 sp = __ldg(spans + idx);
+  float s = 0.f;
+  int e = sp.y;
+  for (; e + U <= sp.z; e += U) {
+    float x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      x[u] = __ldcs(da + (long long)(e + u) * heads + h);
+#pragma unroll
+    for (int u = 0; u < U; ++u) s = __fadd_rn(s, x[u]);
+  }
+  for (; e < sp.z; ++e) s = __fadd_rn(s, __ldcs(da + (long long)e * heads + h));
+  store<1>(ds_dst + (long long)sp.x * heads + h, &s);
+}
+
+// The three kernels on `stream`.  `w` names dout (in TA: the walk reads
+// the node kernel's rounded copy dout_td instead where TD is bf16 and TA
+// f32; a bf16 dout of an f32 model converts exactly, and f32 stays f32).
 template <typename TD, typename TA, int VEC>
-int launch_gat_bwd(const GatArgs<TD>& g, const void* spans,
-                   long long n_heavy, const void* pos, const void* vdst,
-                   const void* live_t, const void* spans_t,
-                   long long n_heavy_t, const void* dout, void* alpha,
-                   void* dsc, void* dhw, void* ds_src, void* ds_dst,
+int launch_gat_bwd(WalkArgs<TD, TA> w, const float* m, const float* den,
+                   const TA* out, const TD* s_dst, TD* dout_td, float4* rec,
+                   const int4* spans, long long n_heavy, TD* ds_dst,
                    long long n, cudaStream_t stream) {
-  const int lpr_log2 = lanes_log2(g.units);
-  const long long blocks = grid_blocks(n, lpr_log2, n_heavy);
-  const long long blocks_t = grid_blocks(n, lpr_log2, n_heavy_t);
-  if (blocks > 0x7fffffffLL || blocks_t > 0x7fffffffLL)
+  constexpr bool kRound = std::is_same<TD, __nv_bfloat16>::value &&
+                          std::is_same<TA, float>::value;
+  using TG = typename std::conditional<std::is_same<TD, float>::value &&
+                                           std::is_same<TA, float>::value,
+                                       float, __nv_bfloat16>::type;
+  const long long nh = n * w.heads;
+  const int lpr_log2 = lanes_log2(w.units);
+  const long long blocks_n = (nh + kThreads - 1) / kThreads;
+  const long long blocks_t = grid_blocks(n, lpr_log2, w.n_heavy);
+  const long long blocks_d = n_heavy + blocks_n;
+  if (blocks_t > 0x7fffffffLL || blocks_d > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
-  gat_bwd_dst_kernel<TD, TA, VEC>
-      <<<dim3((unsigned)blocks), kThreads, 0, stream>>>(
-          g, static_cast<const TD*>(dout), static_cast<const int4*>(spans),
-          (int)n_heavy, static_cast<float*>(alpha), static_cast<float*>(dsc),
-          static_cast<TD*>(ds_dst), n, lpr_log2);
-  const int err = (int)cudaGetLastError();
+  gat_bwd_node_kernel<TD, TA>
+      <<<dim3((unsigned)blocks_n), kThreads, 0, stream>>>(
+          w.dout, out, m, den, s_dst, kRound ? dout_td : nullptr, rec, nh,
+          w.dout_dim);
+  int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  gat_bwd_src_kernel<TD, TA, VEC>
-      <<<dim3((unsigned)blocks_t), kThreads, 0, stream>>>(
-          static_cast<const TD*>(dout), static_cast<const int32_t*>(pos),
-          static_cast<const int32_t*>(vdst),
-          static_cast<const uint8_t*>(live_t),
-          static_cast<const int4*>(spans_t), (int)n_heavy_t,
-          static_cast<const float*>(alpha), static_cast<const float*>(dsc),
-          static_cast<TD*>(dhw), static_cast<TD*>(ds_src), n, g.heads,
-          g.dout, g.units, lpr_log2);
+  WalkArgs<TD, TG> t{w.hw, w.s_src,
+                     kRound ? reinterpret_cast<const TG*>(dout_td)
+                            : reinterpret_cast<const TG*>(w.dout),
+                     rec, w.pos, w.vdst, w.live, w.spans, w.n_heavy, w.da,
+                     w.dhw, w.ds_src, w.heads, w.dout_dim, w.units, 0};
+  for (int hd = 0; hd < t.heads; ++hd) {
+    const int r = ((hd + 1) * t.dout_dim - 1) / VEC - (hd * t.dout_dim) / VEC;
+    if (r > t.reach) t.reach = r;
+  }
+  const dim3 grid_t((unsigned)blocks_t);
+  // two heads in some lane's vector where heads straddle vectors or two
+  // fit in one; one where each vector lies in one head
+  bool two = false;
+  if constexpr (VEC > 1)
+    two = VEC % t.dout_dim != 0 ? t.dout_dim % VEC != 0 : t.dout_dim < VEC;
+  if constexpr (VEC > 1) {
+    if (two)
+      gat_bwd_src_kernel<TD, TG, TA, VEC, 2>
+          <<<grid_t, kThreads, 0, stream>>>(t, n, lpr_log2);
+  }
+  if (!two)
+    gat_bwd_src_kernel<TD, TG, TA, VEC, 1>
+        <<<grid_t, kThreads, 0, stream>>>(t, n, lpr_log2);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  gat_bwd_dst_kernel<TD><<<dim3((unsigned)blocks_d), kThreads, 0, stream>>>(
+      w.da, spans, (int)n_heavy, ds_dst, n, w.heads);
   return (int)cudaGetLastError();
 }
 
@@ -580,53 +590,69 @@ extern "C" int segment_spmm_bwd_launch(const void* dout, const void* perm,
 }
 
 // "gat_bwd".  hw (N, heads * dout), s_src and s_dst (N, heads), float32
-// (td_bf16 = 0) or bfloat16 (1); src, live, spans, n_heavy the forward's
-// plan (gat_aggregate_launch); pos, vdst (E,) int32, live_t (E,) bytes,
-// spans_t (N, 4) int32 and n_heavy_t the source plan over pass 1's edge
-// positions; dout (N, heads * dout) in hw's type, the gradient of the
-// forward's output rounded to it (the forward summed float32 (ta_bf16 =
-// 0) or bfloat16 (1) messages); alpha, dsc (E, heads)
-// float32 scratch; dhw (N, heads * dout), ds_src, ds_dst (N, heads) in
-// hw's type, written whole.  The forward's shape limits hold (the wrapper
-// checks first).  Launches pass 1, then pass 2, on `stream` and returns
+// (td_bf16 = 0) or bfloat16 (1); m, den (N, heads) float32, the forward's
+// saved row statistics (gat_aggregate_launch), and out (N, heads * dout),
+// its output, float32 (ta_bf16 = 0) or bfloat16 (1); dout, the gradient
+// of out, in out's type; spans, n_heavy the forward's plan; pos, vdst
+// (E,) int32, live_t (E,) bytes, spans_t (N, 4) int32 and n_heavy_t the
+// source plan over the forward plan's edge positions (ops.source_plan).
+// Scratch: rec (N, heads) of 16 bytes, dout_td (N, heads * dout) in hw's
+// type (used only when hw is bfloat16 and out float32), da (E, heads)
+// float32.  dhw (N, heads * dout), ds_src, ds_dst (N, heads) in hw's
+// type, written whole.  The forward's shape limits hold (the wrapper
+// checks first).  Launches the three kernels on `stream` and returns
 // cudaGetLastError().  Does not synchronise.
 extern "C" int gat_bwd_launch(const void* hw, const void* s_src,
-                              const void* s_dst, const void* src,
-                              const void* live, const void* spans,
+                              const void* s_dst, const void* m,
+                              const void* den, const void* out,
+                              const void* dout, const void* spans,
                               long long n_heavy, const void* pos,
                               const void* vdst, const void* live_t,
                               const void* spans_t, long long n_heavy_t,
-                              const void* dout, void* alpha, void* dsc,
-                              void* dhw, void* ds_src, void* ds_dst,
-                              long long n, int heads, int dout_dim,
-                              int td_bf16, int ta_bf16, void* stream) {
+                              void* rec, void* dout_td, void* da, void* dhw,
+                              void* ds_src, void* ds_dst, long long n,
+                              int heads, int dout_dim, int td_bf16,
+                              int ta_bf16, void* stream) {
   if (n <= 0 || heads <= 0 || dout_dim <= 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  const bool vec_ok = aligned16(hw) && aligned16(dout) && aligned16(dhw);
+  const bool vec_ok = aligned16(hw) && aligned16(dout) && aligned16(dhw) &&
+                      (dout_td == nullptr || aligned16(dout_td));
   const auto go = [&](auto td, auto ta) {
     using TD = decltype(td);
     using TA = decltype(ta);
     constexpr int V = 16 / sizeof(TD);
     const long long d = (long long)heads * dout_dim;
-    GatArgs<TD> g{static_cast<const TD*>(hw), static_cast<const TD*>(s_src),
-                  static_cast<const TD*>(s_dst),
-                  static_cast<const int32_t*>(src),
-                  static_cast<const uint8_t*>(live), heads, dout_dim, 0};
+    WalkArgs<TD, TA> w{static_cast<const TD*>(hw),
+                       static_cast<const TD*>(s_src),
+                       static_cast<const TA*>(dout),
+                       static_cast<const float4*>(rec),
+                       static_cast<const int32_t*>(pos),
+                       static_cast<const int32_t*>(vdst),
+                       static_cast<const uint8_t*>(live_t),
+                       static_cast<const int4*>(spans_t),
+                       (int)n_heavy_t,
+                       static_cast<float*>(da),
+                       static_cast<TD*>(dhw),
+                       static_cast<TD*>(ds_src),
+                       heads, dout_dim, 0, 0};
     const auto run = [&](auto vec) {
       return launch_gat_bwd<TD, TA, decltype(vec)::value>(
-          g, spans, n_heavy, pos, vdst, live_t, spans_t, n_heavy_t, dout,
-          alpha, dsc, dhw, ds_src, ds_dst, n, s);
+          w, static_cast<const float*>(m), static_cast<const float*>(den),
+          static_cast<const TA*>(out), static_cast<const TD*>(s_dst),
+          static_cast<TD*>(dout_td), static_cast<float4*>(rec),
+          static_cast<const int4*>(spans), n_heavy,
+          static_cast<TD*>(ds_dst), n, s);
     };
     if (vec_ok && d % V == 0) {
-      g.units = (int)(d / V);
-      if (g.units > kMaxUnits) return (int)cudaErrorInvalidValue;
-      for (int c = 0; c < g.units; ++c)
+      w.units = (int)(d / V);
+      if (w.units > kMaxUnits) return (int)cudaErrorInvalidValue;
+      for (int c = 0; c < w.units; ++c)
         if ((c * V + V - 1) / dout_dim - (c * V) / dout_dim >= kMaxHeads)
           return (int)cudaErrorInvalidValue;
       return run(std::integral_constant<int, V>());
     }
-    g.units = (int)d;
-    if (g.units > kMaxUnits) return (int)cudaErrorInvalidValue;
+    w.units = (int)d;
+    if (w.units > kMaxUnits) return (int)cudaErrorInvalidValue;
     return run(std::integral_constant<int, 1>());
   };
   using bf16 = __nv_bfloat16;

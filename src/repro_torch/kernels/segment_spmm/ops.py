@@ -26,9 +26,10 @@ Training differentiates both through :func:`segment_spmm_ad` and
 ``torch.autograd.Function`` classes :class:`SegmentSpmm` and
 :class:`GatAggregate`, whose backwards launch the kernels "sum_bwd"
 (:func:`segment_spmm_bwd`: a gather of the output gradient by
-destination) and "gat_bwd" (:func:`gat_aggregate_bwd`: the edge
-softmax's gradient, one pass by destination and one by source, the
-latter over :func:`source_plan`), counted in
+destination) and "gat_bwd" (:func:`gat_aggregate_bwd`:
+the edge softmax's gradient from the forward's saved row max and
+denominator (:func:`gat_aggregate_with_stats`) and its output, one walk
+of the edges by source over :func:`source_plan`), counted in
 :data:`bwd_launches_by_variant`.  On the CPU autograd differentiates the
 plain versions; :func:`segment_spmm_bwd_plain` and
 :func:`gat_aggregate_bwd_plain` are the kernels' plain versions, which
@@ -41,13 +42,14 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.kernels.segment_spmm import kernel
 from repro_torch.kernels.segment_spmm.ref import segment_max, segment_sum_dense
 
 launches = 0    # kernel launches since the count was last set to 0
 VARIANTS = ("sum", "gat")
 launches_by_variant = dict.fromkeys(VARIANTS, 0)   # the same, by variant
 BWD_VARIANTS = ("sum_bwd", "gat_bwd")
-# backward calls that launched their kernels ("gat_bwd": both passes)
+# backward calls that launched their kernels ("gat_bwd": all three)
 bwd_launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 DTYPES = (torch.float32, torch.bfloat16)
 INDEX_DTYPES = (torch.int32, torch.int64)
@@ -148,9 +150,9 @@ def source_plan(plan: SegmentPlan) -> SegmentPlan:
     """The plan of ``plan``'s edges by source, over ``plan``'s edge
     positions: source ``u`` owns the positions ``perm[rowptr[u]:rowptr[u
     + 1]]`` of ``plan``'s sorted order (ascending), ``src_sorted`` holds
-    each one's destination and ``live_sorted`` its mask.  "gat_bwd"'s
-    second pass walks it to sum the gradients of hw and s_src by source
-    from the per-edge values its first pass wrote in ``plan``'s order.
+    each one's destination and ``live_sorted`` its mask.  "gat_bwd"
+    walks it to sum the gradients of hw and s_src by source, writing
+    each edge's score gradient at its position in ``plan``'s order.
     ``plan`` must carry the sources and the mask (``GraphBatch.gat_plan``);
     built once per graph (``GraphBatch.gat_source_plan``)."""
     if plan.src_sorted is None or plan.live_sorted is None:
@@ -218,8 +220,6 @@ def segment_spmm(msgs: torch.Tensor, dst: torch.Tensor, n: int,
     if msgs.device.type != "cuda":
         raise ValueError(f"segment_spmm runs on cuda or cpu, not "
                          f"{msgs.device}")
-    from repro_torch.kernels.segment_spmm.kernel import segment_spmm_cuda
-
     if plan is None:
         plan = segment_plan(dst, n)
     E, tail = msgs.shape[0], msgs.shape[1:]
@@ -227,7 +227,7 @@ def segment_spmm(msgs: torch.Tensor, dst: torch.Tensor, n: int,
     out = torch.empty((n, flat.shape[1]), dtype=out_dtype,
                       device=msgs.device)
     if out.numel():
-        segment_spmm_cuda(flat, plan, out)
+        kernel.segment_spmm_cuda(flat, plan, out)
         _count("sum")
     return out.reshape(n, *tail)
 
@@ -282,6 +282,38 @@ def _gat_scores(s_src: torch.Tensor, s_dst: torch.Tensor,
     return torch.where(x >= 0, x, x * 0.2).float()
 
 
+def _gat_softmax_plain(s_src, s_dst, plan: SegmentPlan, edge_mask,
+                       acc_dtype):
+    """The segment softmax's parts in the reference's order of
+    operations: each row's and head's max score ``m`` (N, H) float32
+    (``-inf`` for a row without a live edge), the edges' ``acc_dtype``
+    exponentials ``ex`` (E, H) (0 on masked slots), and the rows'
+    clamped denominators ``den`` (N, H) float32."""
+    N, dst = s_src.shape[0], plan.dst
+    dropped = ~edge_mask[:, None]
+    score = _gat_scores(s_src, s_dst, plan.src, dst)
+    score = score.masked_fill(dropped, -math.inf)
+    m = segment_max(score, dst.long(), N)           # (N, H) f32
+    ex = torch.exp(score - m.index_select(0, dst)).to(acc_dtype)
+    del score
+    ex = ex.masked_fill(dropped, 0)
+    den = segment_spmm_plain(ex, dst, N, plan, out_dtype=ex.dtype)
+    return m, ex, torch.clamp_min(den.float(), 1e-9)
+
+
+def gat_row_stats_plain(s_src: torch.Tensor, s_dst: torch.Tensor,
+                        plan: SegmentPlan, edge_mask: torch.Tensor,
+                        acc_dtype: torch.dtype):
+    """The plain version of the row statistics that "gat" saves for its
+    backward (:func:`gat_aggregate_with_stats`): ``(m, den)``, each (N,
+    H) float32, every row's and head's max score (``-inf`` without a
+    live edge) and its denominator ``max(acc(sum of acc(exp(score -
+    m))), 1e-9)``."""
+    m, _, den = _gat_softmax_plain(s_src, s_dst, plan, edge_mask,
+                                   acc_dtype)
+    return m, den
+
+
 def gat_messages_plain(hw: torch.Tensor, s_src: torch.Tensor,
                        s_dst: torch.Tensor, plan: SegmentPlan,
                        edge_mask: torch.Tensor,
@@ -294,21 +326,11 @@ def gat_messages_plain(hw: torch.Tensor, s_src: torch.Tensor,
     f32).  Every op is out of place, so autograd differentiates it: the
     plain backward on the CPU."""
     _check_gat(hw, s_src, s_dst, plan, edge_mask, acc_dtype)
-    N, dt = hw.shape[0], hw.dtype
-    src, dst = plan.src, plan.dst
-    dropped = ~edge_mask[:, None]
-    score = _gat_scores(s_src, s_dst, src, dst)
-    score = score.masked_fill(dropped, -math.inf)
-    smax = segment_max(score, dst.long(), N)        # (N, H) f32
-    ex = torch.exp(score - smax.index_select(0, dst)).to(acc_dtype)
-    del score, smax
-    ex = ex.masked_fill(dropped, 0)
-    den = segment_spmm_plain(ex, dst, N, plan, out_dtype=ex.dtype)
-    alpha = (ex.float()
-             / torch.clamp_min(den.float().index_select(0, dst), 1e-9)
-             ).to(dt)
+    _, ex, den = _gat_softmax_plain(s_src, s_dst, plan, edge_mask,
+                                    acc_dtype)
+    alpha = (ex.float() / den.index_select(0, plan.dst)).to(hw.dtype)
     del ex, den
-    return (alpha[..., None] * hw.index_select(0, src)).to(acc_dtype)
+    return (alpha[..., None] * hw.index_select(0, plan.src)).to(acc_dtype)
 
 
 def gat_aggregate_plain(hw: torch.Tensor, s_src: torch.Tensor,
@@ -340,6 +362,14 @@ def gat_aggregate(hw: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
     if hw.device.type == "cpu":
         return gat_aggregate_plain(hw, s_src, s_dst, plan, edge_mask,
                                    acc_dtype)
+    return _gat_aggregate_cuda(hw, s_src, s_dst, plan, edge_mask,
+                               acc_dtype, stats=False)[0]
+
+
+def _gat_aggregate_cuda(hw, s_src, s_dst, plan, edge_mask, acc_dtype,
+                        stats: bool):
+    """"gat" on the card: ``(out, m, den)``, the row statistics (N, H)
+    float32 written by the kernel when ``stats``, else None."""
     _check_gat(hw, s_src, s_dst, plan, edge_mask, acc_dtype)
     if hw.device.type != "cuda":
         raise ValueError(f"gat_aggregate runs on cuda or cpu, not "
@@ -353,14 +383,34 @@ def gat_aggregate(hw: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
                          f"{GAT_MAX_VECTORS} vectors of 16 bytes, each over "
                          f"at most {GAT_MAX_HEADS_PER_VECTOR} heads; H={H}, "
                          f"dout={dout} in {hw.dtype} does not fit")
-    from repro_torch.kernels.segment_spmm.kernel import gat_aggregate_cuda
-
     out = torch.empty((N, H, dout), dtype=acc_dtype, device=hw.device)
+    m = den = None
+    if stats:
+        m = torch.empty((N, H), dtype=torch.float32, device=hw.device)
+        den = torch.empty_like(m)
     if out.numel():
-        gat_aggregate_cuda(hw.contiguous(), s_src.contiguous(),
-                           s_dst.contiguous(), plan, out)
+        kernel.gat_aggregate_cuda(hw.contiguous(), s_src.contiguous(),
+                                  s_dst.contiguous(), plan, out, m, den)
         _count("gat")
-    return out
+    return out, m, den
+
+
+def gat_aggregate_with_stats(hw: torch.Tensor, s_src: torch.Tensor,
+                             s_dst: torch.Tensor, plan: SegmentPlan,
+                             edge_mask: torch.Tensor,
+                             acc_dtype: torch.dtype):
+    """:func:`gat_aggregate` that also returns the row statistics its
+    backward starts from: ``(out, m, den)``, ``m`` and ``den`` (N, H)
+    float32 as :func:`gat_row_stats_plain` defines them.  On the card
+    the one "gat" launch writes them (``out`` has the same bits as
+    without them); on the CPU the plain versions compute them."""
+    if hw.device.type == "cpu":
+        return (gat_aggregate_plain(hw, s_src, s_dst, plan, edge_mask,
+                                    acc_dtype),
+                *gat_row_stats_plain(s_src, s_dst, plan, edge_mask,
+                                     acc_dtype))
+    return _gat_aggregate_cuda(hw, s_src, s_dst, plan, edge_mask, acc_dtype,
+                               stats=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -383,10 +433,12 @@ def segment_spmm_bwd(dout: torch.Tensor, dst: torch.Tensor, n: int,
     dout (n, ...) in the forward's ``out_dtype`` -> (E, ...)
     ``msgs_dtype``, ``dmsgs[e] = dout[dst[e]]`` (the "sum_bwd" kernel on
     a CUDA tensor, walking the forward's ``plan``, else the plain
-    version)."""
-    if dout.device.type == "cpu":
+    version).  At GraphCast's Cora-sized shapes the call's host time is
+    most of its cost, so the path reads no ``device`` object and does
+    not reshape a 2-D ``dout``."""
+    if dout.is_cpu:
         return segment_spmm_bwd_plain(dout, dst, msgs_dtype)
-    if dout.device.type != "cuda":
+    if not dout.is_cuda:
         raise ValueError(f"segment_spmm_bwd runs on cuda or cpu, not "
                          f"{dout.device}")
     if dout.shape[0] != n or msgs_dtype not in DTYPES \
@@ -396,16 +448,14 @@ def segment_spmm_bwd(dout: torch.Tensor, dst: torch.Tensor, n: int,
                          f"{tuple(dout.shape)} {dout.dtype}")
     if plan is None:
         plan = segment_plan(dst, n)
-    from repro_torch.kernels.segment_spmm.kernel import segment_spmm_bwd_cuda
-
-    E, tail = plan.n_edges, dout.shape[1:]
-    flat = dout.reshape(n, math.prod(tail)).contiguous()
-    dmsgs = torch.empty((E, flat.shape[1]), dtype=msgs_dtype,
-                        device=dout.device)
-    if flat.numel() and dmsgs.numel():
-        segment_spmm_bwd_cuda(flat, plan, dmsgs)
+    flat = (dout if dout.dim() == 2
+            else dout.reshape(n, math.prod(dout.shape[1:]))).contiguous()
+    dmsgs = flat.new_empty((plan.n_edges, flat.shape[1]), dtype=msgs_dtype)
+    if dmsgs.numel():
+        kernel.segment_spmm_bwd_cuda(flat, plan, dmsgs)
         bwd_launches_by_variant["sum_bwd"] += 1
-    return dmsgs.reshape(E, *tail)
+    return (dmsgs if dout.dim() == 2
+            else dmsgs.reshape(plan.n_edges, *dout.shape[1:]))
 
 
 class SegmentSpmm(torch.autograd.Function):
@@ -441,17 +491,20 @@ def segment_spmm_ad(msgs: torch.Tensor, dst: torch.Tensor, n: int,
 def gat_aggregate_bwd_plain(hw: torch.Tensor, s_src: torch.Tensor,
                             s_dst: torch.Tensor, plan: SegmentPlan,
                             edge_mask: torch.Tensor, acc_dtype: torch.dtype,
-                            dout: torch.Tensor):
+                            dout: torch.Tensor, m: torch.Tensor,
+                            den: torch.Tensor, out: torch.Tensor):
     """The plain version of :func:`gat_aggregate_bwd`, on any device,
-    with the kernel's arithmetic: the forward's values recomputed with
-    its roundings, then, per head and edge e (destination v, source u),
-    ``dalpha_e = <dt(dout[v]), hw[u]>``, ``T_v = sum dalpha_e * ex_e``,
-    ``da_e = p_e * (dalpha_e - T_v / den_v) / den_v``, times 0.2 where
-    the score is negative (slope 1 at 0, as the reference's), and the
-    sums ``ds_dst[v]``, ``ds_src[u]`` of ``da_e`` and ``dhw[u]`` of
-    ``dt(dout[v]) * alpha_e``, every sum in float32, rounded to ``hw``'s
-    dtype once.  The (E, H, dout) terms are
-    taken :data:`BWD_PLAIN_CHUNK` edges at a time."""
+    with the kernel's arithmetic: from the forward's row statistics ``m``
+    and ``den`` (:func:`gat_row_stats_plain`) and its output ``out``,
+    the forward's values recomputed with its roundings, then, per head
+    and edge e (destination v, source u), ``dalpha_e = <dt(dout[v]),
+    hw[u]>``, ``delta_v = <dt(dout[v]), out[v]>``, ``da_e = p_e *
+    (dalpha_e - delta_v) / den_v``, times 0.2 where the score is negative
+    (slope 1 at 0, as the reference's), and the sums ``ds_dst[v]``,
+    ``ds_src[u]`` of ``da_e`` and ``dhw[u]`` of ``dt(dout[v]) *
+    alpha_e``, every sum in float32, rounded to ``hw``'s dtype once.
+    The (E, H, dout) terms are taken :data:`BWD_PLAIN_CHUNK` edges at a
+    time."""
     _check_gat(hw, s_src, s_dst, plan, edge_mask, acc_dtype)
     N, H, dd = hw.shape
     dt, E = hw.dtype, plan.n_edges
@@ -459,14 +512,11 @@ def gat_aggregate_bwd_plain(hw: torch.Tensor, s_src: torch.Tensor,
     dropped = ~edge_mask[:, None]
     sc = _gat_scores(s_src, s_dst, src, dst)
     sc = sc.masked_fill(dropped, -math.inf)
-    m = segment_max(sc, dst, N)
     p = torch.exp(sc - m.index_select(0, dst)).masked_fill(dropped, 0)
-    ex = p.to(acc_dtype).float()
-    den = torch.clamp_min(
-        segment_sum_dense(ex, dst, N).to(acc_dtype).float(), 1e-9)
     den_e = den.index_select(0, dst)
-    alpha = (ex / den_e).to(dt).float()
+    alpha = (p.to(acc_dtype).float() / den_e).to(dt).float()
     dv = dout.to(dt).float()                       # (N, H, dd)
+    delta = (dv * out.float()).sum(-1)             # (N, H)
     hw32 = hw.float()
     dalpha = torch.empty_like(p)
     dhw = torch.zeros((N, H * dd), dtype=torch.float32, device=hw.device)
@@ -478,8 +528,7 @@ def gat_aggregate_bwd_plain(hw: torch.Tensor, s_src: torch.Tensor,
             dropped[i:j, :, None], 0)
         dhw.index_add_(0, src[i:j], term.reshape(j - i, H * dd))
         del dprod, term
-    T = segment_sum_dense(dalpha * ex, dst, N)
-    ds = p * (dalpha - T.index_select(0, dst) / den_e) / den_e
+    ds = p * (dalpha - delta.index_select(0, dst)) / den_e
     da = torch.where(sc >= 0, ds, 0.2 * ds).masked_fill(dropped, 0)
     return (dhw.to(dt).reshape(N, H, dd),
             segment_sum_dense(da, src, N).to(dt),
@@ -489,16 +538,19 @@ def gat_aggregate_bwd_plain(hw: torch.Tensor, s_src: torch.Tensor,
 def gat_aggregate_bwd(hw: torch.Tensor, s_src: torch.Tensor,
                       s_dst: torch.Tensor, plan: SegmentPlan,
                       edge_mask: torch.Tensor, acc_dtype: torch.dtype,
-                      dout: torch.Tensor, plan_by_src: SegmentPlan):
+                      dout: torch.Tensor, m: torch.Tensor, den: torch.Tensor,
+                      out: torch.Tensor, plan_by_src: SegmentPlan):
     """The gradient of :func:`gat_aggregate`: ``(dhw, ds_src, ds_dst)``
     in hw's dtype, from ``dout`` (N, H, dout) ``acc_dtype``, the
-    gradient of its output.  A CUDA tensor launches "gat_bwd" (its two
-    passes; ``plan_by_src`` is :func:`source_plan` of ``plan``) or
-    raises for shapes the forward kernel does not take; a CPU tensor
-    runs :func:`gat_aggregate_bwd_plain`."""
+    gradient of its output, and what :func:`gat_aggregate_with_stats`
+    gave: the row statistics ``m`` and ``den`` (N, H) float32 and the
+    output ``out``.  A CUDA tensor launches "gat_bwd" (its three kernels;
+    ``plan_by_src`` is :func:`source_plan` of ``plan``) or raises for
+    shapes the forward kernel does not take; a CPU tensor runs
+    :func:`gat_aggregate_bwd_plain`."""
     if hw.device.type == "cpu":
         return gat_aggregate_bwd_plain(hw, s_src, s_dst, plan, edge_mask,
-                                       acc_dtype, dout)
+                                       acc_dtype, dout, m, den, out)
     _check_gat(hw, s_src, s_dst, plan, edge_mask, acc_dtype)
     if hw.device.type != "cuda":
         raise ValueError(f"gat_aggregate_bwd runs on cuda or cpu, not "
@@ -507,52 +559,59 @@ def gat_aggregate_bwd(hw: torch.Tensor, s_src: torch.Tensor,
         raise ValueError("gat_aggregate_bwd: the plan was built from "
                          "another edge_mask")
     N, H, dd = hw.shape
-    if dout.shape != hw.shape or dout.dtype != acc_dtype \
-            or dout.device != hw.device:
-        raise ValueError(f"gat_aggregate_bwd wants dout {tuple(hw.shape)} "
-                         f"{acc_dtype}, got {tuple(dout.shape)} "
-                         f"{dout.dtype}")
+    for name, t, dtype, shape in (("dout", dout, acc_dtype, hw.shape),
+                                  ("out", out, acc_dtype, hw.shape),
+                                  ("m", m, torch.float32, (N, H)),
+                                  ("den", den, torch.float32, (N, H))):
+        if t.shape != shape or t.dtype != dtype or t.device != hw.device:
+            raise ValueError(f"gat_aggregate_bwd wants {name} "
+                             f"{tuple(shape)} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if not gat_shape_fits(H, dd, hw.dtype):
         raise ValueError(f"gat_aggregate_bwd's kernel takes the forward's "
                          f"rows; H={H}, dout={dd} in {hw.dtype} does not "
                          f"fit")
-    from repro_torch.kernels.segment_spmm.kernel import gat_bwd_cuda
-
     dhw = torch.empty_like(hw)
     ds_src, ds_dst = torch.empty_like(s_src), torch.empty_like(s_dst)
     if hw.numel():
-        alpha = torch.empty((plan.n_edges, H), dtype=torch.float32,
-                            device=hw.device)
-        dsc = torch.empty_like(alpha)
-        # the messages' gradient is dout rounded to hw's dtype: rounded
-        # once here, so the kernel gathers rows at that width
-        gat_bwd_cuda(hw.contiguous(), s_src.contiguous(),
-                     s_dst.contiguous(), plan, plan_by_src,
-                     dout.to(hw.dtype).contiguous(), acc_dtype, alpha, dsc,
-                     dhw, ds_src, ds_dst)
+        dev = hw.device
+        rec = torch.empty((N, H, 4), dtype=torch.float32, device=dev)
+        # the messages' gradient is dout rounded to hw's dtype: a bf16
+        # copy where dout is f32 and hw bf16, else dout itself
+        dout_td = (torch.empty_like(hw) if hw.dtype == torch.bfloat16
+                   and acc_dtype == torch.float32 else None)
+        da = torch.empty((plan.n_edges, H), dtype=torch.float32, device=dev)
+        kernel.gat_bwd_cuda(hw.contiguous(), s_src.contiguous(),
+                            s_dst.contiguous(), m.contiguous(),
+                            den.contiguous(), out.contiguous(),
+                            dout.contiguous(), plan, plan_by_src, rec,
+                            dout_td, da, dhw, ds_src, ds_dst)
         bwd_launches_by_variant["gat_bwd"] += 1
     return dhw, ds_src, ds_dst
 
 
 class GatAggregate(torch.autograd.Function):
-    """Differentiable :func:`gat_aggregate`: the forward saves its
-    inputs; the backward is :func:`gat_aggregate_bwd`, which recomputes
-    each row's max and denominator as the forward does."""
+    """Differentiable :func:`gat_aggregate`: the forward
+    (:func:`gat_aggregate_with_stats`) saves its inputs, its output and
+    each row's max and denominator; the backward is
+    :func:`gat_aggregate_bwd`, which starts from them."""
 
     @staticmethod
     def forward(ctx, hw, s_src, s_dst, plan, edge_mask, acc_dtype,
                 plan_by_src):
-        ctx.save_for_backward(hw, s_src, s_dst)
+        out, m, den = gat_aggregate_with_stats(hw, s_src, s_dst, plan,
+                                               edge_mask, acc_dtype)
+        ctx.save_for_backward(hw, s_src, s_dst, m, den, out)
         ctx.plan, ctx.edge_mask, ctx.acc_dtype = plan, edge_mask, acc_dtype
         ctx.plan_by_src = plan_by_src
-        return gat_aggregate(hw, s_src, s_dst, plan, edge_mask, acc_dtype)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        hw, s_src, s_dst = ctx.saved_tensors
+        hw, s_src, s_dst, m, den, out = ctx.saved_tensors
         grads = gat_aggregate_bwd(hw, s_src, s_dst, ctx.plan, ctx.edge_mask,
-                                  ctx.acc_dtype, dout.contiguous(),
-                                  ctx.plan_by_src())
+                                  ctx.acc_dtype, dout.contiguous(), m, den,
+                                  out, ctx.plan_by_src())
         return (*grads, None, None, None, None)
 
 

@@ -8,9 +8,13 @@ back stacked by ``gnn_arrays_from_model``; the loss within a relative
 1e-4, each gradient leaf within 1e-4 of its largest reference
 magnitude).  The plain GAT aggregation differentiates through autograd
 in float32 and bfloat16, and the kernels' plain backwards
-(``gat_aggregate_bwd_plain``, ``segment_spmm_bwd_plain``) agree with
-autograd: in float32 at 1e-5, in bfloat16 at 2e-2 of the largest value
-against the float32-accumulating plain backward.  One AdamW step on a
+(``gat_aggregate_bwd_plain``, from the forward's row statistics and
+output, and ``segment_spmm_bwd_plain``) agree with autograd: in float32
+at 1e-5, in bfloat16 at 2e-2 of the largest value against the
+float32-accumulating plain backward.  The row statistics
+(``gat_row_stats_plain``) equal the reference's segment max and
+denominators, and the backward's ``delta_v = <dout_v, out_v>`` equals
+the sum over v's edges that it replaces.  One AdamW step on a
 model whose per-layer weights the reference stacks equals the
 reference's on the stacked tree, biases included.  The sampler and
 ``gnn_epoch_stream`` give the reference's arrays; a short ``Trainer`` run
@@ -29,6 +33,8 @@ from repro.data.pipeline import gnn_epoch_stream as jax_epoch_stream
 from repro.graph import erdos_graph as jax_erdos
 from repro.graph.sampler import sample_neighbors as jax_sample
 from repro.models.gnn import GraphBatch as JaxGraphBatch
+from repro.models.gnn import _seg_max as jax_seg_max
+from repro.models.gnn import _seg_sum as jax_seg_sum
 from repro.models.gnn import gnn_loss as jax_gnn_loss
 from repro.models.gnn import init_gnn as jax_init
 from repro.optim import AdamWConfig as JaxAdamWConfig
@@ -174,7 +180,8 @@ def test_gat_aggregate_plain_backward(dtype, acc, scores):
     """``.backward()`` through ``gat_aggregate`` on CPU tensors (an
     in-place op on a saved tensor broke it), finite, masked and empty
     rows taking no gradient; autograd's gradients against
-    ``gat_aggregate_bwd_plain``: at 1e-5 in float32, and in bfloat16 at
+    ``gat_aggregate_bwd_plain`` (given the forward's row statistics and
+    output, as the kernel is): at 1e-5 in float32, and in bfloat16 at
     2e-2 of the largest value of the float32-accumulating plain
     backward; in float32 also where self-loops' pre-activations are
     exactly 0 (in bfloat16 autograd's own roundings there are no
@@ -190,9 +197,10 @@ def test_gat_aggregate_plain_backward(dtype, acc, scores):
     assert all(bool(torch.isfinite(x).all()) for x in got)
     assert not got[2][ALL_MASKED_NODE].any()     # every in-slot masked
     assert not got[2][7].any()                   # no in-edge at all
-    want = spmm_ops.gat_aggregate_bwd_plain(
-        *(t[k].detach() for k in ("hw", "s_src", "s_dst")), plan, mask,
-        acc_dt, g)
+    hw, s_src, s_dst = (t[k].detach() for k in ("hw", "s_src", "s_dst"))
+    m, den = spmm_ops.gat_row_stats_plain(s_src, s_dst, plan, mask, acc_dt)
+    want = spmm_ops.gat_aggregate_bwd_plain(hw, s_src, s_dst, plan, mask,
+                                            acc_dt, g, m, den, out.detach())
     tol = 1e-5 if dtype == acc == "float32" else BF16_TOL
     for name, a, b in zip(("dhw", "ds_src", "ds_dst"), got, want):
         assert a.dtype == b.dtype == getattr(torch, dtype), name
@@ -204,6 +212,70 @@ def test_gat_aggregate_plain_backward(dtype, acc, scores):
                               mask, acc_dt,
                               lambda: spmm_ops.source_plan(plan)).backward(g)
     assert torch.equal(t2["hw"].grad, got[0])
+
+
+@pytest.mark.parametrize("dtype,acc", [(d, a) for d in ("float32", "bfloat16")
+                                       for a in ("float32", "bfloat16")])
+def test_gat_row_stats_plain_match_reference(dtype, acc):
+    """The row statistics that "gat" saves for its backward, plain
+    (``gat_row_stats_plain``), against the reference layer's own
+    ``_seg_max`` of the masked scores (equal, ``-inf`` on the empty and
+    all-masked rows) and its denominators ``maximum(den, 1e-9)``, summed
+    in float32 and rounded to the sums' dtype as the port's forward does
+    (within 1e-6 relative in float32, one bfloat16 step in bfloat16);
+    ``gat_aggregate_with_stats`` on the CPU gives them beside the plain
+    output.  Both start from the port's scores: in bfloat16 the two
+    frameworks round leaky_relu's ``0.2 * x`` apart by a step."""
+    t, plan, mask, _ = _gat_inputs(dtype)
+    s_src, s_dst = t["s_src"].detach(), t["s_dst"].detach()
+    dst, N = plan.dst.numpy(), s_src.shape[0]
+    score = jnp.asarray(spmm_ops._gat_scores(s_src, s_dst, plan.src,
+                                             plan.dst).numpy())
+    score = jnp.where(mask.numpy()[:, None], score, -jnp.inf)
+    smax = jax_seg_max(score, dst, N)
+    ex = jnp.exp(score - smax[dst]).astype(getattr(jnp, acc))
+    ex = jnp.where(mask.numpy()[:, None], ex, 0)
+    den = jax_seg_sum(ex.astype(jnp.float32), dst, N).astype(
+        getattr(jnp, acc)).astype(jnp.float32)
+    want_m, want_den = np.asarray(smax), np.asarray(jnp.maximum(den, 1e-9))
+    acc_dt = getattr(torch, acc)
+    m, got_den = spmm_ops.gat_row_stats_plain(s_src, s_dst, plan, mask,
+                                              acc_dt)
+    assert m.dtype == got_den.dtype == torch.float32
+    assert m.shape == got_den.shape == s_src.shape
+    np.testing.assert_array_equal(m.numpy(), want_m)
+    assert np.isneginf(want_m[[7, ALL_MASKED_NODE]]).all()
+    rtol = 1e-6 if acc == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(got_den.numpy(), want_den, rtol=rtol, atol=0)
+    out, m2, den2 = spmm_ops.gat_aggregate_with_stats(
+        t["hw"].detach(), s_src, s_dst, plan, mask, acc_dt)
+    assert torch.equal(out, spmm_ops.gat_aggregate(
+        t["hw"].detach(), s_src, s_dst, plan, mask, acc_dt))
+    assert torch.equal(m2, m) and torch.equal(den2, got_den)
+
+
+@pytest.mark.parametrize("scores", ["random", "zero_at_loops"])
+def test_gat_delta_identity(scores):
+    """The backward's per-row ``delta_v = <dout_v, out_v>``, taken from
+    the forward's output, equals ``T_v / den_v`` with ``T_v = sum over
+    v's live edges of <dout_v, hw[u]> * ex_e``, the sum it replaces, to
+    1e-5 of the largest value in float32."""
+    t, plan, mask, dout_ = _gat_inputs(
+        "float32", zero_scores=scores == "zero_at_loops")
+    hw, s_src, s_dst = (t[k].detach() for k in ("hw", "s_src", "s_dst"))
+    out, m, den = spmm_ops.gat_aggregate_with_stats(hw, s_src, s_dst, plan,
+                                                    mask, torch.float32)
+    delta = (dout_ * out).sum(-1)
+    src, dst = plan.src.long(), plan.dst.long()
+    sc = torch.where(mask[:, None], spmm_ops._gat_scores(s_src, s_dst, src,
+                                                         dst), -np.inf)
+    ex = torch.exp(sc - m[dst]).masked_fill(~mask[:, None], 0)
+    dalpha = (dout_[dst] * hw[src]).sum(-1)
+    T = torch.zeros_like(delta).index_add_(0, dst, dalpha * ex)
+    want = T / den
+    err = float((delta - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    assert not delta[7].any() and not delta[ALL_MASKED_NODE].any()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -676,6 +676,40 @@ def test_gat_aggregate_kernel_matches_plain_on_card(cuda, H, dout, dtype,
         (diff / bound.clamp_min(1e-300)).max())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("acc", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,dout", GAT_HEAD_SHAPES)
+def test_gat_forward_stats_on_card(cuda, H, dout, dtype, acc):
+    """"gat" saving its row statistics for the backward
+    (``gat_aggregate_with_stats``): the output bit-identical to the
+    forward's without them, one launch; ``m`` equal to the plain
+    ``gat_row_stats_plain`` (``-inf`` on the empty and all-masked rows)
+    and ``den`` within float32 rounding of it (the kernel adds in its own
+    order, and a bfloat16 sum may round a step apart), on the graph with a
+    hub, masked slots, an empty and an all-masked row."""
+    x = gat_kernel_inputs(H, dout)
+    hw, s_src, s_dst = (torch.as_tensor(x[k], device=cuda).to(DTYPES[dtype])
+                        for k in ("hw", "s_src", "s_dst"))
+    src, dst, mask = (torch.as_tensor(x[k], device=cuda)
+                      for k in ("src", "dst", "mask"))
+    n, acc_dt = hw.shape[0], DTYPES[acc]
+    plan = spmm_ops.segment_plan(dst, n, src=src, mask=mask)
+    args = (hw, s_src, s_dst, plan, mask, acc_dt)
+    before = spmm_ops.launches_by_variant["gat"]
+    out, m, den = spmm_ops.gat_aggregate_with_stats(*args)
+    torch.cuda.synchronize()
+    assert spmm_ops.launches_by_variant["gat"] == before + 1
+    assert torch.equal(out, spmm_ops.gat_aggregate(*args))
+    want_m, want_den = spmm_ops.gat_row_stats_plain(s_src, s_dst, plan, mask,
+                                                    acc_dt)
+    assert m.dtype == den.dtype == torch.float32 and m.shape == (n, H)
+    assert torch.equal(m, want_m)
+    assert bool(torch.isneginf(m[[7, ALL_MASKED_NODE]]).all())
+    rtol = 1e-5 if acc == "float32" else 2.0 ** -7
+    torch.testing.assert_close(den, want_den, rtol=rtol, atol=0)
+
+
 GNN_LAUNCHES = {"graphcast": lambda L: {"sum": L, "gat": 0},
                 "schnet": lambda L: {"sum": L, "gat": 0},
                 "pna": lambda L: {"sum": 1 + 4 * L, "gat": 0},
@@ -711,6 +745,7 @@ def _to(tree, device):
 
 
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of the largest |plain|
+SOURCE_HUB_NODE = 11      # "gat_bwd"'s walk by source gives it a block
 
 
 def _bwd_close(got, want, tol, name):
@@ -760,13 +795,16 @@ def test_segment_spmm_bwd_kernel_matches_plain_on_card(cuda, kind, arg,
 @pytest.mark.parametrize("H,dout", GAT_HEAD_SHAPES)
 def test_gat_bwd_kernel_matches_plain_on_card(cuda, H, dout, dtype, acc,
                                               scores):
-    """"gat_bwd" against ``gat_aggregate_bwd_plain`` on the graph with
-    masked slots, an empty row, an all-masked row and a hub, also with
-    self-loops whose pre-activations are exactly 0 (leaky_relu's slope
-    1 there): each gradient within 1e-4 (f32) or 2e-2 (bf16 anywhere) of
-    its largest plain value; the empty and all-masked rows' ds_dst 0;
-    two calls bit-identical."""
+    """"gat_bwd" against ``gat_aggregate_bwd_plain``, both from the card
+    forward's row statistics and output, on the graph with masked slots,
+    an empty row, an all-masked row, a hub by destination and one by
+    source (a block of the walk by source), also with self-loops whose
+    pre-activations are exactly 0 (leaky_relu's slope 1 there): each
+    gradient within 1e-4 (f32) or 2e-2 (bf16 anywhere) of its largest
+    plain value; the empty and all-masked rows' ds_dst 0; two calls
+    bit-identical."""
     x = gat_kernel_inputs(H, dout, zero_scores=scores == "zero_at_loops")
+    x["src"][1::20] = SOURCE_HUB_NODE        # 330 slots out of one node
     hw, s_src, s_dst = (torch.as_tensor(x[k], device=cuda).to(DTYPES[dtype])
                         for k in ("hw", "s_src", "s_dst"))
     src, dst, mask = (torch.as_tensor(x[k], device=cuda)
@@ -774,8 +812,12 @@ def test_gat_bwd_kernel_matches_plain_on_card(cuda, H, dout, dtype, acc,
     n, acc_dt = hw.shape[0], DTYPES[acc]
     plan = spmm_ops.segment_plan(dst, n, src=src, mask=mask)
     by_src = spmm_ops.source_plan(plan)
+    assert HUB_NODE in plan.heavy.tolist()
+    assert SOURCE_HUB_NODE in by_src.heavy.tolist()
+    out, m, den = spmm_ops.gat_aggregate_with_stats(hw, s_src, s_dst, plan,
+                                                    mask, acc_dt)
     g = torch.randn(hw.shape, device=cuda).to(acc_dt)
-    args = (hw, s_src, s_dst, plan, mask, acc_dt, g)
+    args = (hw, s_src, s_dst, plan, mask, acc_dt, g, m, den, out)
     before = spmm_ops.bwd_launches_by_variant["gat_bwd"]
     got = spmm_ops.gat_aggregate_bwd(*args, by_src)
     again = spmm_ops.gat_aggregate_bwd(*args, by_src)
