@@ -166,9 +166,25 @@ every phase holds:
               bytes and membership launches, ``wall_skew``, ``bytes_wire_*``
               and ``sim``'s wall time beside them (n: ``DIST_N``).
 
+19. mla_serve — the serve_dsv3 cell: DeepSeek-V3 at its published
+              widths in bfloat16 with seeded random weights, cut to 4
+              layers (its 3 dense layers and 1 MoE layer): flash_attn at
+              D != Dv against its plain version (MLA's D = 192, Dv = 128
+              through "wgmma" at the cell's prefill shape, timed beside
+              the bound, the plain version and SDPA; "simt" in f32 and at
+              the reduced config's (24, 16)); 4 prompts of 4,096 tokens,
+              prefill and 64 absorbed decode steps, twice (the tokens must
+              agree), 4 naive steps from the same cache within 5e-2 of the
+              absorbed ones, one profiled window; moe_gemm on the MoE
+              layer's 256 experts at the prefill capacity ("wgmma") and
+              at decode ("stream"), per pass and against float64, timed;
+              the kernel path against the plain path in bf16 (a dense and
+              the MoE layer, router pinned) and f32 (one dense layer).
+
 ``--lm-train-only`` runs phases 1, 2 and 12-14 and prints no result;
 ``--gnn-train-only`` runs phases 1, 2 and 15-17 and prints no result;
-``--dist-only`` runs phases 1, 2 and 18 and prints no result.
+``--dist-only`` runs phases 1, 2 and 18 and prints no result;
+``--mla-only`` runs phases 1, 2 and 19 and prints no result.
 Each phase prints one JSON line.  Then come the kernels line, the
 ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -268,6 +284,14 @@ TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # capacities on a seeded graph of its size
 GNN_TRAIN_STEPS, GNN_TRAIN_CKPT_EVERY, GNN_TRAIN_FAULT_AT = 20, 10, 15
 SAMPLED_STEPS = 4
+# DeepSeek-V3 serving (phase 19): the published widths in bf16 with the
+# depth cut from 61 layers to the 3 dense layers and 1 MoE layer (671 B
+# parameters do not fit one card); serve_4k's traffic, decode absorbed
+MLA_ARCH = "deepseek-v3-671b"
+MLA_LAYERS = 4
+MLA_NAIVE_STEPS = 4
+MLA_NAIVE_TOL = 5e-2   # naive against absorbed: tests/test_arch_smoke.py
+MOE_CHUNK = 16         # experts a plain or float64 moe_gemm check takes
 DEVICE = "cuda"
 SASS_OPS = ("HGMMA", "UTMALDG")   # counted in each library's SASS
 TIMING_KEYS = {"compiles", "compile_s", "compile_cache_hits", "wave_s_total",
@@ -1194,13 +1218,15 @@ def _bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _flash_work(B, Sq, Skv, H, Hk, D, causal, dtype):
-    """(bytes, flops): q and o, k and v once each; 4·D flops per (query,
-    key) pair kept, half the square when causal."""
+def _flash_work(B, Sq, Skv, H, Hk, D, causal, dtype, Dv=None):
+    """(bytes, flops): q and o, k and v once each; 2·(D + Dv) flops per
+    (query, key) pair kept, half the square when causal (Dv defaults to
+    D)."""
+    Dv = D if Dv is None else Dv
     esize = 2 if dtype == "bfloat16" else 4
-    nbytes = esize * (2 * B * Sq * H * D + 2 * B * Skv * Hk * D)
+    nbytes = esize * (B * Sq * H * (D + Dv) + B * Skv * Hk * (D + Dv))
     pairs = B * H * Sq * Skv / (2 if causal else 1)
-    return nbytes, 4 * pairs * D
+    return nbytes, 2 * pairs * (D + Dv)
 
 
 def _moe_work(E, C, d, f, dtype):
@@ -1567,6 +1593,40 @@ def _router(choices: list, pin: bool):
         layers.moe_route = orig
 
 
+def _parity_run(model, prompt, feed, plain: bool, choices=None,
+                pin: bool = False, absorbed: bool = False):
+    """Prefill ``prompt`` and PARITY_DECODE decode steps fed ``feed``,
+    through the kernel path or (``plain``) the plain path, the router
+    recording or pinned (``_router``) when ``choices`` is given: ``(logits,
+    cache, step logits, launches)``."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+    router = (_router(choices, pin) if choices is not None
+              else contextlib.nullcontext())
+    with _plain_kernels(plain), router:
+        _zero_lm_launches()
+        logits, cache = prefill(model, prompt,
+                                max_len=PARITY_PROMPT + PARITY_DECODE)
+        steps = []
+        for i in range(PARITY_DECODE):
+            lg, cache = decode_step(model, cache, feed[:, i],
+                                    PARITY_PROMPT + i, absorbed=absorbed)
+            steps.append(lg)
+        torch.cuda.synchronize()
+        return logits, cache, steps, _lm_launches()
+
+
+def _parity_rel(a, b) -> dict:
+    """Relative errors of one ``_parity_run`` against another: prefill
+    logits, each cache entry, each step's logits."""
+    (lk, ck, sk, _), (lp, cp, sp, _) = a, b
+    rel = {"prefill_logits": _rel(lk, lp)}
+    rel.update({f"cache_{k}": _rel(ck[k], cp[k]) for k in cp})
+    for i, (x, y) in enumerate(zip(sk, sp)):
+        rel[f"decode_{i}"] = _rel(x, y)
+    return rel
+
+
 def phase_lm_parity():
     """OLMoE-1B-7B at full width and PARITY_LAYERS layers: the kernel path
     against the plain path, same weights and prompt, through prefill
@@ -1577,37 +1637,13 @@ def phase_lm_parity():
     (see ``_router``)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import decode_step, init_lm_params, prefill
+    from repro_torch.models import init_lm_params
     dev = torch.device(DEVICE)
     L = PARITY_LAYERS
     want = {"float32": _lm_want({"simt": L},
                                 {"simt": L * (1 + PARITY_DECODE)}),
             "bfloat16": _lm_want({"wgmma": L}, {"wgmma": L,
                                                 "stream": L * PARITY_DECODE})}
-
-    def run(model, prompt, feed, plain, choices=None, pin=False):
-        router = (_router(choices, pin) if choices is not None
-                  else contextlib.nullcontext())
-        with _plain_kernels(plain), router:
-            _zero_lm_launches()
-            logits, cache = prefill(model, prompt,
-                                    max_len=PARITY_PROMPT + PARITY_DECODE)
-            steps = []
-            for i in range(PARITY_DECODE):
-                lg, cache = decode_step(model, cache, feed[:, i],
-                                        PARITY_PROMPT + i)
-                steps.append(lg)
-            torch.cuda.synchronize()
-            return logits, cache, steps, _lm_launches()
-
-    def rel_errs(a, b):
-        (lk, ck, sk, _), (lp, cp, sp, _) = a, b
-        rel = {"prefill_logits": _rel(lk, lp),
-               "cache_k": _rel(ck["k"], cp["k"]),
-               "cache_v": _rel(ck["v"], cp["v"])}
-        for i, (x, y) in enumerate(zip(sk, sp)):
-            rel[f"decode_{i}"] = _rel(x, y)
-        return rel
 
     for dtype, tol in (("float32", 1e-3), ("bfloat16", 5e-2)):
         cfg = dataclasses.replace(get_config(LM_ARCH).model, dtype=dtype,
@@ -1620,13 +1656,13 @@ def phase_lm_parity():
                                generator=gen, device=dev)
         prompt, feed = tokens[:, :PARITY_PROMPT], tokens[:, PARITY_PROMPT:]
         chosen = [] if dtype == "bfloat16" else None
-        plain = run(model, prompt, feed, True, chosen)
-        kern = run(model, prompt, feed, False, chosen, pin=True)
+        plain = _parity_run(model, prompt, feed, True, chosen)
+        kern = _parity_run(model, prompt, feed, False, chosen, pin=True)
         check(kern[3] == want[dtype], f"lm_parity {dtype} kernel path "
                                       f"launches {kern[3]} != {want[dtype]}")
         check(plain[3] == _lm_want({}, {}),
               f"lm_parity {dtype} plain path launched kernels: {plain[3]}")
-        rel = rel_errs(kern, plain)
+        rel = _parity_rel(kern, plain)
         for key, val in rel.items():
             check(val <= tol, f"lm_parity {dtype} {key}: kernel vs plain rel "
                               f"{val} > {tol}")
@@ -1640,32 +1676,40 @@ def phase_lm_parity():
         torch.cuda.empty_cache()
 
 
-def _serve_once(model, prompts):
+def _serve_once(model, prompts, absorbed: bool = False,
+                last_only: bool = False, keep_cache: bool = False):
     """Prefill with SERVE_MAX_LEN, then SERVE_DECODE greedy decode steps,
-    each timed on the host clock to a synchronise."""
+    each timed on the host clock to a synchronise.  With ``keep_cache``,
+    also a copy of the cache as prefill left it (``cache0``), from which
+    another decode can replay the steps."""
     import torch
     from repro_torch.models import decode_step, prefill
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_lm_launches()
     t0 = time.perf_counter()
-    logits, cache = prefill(model, prompts, max_len=SERVE_MAX_LEN)
+    logits, cache = prefill(model, prompts, max_len=SERVE_MAX_LEN,
+                            last_only=last_only)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     finite = torch.isfinite(logits).all()
     nxt = logits[:, -1].argmax(-1)
     del logits
+    out = {}
+    if keep_cache:
+        out["cache0"] = {k: v.clone() for k, v in cache.items()}
     toks, step_ms = [nxt], []
     for i in range(SERVE_DECODE):
         t0 = time.perf_counter()
-        lg, cache = decode_step(model, cache, nxt, SERVE_PROMPT + i)
+        lg, cache = decode_step(model, cache, nxt, SERVE_PROMPT + i,
+                                absorbed=absorbed)
         nxt = lg.argmax(-1)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         finite &= torch.isfinite(lg).all()
         toks.append(nxt)
     launches = _lm_launches()
-    return dict(tokens=torch.stack(toks, 1).cpu(), prefill_s=prefill_s,
+    return dict(out, tokens=torch.stack(toks, 1), prefill_s=prefill_s,
                 step_ms=step_ms, finite=bool(finite), launches=launches,
                 peak=torch.cuda.max_memory_allocated())
 
@@ -1700,9 +1744,11 @@ def _kernel_times(prof, wall_ms: float, top: int = 8,
     return out
 
 
-def _profile_serve(model, prompts, steps: int = 3):
+def _profile_serve(model, prompts, steps: int = 3, absorbed: bool = False,
+                   last_only: bool = False, named: tuple = ()):
     """One prefill and ``steps`` decode steps under ``torch.profiler``:
-    where the card's time goes, and how long it idles."""
+    where the card's time goes, and how long it idles (the kernels whose
+    names hold one of ``named`` summed apart)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode_step, prefill
@@ -1710,22 +1756,24 @@ def _profile_serve(model, prompts, steps: int = 3):
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        logits, cache = prefill(model, prompts, max_len=SERVE_MAX_LEN)
+        logits, cache = prefill(model, prompts, max_len=SERVE_MAX_LEN,
+                                last_only=last_only)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    pre = _kernel_times(prof, wall)
+    pre = _kernel_times(prof, wall, named=named)
     nxt = logits[:, -1].argmax(-1)
     del logits
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
-            lg, cache = decode_step(model, cache, nxt, SERVE_PROMPT + i)
+            lg, cache = decode_step(model, cache, nxt, SERVE_PROMPT + i,
+                                    absorbed=absorbed)
             nxt = lg.argmax(-1)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dec = _kernel_times(prof, wall)
-    emit(phase="lm_profile", batch=SERVE_BATCH, prompt=SERVE_PROMPT,
-         prefill=pre, decode=dict(steps=steps, **dec))
+    dec = _kernel_times(prof, wall, named=named)
+    emit(phase="lm_profile", arch=model.cfg.name, batch=SERVE_BATCH,
+         prompt=SERVE_PROMPT, prefill=pre, decode=dict(steps=steps, **dec))
     del cache
 
 
@@ -4100,6 +4148,336 @@ def phase_dist(n: int, g=None, expect: int | None = None):
                   membership_launches=sim_launches))
 
 
+# --------------------------------------------------------------------------- #
+# phase 19: DeepSeek-V3 serving (MLA)
+# --------------------------------------------------------------------------- #
+def _mla_flash_case(name, B, S, H, D, Dv, dtype, gen, variant,
+                    timed=False):
+    """flash_attn at D != Dv, causal, against its plain version
+    elementwise at FLASH_TOL, two calls bit-identical, through
+    ``variant``; ``timed`` adds the kernel's, the plain version's and
+    SDPA's ms beside the bound.  SDPA runs through the first of its
+    flash, cuDNN and efficient backends that takes D != Dv
+    (``library_backend``), never the math one, which would hold the
+    whole score matrix; ``library_refused`` says why the others refused,
+    and ``library_ms`` is None where all do."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attn import ops as flash
+    dev = torch.device(DEVICE)
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
+    k = torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
+    v = torch.randn((B, S, H, Dv), generator=gen, device=dev).to(dt)
+    row = dict(kernel="flash_attn", shape=name, dtype=dtype, B=B, Sq=S,
+               Skv=S, H=H, Hk=H, D=D, Dv=Dv, causal=True)
+    before = dict(flash.launches_by_variant)
+    got = flash.flash_attention_k(q, k, v, causal=True)
+    row["variant"] = _variant_of(flash, before)
+    again = flash.flash_attention_k(q, k, v, causal=True)
+    want = flash.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check(row["variant"] == variant,
+          f"flash {name} {dtype} ran {row['variant']}, not {variant}")
+    check(torch.equal(got, again), f"flash {name} {dtype}: two calls differ")
+    check(bool(torch.isfinite(got).all()), f"flash {name} not finite")
+    ok, row["max_abs_err"], row["elem_ratio"], _ = _compare(
+        got, want, FLASH_TOL[dtype])
+    row["tol"] = FLASH_TOL[dtype]
+    check(ok, f"flash {name} {dtype} ({variant}) disagrees: max abs err "
+              f"{row['max_abs_err']}, elementwise ratio {row['elem_ratio']}")
+    del got, again, want
+    if timed:
+        row["kernel_ms"] = cuda_ms(lambda: flash.flash_attention_k(
+            q, k, v, causal=True), warmup=1, iters=5)
+        row["plain_ms"] = cuda_ms(lambda: flash.flash_attention_plain(
+            q, k, v, causal=True), warmup=1, iters=2)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row["library_ms"], refused = None, {}
+        for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION):
+            try:
+                with sdpa_kernel(backend):
+                    row["library_ms"] = cuda_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True), warmup=1, iters=5)
+            except RuntimeError as e:    # the yardstick only, never the port
+                refused[backend.name] = str(e).strip().splitlines()[0][:200]
+                continue
+            row["library_backend"] = backend.name
+            break
+        row["library_refused"] = refused
+        del qt, kt, vt
+        _timed(row, _flash_work(B, S, S, H, H, D, True, dtype, Dv), dtype)
+    emit(phase="mla_kernels", **row)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def _moe_chunked_case(name, x, wg, wu, wd, variant, iters):
+    """moe_gemm in bf16 at DeepSeek-V3's expert widths, on the model's own
+    expert weights: two launches bit-identical; each pass against its
+    plain version elementwise at MOE_TOL and against the function computed
+    exactly (``moe_gemm_f64``), MOE_CHUNK experts at a time (the plain
+    versions' float32 and float64 copies of all 256 experts' weights
+    would take 45 and 90 GB); end to end against the plain version
+    recorded, not held (see MOE_TOL).  Timed beside the bound, the plain
+    version over the same chunks and three ``bmm``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.moe_gemm import kernel as moe_kernel
+    from repro_torch.kernels.moe_gemm import ops as moe
+    from repro_torch.kernels.moe_gemm.ref import (bound_ratio, moe_down_ref,
+                                                  moe_gemm_f64, moe_gemm_ref,
+                                                  moe_hidden_ref)
+    E, C, d = x.shape
+    f = wg.shape[-1]
+    tol = MOE_TOL["bfloat16"]
+    row = dict(kernel="moe_gemm", shape=name, dtype="bfloat16", E=E, C=C,
+               d=d, f=f, check="per_pass, exact")
+    before = dict(moe.launches_by_variant)
+    got = moe.moe_gemm(x, wg, wu, wd)
+    row["variant"] = _variant_of(moe, before)
+    h = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
+    again = torch.empty_like(x)
+    moe_kernel.moe_gemm_cuda(x, wg, wu, wd, h, again, row["variant"])
+    torch.cuda.synchronize()
+    check(row["variant"] == variant,
+          f"moe {name} ran {row['variant']}, not {variant}")
+    check(torch.equal(again, got), f"moe {name}: two launches differ")
+    del again
+    chunks = [slice(e, e + MOE_CHUNK) for e in range(0, E, MOE_CHUNK)]
+    worst = dict.fromkeys(("h_elem_ratio", "down_elem_ratio",
+                           "h_exact_ratio", "exact_ratio", "max_abs_err",
+                           "elem_ratio"), 0.0)
+    for sl in chunks:
+        h_plain = moe_hidden_ref(x[sl], wg[sl], wu[sl])
+        exact = moe_gemm_f64(x[sl], wg[sl], wu[sl], wd[sl])
+        _, err, elem, _ = _compare(got[sl], moe_down_ref(h_plain, wd[sl]),
+                                   tol)
+        vals = dict(
+            h_elem_ratio=_compare(h[sl], h_plain, tol)[2],
+            down_elem_ratio=_compare(got[sl], moe_down_ref(h[sl], wd[sl]),
+                                     tol)[2],
+            h_exact_ratio=bound_ratio(h[sl], exact["h"], exact["h_bound"]),
+            exact_ratio=bound_ratio(got[sl], exact["out"],
+                                    exact["out_bound"]),
+            max_abs_err=err, elem_ratio=elem)
+        worst = {key: max(worst[key], vals[key]) for key in worst}
+        del h_plain, exact
+    row.update(worst)
+    for key in ("h_elem_ratio", "down_elem_ratio", "h_exact_ratio",
+                "exact_ratio"):
+        check(row[key] <= 1, f"moe_gemm {name} ({variant}) {key} "
+                             f"{row[key]} > 1")
+    del got, h
+    row["kernel_ms"] = cuda_ms(lambda: moe.moe_gemm(x, wg, wu, wd),
+                               warmup=1, iters=iters)
+    row["plain_ms"] = cuda_ms(lambda: [moe_gemm_ref(x[sl], wg[sl], wu[sl],
+                                                    wd[sl])
+                                       for sl in chunks], warmup=1, iters=1)
+    row["library_ms"] = cuda_ms(lambda: torch.bmm(
+        F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd), warmup=1,
+        iters=iters)
+    _timed(row, _moe_work(E, C, d, f, "bfloat16"), "bfloat16")
+    emit(phase="mla_kernels", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_mla_serve():
+    """The serve_dsv3 cell: DeepSeek-V3 at its published widths in bf16,
+    cut to MLA_LAYERS layers (the 3 dense and 1 MoE layer), seeded random
+    weights on the card.  (a) flash_attn at D != Dv against its plain
+    version: the reduced config's (24, 16) in f32 and bf16 ("simt"),
+    (192, 128) in f32 ("simt") and at the cell's prefill shape in bf16
+    ("wgmma", timed).  (b) SERVE_BATCH prompts of SERVE_PROMPT tokens,
+    prefill (``last_only``) and SERVE_DECODE absorbed decode steps,
+    twice: the tokens bit-equal, prefill through "wgmma" (flash_attn once
+    a layer, moe_gemm once), decode through "stream"; run 1's first
+    MLA_NAIVE_STEPS steps replayed from its prefill cache, each also
+    naive from the same cache (router pinned), the naive logits within
+    MLA_NAIVE_TOL of the absorbed ones; one prefill and 3 steps under
+    ``torch.profiler``.  (c) moe_gemm on the MoE layer's
+    experts at the prefill capacity ("wgmma") and at decode ("stream"),
+    timed.  (d) the kernel path against the plain path: bf16 on the dense
+    and the MoE layer of (b)'s model (router pinned, as phase 7) to 5e-2,
+    then one dense layer in f32 to 1e-3.  Returns the timed rows and run
+    (b)'s launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gemm.ops import route as moe_route
+    from repro_torch.models import (TransformerLM, cache_spec, decode_step,
+                                    init_lm_params)
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(get_config(MLA_ARCH).model, n_layers=MLA_LAYERS)
+    m, mo = cfg.mla, cfg.moe
+    H, D, Dv = cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim, \
+        m.v_head_dim
+    n_moe = cfg.n_layers - mo.first_k_dense
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+
+    def capacity(T):
+        return max(int(T * mo.top_k / mo.n_experts * mo.capacity_factor), 1)
+
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        _mla_flash_case("mla_reduced_24_16", 2, 512, 4, 24, 16, dtype, gen,
+                        "simt")
+    _mla_flash_case("mla_192_128_f32", 1, 2048, 32, D, Dv, "float32", gen,
+                    "simt")
+    rows["flash_attn"] = _mla_flash_case(
+        "serve_dsv3_prefill", SERVE_BATCH, SERVE_PROMPT, H, D, Dv,
+        "bfloat16", gen, "wgmma", timed=True)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_lm_params(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    runs = [_serve_once(model, prompts, absorbed=True, last_only=True,
+                        keep_cache=i == 0) for i in range(2)]
+    want = _lm_want({"wgmma": cfg.n_layers},
+                    {"wgmma": n_moe, "stream": n_moe * SERVE_DECODE})
+    for r in runs:
+        check(r["finite"], "mla_serve: logits not finite")
+        check(r["launches"] == want,
+              f"mla_serve launches {r['launches']} != {want}")
+    check(torch.equal(runs[0]["tokens"], runs[1]["tokens"]),
+          "mla_serve: two runs gave different tokens")
+    # run 1's first steps again from its prefill cache, each step absorbed
+    # and naive from the same cache and token, the naive step's router
+    # pinned to the absorbed one's (see _router); the absorbed cache goes on
+    cache = runs[0].pop("cache0")
+    naive_rel, naive_ms = [], []
+    for i in range(MLA_NAIVE_STEPS):
+        tok, pos = runs[0]["tokens"][:, i], SERVE_PROMPT + i
+        before = {k: v.clone() for k, v in cache.items()}
+        chosen = []
+        with _router(chosen, pin=False):
+            absorbed, cache = decode_step(model, cache, tok, pos,
+                                          absorbed=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _router(chosen, pin=True):
+            lg, _ = decode_step(model, before, tok, pos, absorbed=False)
+        torch.cuda.synchronize()
+        naive_ms.append((time.perf_counter() - t0) * 1e3)
+        check(torch.equal(absorbed.argmax(-1), runs[0]["tokens"][:, i + 1]),
+              f"mla_serve: replayed step {i} gave other tokens")
+        a, b = lg.float(), absorbed.float()
+        naive_rel.append(float((a - b).abs().max()
+                               / a.abs().max().clamp_min(1e-6)))
+        del before
+    check(max(naive_rel) < MLA_NAIVE_TOL,
+          f"mla_serve: naive vs absorbed decode rel {naive_rel} >= "
+          f"{MLA_NAIVE_TOL}")
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    check(cache_bytes == sum(
+        math.prod(shape) * 2 for shape, _ in cache_spec(
+            cfg, SERVE_BATCH, SERVE_MAX_LEN).shapes.values()),
+        "mla_serve: the cache is not cache_spec's")
+    del cache, lg, absorbed
+    _profile_serve(model, prompts, absorbed=True, last_only=True,
+                   named=("flash_fwd_wgmma", "moe_gemm"))
+    del prompts
+    torch.cuda.empty_cache()
+
+    ffn = model.blocks[-1].ffn
+    E, d, f = mo.n_experts, cfg.d_model, mo.d_expert
+    for key, c, variant, iters in (
+            ("moe_gemm", capacity(SERVE_BATCH * SERVE_PROMPT), "wgmma", 3),
+            ("moe_gemm_decode", capacity(SERVE_BATCH), "stream", 10)):
+        x = torch.randn((E, c, d), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        rows[key] = _moe_chunked_case(
+            "serve_dsv3_prefill" if key == "moe_gemm" else
+            "serve_dsv3_decode", x,
+            ffn["wg"], ffn["wu"], ffn["wd"], variant, iters)
+        del x
+
+    del ffn
+    # the kernel path against the plain path: bf16 on (b)'s dense and MoE
+    # layer, router pinned; then one dense layer in f32
+    parity = {}
+    pre = moe_route(torch.bfloat16, capacity(PARITY_BATCH * PARITY_PROMPT),
+                    cfg.d_model, mo.d_expert)
+    moe_want = {pre: 1}
+    moe_want["stream"] = moe_want.get("stream", 0) + PARITY_DECODE
+    cases = (("bfloat16", 5e-2, _lm_want({"wgmma": 2}, moe_want)),
+             ("float32", 1e-3, _lm_want({"simt": 1}, {})))
+    for dtype, tol, want in cases:
+        if dtype == "bfloat16":     # (b)'s weights, shared
+            pm = TransformerLM(
+                dataclasses.replace(cfg, n_layers=2, moe=dataclasses.replace(
+                    mo, first_k_dense=1)), model.embed,
+                [model.blocks[0], model.blocks[-1]], model.final_norm,
+                model.lm_head, model.mtp)
+        else:
+            del pm, model
+            torch.cuda.empty_cache()
+            gen.manual_seed(1)
+            pm = init_lm_params(gen, dataclasses.replace(
+                cfg, n_layers=1, dtype="float32", mtp_depth=0,
+                moe=dataclasses.replace(mo, first_k_dense=1)), device=dev)
+        tokens = torch.randint(0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT
+                                              + PARITY_DECODE),
+                               generator=gen, device=dev)
+        prompt, feed = tokens[:, :PARITY_PROMPT], tokens[:, PARITY_PROMPT:]
+        chosen = [] if dtype == "bfloat16" else None
+        plain = _parity_run(pm, prompt, feed, True, chosen, absorbed=True)
+        kern = _parity_run(pm, prompt, feed, False, chosen, pin=True,
+                           absorbed=True)
+        check(kern[3] == want, f"mla_parity {dtype} kernel path launches "
+                               f"{kern[3]} != {want}")
+        check(plain[3] == _lm_want({}, {}),
+              f"mla_parity {dtype} plain path launched kernels: {plain[3]}")
+        rel = _parity_rel(kern, plain)
+        for key, val in rel.items():
+            check(val <= tol, f"mla_parity {dtype} {key}: kernel vs plain "
+                              f"rel {val} > {tol}")
+        parity[dtype] = dict(
+            layers="dense + MoE, router pinned to the plain path"
+            if dtype == "bfloat16" else "one dense layer",
+            rel_err=rel, tol=tol, kernel_launches=kern[3])
+        del plain, kern
+    del pm
+    torch.cuda.empty_cache()
+
+    def pct(xs, p):
+        return float(np.percentile(np.asarray(xs), p))
+
+    L, B, S_max = cfg.n_layers, SERVE_BATCH, SERVE_MAX_LEN
+    emit(phase="mla_serve", arch=MLA_ARCH, n_layers=L, dtype=cfg.dtype,
+         n_params=n_params, weight_bytes=weight_bytes, init_s=init_s,
+         serve=[dict(batch=B, prompt=SERVE_PROMPT, max_len=S_max,
+                     decode_steps=SERVE_DECODE, decode="absorbed",
+                     prefill_s=r["prefill_s"],
+                     prefill_tokens_per_s=B * SERVE_PROMPT / r["prefill_s"],
+                     decode_ms_p50=pct(r["step_ms"], 50),
+                     decode_ms_p90=pct(r["step_ms"], 90),
+                     decode_ms_first=r["step_ms"][0], peak_bytes=r["peak"],
+                     launches=r["launches"], finite=r["finite"])
+                for r in runs],
+         tokens_equal=True,
+         naive=dict(steps=MLA_NAIVE_STEPS, rel_vs_absorbed=naive_rel,
+                    tol=MLA_NAIVE_TOL, step_ms=naive_ms),
+         cache_bytes=dict(mla=cache_bytes,
+                          gqa_equivalent=L * B * S_max * H * (D + Dv) * 2),
+         parity=parity,
+         cuts={"n_layers": "61 -> 4: the 3 dense layers and 1 MoE layer "
+                           "(671 B parameters do not fit one 80 GB card)"})
+    return dict(rows=rows, launches=runs[0]["launches"])
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--full-n", type=int, default=SMOKE_N,
@@ -4117,6 +4495,10 @@ def main():
     ap.add_argument("--dist-only", action="store_true",
                     help="run the device and build phases, then only the "
                          "dist phase (18), printing no result")
+    ap.add_argument("--mla-only", action="store_true",
+                    help="run the device and build phases, then only the "
+                         "DeepSeek-V3 serving phase (19), printing no "
+                         "result")
     ap.add_argument("--dist-n", type=int, default=DIST_N,
                     help=f"vertices of the dist phase's graph (published: "
                          f"{FULL_N})")
@@ -4152,6 +4534,9 @@ def main():
         return
     if args.dist_only:
         phase_dist(args.dist_n)
+        return
+    if args.mla_only:
+        phase_mla_serve()
         return
     # the full-scale graph: its shapes and degrees drive the kernel timings
     t0 = time.perf_counter()
@@ -4242,6 +4627,11 @@ def main():
     else:
         phase_dist(args.dist_n)
 
+    # DeepSeek-V3 serving: MLA's (192, 128) flash_attn and moe_gemm at
+    # DeepSeek's widths, each launch count read around run (b)
+    torch.cuda.empty_cache()
+    mla = phase_mla_serve()
+
     # membership on the back-edge filter's own inputs, against the bound
     # of what those inputs need
     t = dict(timing["backedge_engine"],
@@ -4268,6 +4658,15 @@ def main():
         ("moe_gemm", "src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
          "src/repro/kernels/moe_gemm/kernel.py:44",
          lm_launches["moe_gemm"], lm_rows["moe_gemm", "bfloat16"]),
+        # DeepSeek-V3 serving: MLA's prefill attention through the (192,
+        # 128) "wgmma" instantiation, and the experts at DeepSeek's widths
+        ("flash_attn_mla_d192_dv128",
+         "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+         "src/repro/kernels/flash_attn/kernel.py:62",
+         mla["launches"]["flash_attn"], mla["rows"]["flash_attn"]),
+        ("moe_gemm_dsv3", "src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
+         "src/repro/kernels/moe_gemm/kernel.py:44",
+         mla["launches"]["moe_gemm"], mla["rows"]["moe_gemm"]),
         ("segment_spmm",
          "src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu",
          "src/repro/kernels/segment_spmm/kernel.py:35", gnn_launches["sum"],

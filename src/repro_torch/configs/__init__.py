@@ -14,6 +14,7 @@ from repro_torch.configs.base import (ArchConfig, GNN_SHAPES, GNNConfig,
 
 _ARCH_MODULES: dict[str, str] = {
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
@@ -25,7 +26,6 @@ _ARCH_MODULES: dict[str, str] = {
 # architectures of the reference's registry whose modules are not ported
 # yet, each with the ROADMAP.md item that ports them
 _NOT_PORTED: dict[str, str] = {
-    "deepseek-v3-671b": "queue A item 11 (MLA and MTP)",
     "din": "queue A item 12 (DIN serving)",
 }
 

@@ -57,13 +57,21 @@ def lm_params_from_arrays(tree: dict, cfg: TransformerConfig, device=None):
     """The port's :class:`~repro_torch.models.TransformerLM` from the
     reference's parameter pytree as numpy arrays
     (``jax.tree.map(np.asarray, params)``): ``embed``, ``final_norm``,
-    ``lm_head`` (untied), and ``dense_stack`` / ``moe_stack``, each a
-    dict of per-layer weights stacked on axis 0 (or None)."""
-    from repro_torch.models.transformer import Block, TransformerLM
+    ``lm_head`` (untied), ``dense_stack`` / ``moe_stack``, each a dict of
+    per-layer weights (GQA or MLA ``attn``) stacked on axis 0 (or None),
+    and ``mtp`` (``block``, one unstacked dense layer; ``proj``; ``norm``)
+    where the config has an MTP head."""
+    from repro_torch.models.transformer import Block, MTPHead, TransformerLM
     device = resolve_device(device)
 
-    def layer(a, i):
-        return tensor_from_array(np.asarray(a)[i], device)
+    def block(arrays: dict, pick, moe: bool):
+        """A Block from one layer's arrays, each taken by ``pick``."""
+        return Block({k: pick(v) for k, v in arrays["attn"].items()},
+                     {k: pick(v) for k, v in arrays["ffn"].items()},
+                     pick(arrays["ln1"]), pick(arrays["ln2"]), moe)
+
+    def whole(a):
+        return tensor_from_array(a, device)
 
     blocks = []
     for key, moe in (("dense_stack", False), ("moe_stack", True)):
@@ -71,15 +79,18 @@ def lm_params_from_arrays(tree: dict, cfg: TransformerConfig, device=None):
         if stack is None:
             continue
         for i in range(np.asarray(stack["ln1"]).shape[0]):
-            attn = {k: layer(v, i) for k, v in stack["attn"].items()}
-            ffn = {k: layer(v, i) for k, v in stack["ffn"].items()}
-            blocks.append(Block(attn, ffn, layer(stack["ln1"], i),
-                                layer(stack["ln2"], i), moe))
+            blocks.append(block(stack, lambda a: whole(np.asarray(a)[i]),
+                                moe))
+    mtp = None
+    if tree.get("mtp") is not None:
+        m = tree["mtp"]
+        mtp = MTPHead(block(m["block"], whole, False), whole(m["proj"]),
+                      whole(m["norm"]))
     head = tree.get("lm_head")
     return TransformerLM(
         cfg, tensor_from_array(tree["embed"], device), blocks,
         tensor_from_array(tree["final_norm"], device),
-        None if head is None else tensor_from_array(head, device))
+        None if head is None else tensor_from_array(head, device), mtp)
 
 
 def _array(t: torch.Tensor, grad: bool):
@@ -94,22 +105,17 @@ def lm_arrays_from_model(model, grad: bool = False) -> dict:
     """The inverse of :func:`lm_params_from_arrays`: the reference's
     parameter tree as float32 numpy arrays (``embed``, ``final_norm``,
     ``lm_head`` when untied, ``dense_stack`` and ``moe_stack``, each a
-    dict of per-layer weights stacked on axis 0, or None), from the
-    model's parameters or, with ``grad``, from their ``.grad``; so a test
-    can hold parameters and gradients against the reference's leaf by
-    leaf."""
+    dict of per-layer weights stacked on axis 0, or None, and ``mtp``
+    when the model has an MTP head), from the model's parameters or, with
+    ``grad``, from their ``.grad``; so a test can hold parameters and
+    gradients against the reference's leaf by leaf."""
+    def layer(b) -> dict:
+        return dict(attn={n: _array(t, grad) for n, t in b.attn.items()},
+                    ffn={n: _array(t, grad) for n, t in b.ffn.items()},
+                    ln1=_array(b.ln1, grad), ln2=_array(b.ln2, grad))
+
     def stack(blocks):
-        if not blocks:
-            return None
-        out = {}
-        for key in ("attn", "ffn"):
-            names = list(getattr(blocks[0], key).keys())
-            out[key] = {n: np.stack([_array(getattr(b, key)[n], grad)
-                                     for b in blocks]) for n in names}
-        for key in ("ln1", "ln2"):
-            out[key] = np.stack([_array(getattr(b, key), grad)
-                                 for b in blocks])
-        return out
+        return _stack([layer(b) for b in blocks]) if blocks else None
 
     tree = dict(embed=_array(model.embed, grad),
                 dense_stack=stack([b for b in model.blocks if not b.moe]),
@@ -117,6 +123,10 @@ def lm_arrays_from_model(model, grad: bool = False) -> dict:
                 final_norm=_array(model.final_norm, grad))
     if model.lm_head is not None:
         tree["lm_head"] = _array(model.lm_head, grad)
+    if model.mtp is not None:
+        tree["mtp"] = dict(block=layer(model.mtp.block),
+                           proj=_array(model.mtp.proj, grad),
+                           norm=_array(model.mtp.norm, grad))
     return tree
 
 

@@ -3,6 +3,8 @@
 //   o[b, i, h] = softmax_j(q[b, i, h] . k[b, j, hk] * D^-0.5) v[b, j, hk]
 // over the keys j the mask keeps (j < Skv, and q_offset + i >= j when
 // causal), with hk = h / (H / Hk) (GQA without materialising the repeat).
+// q and k share the head width D <= 192; v and o have their own, Dv <=
+// 128 (MLA attends with D = 128 + 64 = 192 and Dv = 128).
 //
 // Replaces the TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attn/kernel.py) with its semantics, not its
@@ -22,29 +24,37 @@
 // What bounds it: at the serving prefill (B*H = 64, S = 4,096, D = 128,
 // causal) the work is 4*BH*S^2*D/2 = 0.27 TFLOP against 0.2 GB of q, k,
 // v and o, so it is bound by operations: 0.28 ms at the 989 TFLOP/s of
-// the bf16 tensor cores.
+// the bf16 tensor cores.  MLA's prefill (B*H = 512, S = 4,096, D = 192,
+// Dv = 128) does 2*BH*(S^2/2)*(D + Dv) = 2.75 TFLOP: 2.78 ms.
 //
 // "simt" (f32, and bf16 shapes the wgmma variant does not take): the
 // first version, on the CUDA cores in f32 (one FMA per multiply-add): one
 // block of 256 threads per (64-query tile, b, h); the Q tile and each
-// 64-key K/V tile are staged in shared memory as f32, each thread holds a
-// 4 x 4 tile of scores and a 4 x ceil(D/16) tile of the accumulator.
+// 64-key K tile are staged in shared memory as f32 at D, the V tile at
+// Dv, each thread holds a 4 x 4 tile of scores and a 4 x ceil(Dv/16)
+// tile of the accumulator (148 KB of shared memory at D = 192, Dv = 128).
 //
-// "wgmma" (bf16, D % 16 == 0, D <= 128): both products on the tensor
-// cores.  One CTA of three warpgroups per (128-query tile, b, h): the
-// first issues TMA loads from one thread (the Q tile once, then 128-key
-// K and V tiles through a 2-stage ring of mbarriers), the other two each
-// own 64 queries.  Per key tile a consumer computes S = Q K^T as one
-// wgmma chain over D (both operands from 128-byte-swizzled shared
-// memory, f32 accumulators), applies D^-0.5 * log2(e) to S in f32, masks
-// only diagonal and ragged tiles, runs the online softmax in registers
+// "wgmma" (bf16, D and Dv multiples of 16, D <= 192, Dv <= 128): both
+// products on the tensor cores.  One CTA of three warpgroups per
+// (128-query tile, b, h): the first issues TMA loads from one thread (the
+// Q tile once, then 128-key K and V tiles through a 2-stage ring of
+// mbarriers), the other two each own 64 queries.  Per key tile a
+// consumer computes S = Q K^T as one wgmma chain over D (both operands
+// from 128-byte-swizzled shared memory, f32 accumulators), applies
+// D^-0.5 * log2(e) to S in f32, masks only diagonal and ragged tiles,
+// runs the online softmax in registers
 // (row max and sum by quad shuffles over the accumulator layout, exp2f),
 // rounds P to bf16 in registers and feeds it as the register A operand
 // of O += P V, with V read from shared memory as an MN-major B operand.
-// q, k, v are read in place through 4-D tensor maps (D, H, S, B); rows
-// and columns past Sq, Skv and D arrive as zeros, and stores are
-// guarded.  Causal grids run the longest query tiles first.  D < 64 pads
-// the head to one 64-column panel, 64 < D <= 128 to two.  Against the
+// q, k, v are read in place through 4-D tensor maps (D or Dv, H, S, B);
+// rows and columns past Sq, Skv, D and Dv arrive as zeros, and stores are
+// guarded.  Causal grids run the longest query tiles first.  The head
+// widths are padded to 64-column panels, (D, Dv) to one of three
+// instantiations: (64, 64), (128, 128) or (192, 128); a panel wholly past
+// D or Dv arrives as zeros too.  At (192, 128) Q takes 48 KB of shared
+// memory, the 2-stage K ring 96 KB and V's 64 KB: 209 KB with the
+// barriers and the 1 KB of alignment.  The S and O accumulators stay at
+// 64 f32 registers a thread each, as at (128, 128).  Against the
 // simt variant two rounding points move: P is rounded to bf16 before
 // P V, and the scale is applied to S after the product (as the plain
 // version does); both stay far inside the bf16 tolerance of 2e-2.
@@ -60,8 +70,9 @@ namespace {
 constexpr int kBQ = 64;          // queries per block
 constexpr int kBK = 64;          // keys per tile
 constexpr int kThreads = 256;    // 16 x 16: rows ty + 16 i, keys tx + 16 j
-constexpr int kMaxD = 128;
-constexpr int kDPer = kMaxD / 16;  // accumulator columns per thread
+constexpr int kMaxD = 192;         // q/k head width
+constexpr int kMaxDv = 128;        // v head width
+constexpr int kDPer = kMaxDv / 16;  // accumulator columns per thread
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -77,9 +88,9 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-size_t smem_bytes(int D) {
+size_t smem_bytes(int D, int Dv) {
   return sizeof(float) * ((size_t)kBQ * (D + 1) + (size_t)kBK * (D + 1) +
-                          (size_t)kBK * D + (size_t)kBQ * (kBK + 1));
+                          (size_t)kBK * Dv + (size_t)kBQ * (kBK + 1));
 }
 
 template <typename T>
@@ -87,15 +98,15 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o,
           float* __restrict__ lse, int H, int Hk, int Sq, int Skv, int D,
-          int causal, int q_offset, float scale) {
+          int Dv, int causal, int q_offset, float scale) {
   extern __shared__ float smem[];
   // padded rows: the 16 rows a half-warp reads in one column fall in 16
   // banks (D + 1 is odd for even D)
   const int ldq = D + 1, ldk = D + 1, ldp = kBK + 1;
   float* Qs = smem;               // kBQ x ldq
   float* Ks = Qs + kBQ * ldq;     // kBK x ldk
-  float* Vs = Ks + kBK * ldk;     // kBK x D
-  float* Ps = Vs + kBK * D;       // kBQ x ldp
+  float* Vs = Ks + kBK * ldk;     // kBK x Dv
+  float* Ps = Vs + kBK * Dv;      // kBQ x ldp
 
   const int h = blockIdx.y % H, b = blockIdx.y / H;
   const int hk = h / (H / Hk);
@@ -103,11 +114,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const long long q_stride = (long long)H * D;    // between positions
-  const long long kv_stride = (long long)Hk * D;
+  const long long k_stride = (long long)Hk * D;
+  const long long v_stride = (long long)Hk * Dv;
+  const long long o_stride = (long long)H * Dv;
   const T* qb = q + ((long long)b * Sq * H + h) * D;
   const T* kb = k + ((long long)b * Skv * Hk + hk) * D;
-  const T* vb = v + ((long long)b * Skv * Hk + hk) * D;
-  T* ob = o + ((long long)b * Sq * H + h) * D;
+  const T* vb = v + ((long long)b * Skv * Hk + hk) * Dv;
+  T* ob = o + ((long long)b * Sq * H + h) * Dv;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, c = e - r * D;
@@ -135,13 +148,12 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, c = e - r * D;
       const int s = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (s < Skv) {
-        kv = to_f(kb[s * kv_stride + c]);
-        vv = to_f(vb[s * kv_stride + c]);
-      }
-      Ks[r * ldk + c] = kv;
-      Vs[r * D + c] = vv;
+      Ks[r * ldk + c] = s < Skv ? to_f(kb[s * k_stride + c]) : 0.f;
+    }
+    for (int e = tid; e < kBK * Dv; e += kThreads) {
+      const int r = e / Dv, c = e - r * Dv;
+      const int s = k0 + r;
+      Vs[r * Dv + c] = s < Skv ? to_f(vb[s * v_stride + c]) : 0.f;
     }
     __syncthreads();
 
@@ -203,7 +215,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < kDPer; ++jj) {
         const int c = tx + 16 * jj;
-        const float vv = c < D ? Vs[j * D + c] : 0.f;
+        const float vv = c < Dv ? Vs[j * Dv + c] : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
       }
@@ -222,29 +234,30 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < kDPer; ++jj) {
       const int c = tx + 16 * jj;
-      if (c < D) ob[s * q_stride + c] = from_f<T>(acc[i][jj] / denom);
+      if (c < Dv) ob[s * o_stride + c] = from_f<T>(acc[i][jj] / denom);
     }
   }
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int H, int Hk, int Sq, int Skv, int D, int causal,
+           int B, int H, int Hk, int Sq, int Skv, int D, int Dv, int causal,
            int q_offset, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0) return 0;
-  if (D < 1 || D > kMaxD || Hk < 1 || H % Hk != 0 || q_offset < 0)
+  if (D < 1 || D > kMaxD || Dv < 1 || Dv > kMaxDv || Hk < 1 ||
+      H % Hk != 0 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(kMaxD));
+      (int)smem_bytes(kMaxD, kMaxDv));
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   const float scale = (float)(1.0 / sqrt((double)D));
-  flash_fwd<T><<<grid, kThreads, smem_bytes(D),
+  flash_fwd<T><<<grid, kThreads, smem_bytes(D, Dv),
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      H, Hk, Sq, Skv, D, causal, q_offset, scale);
+      H, Hk, Sq, Skv, D, Dv, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -259,26 +272,27 @@ constexpr int kThreads = 384;   // producer warpgroup + 2 consumers
 constexpr int kPanelQ = kBQ * 64;   // elements of one 64-column panel
 constexpr int kPanelK = kBK * 64;
 
-// kD: the head dimension padded to 64 or 128 (one or two panels)
-template <int kD>
+// kD, kDv: the q/k and the v head widths padded to 64-column panels
+template <int kD, int kDv>
 struct Smem {
   bf16 q[kD / 64][kPanelQ];
   bf16 k[kStages][kD / 64][kPanelK];
-  bf16 v[kStages][kD / 64][kPanelK];
+  bf16 v[kStages][kDv / 64][kPanelK];
   uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
 };
 
-template <int kD>
+template <int kD, int kDv>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
                 float* __restrict__ lse, int H, int Hk, int Sq, int Skv,
-                int D, int causal, int q_offset, float scale_log2) {
+                int Dv, int causal, int q_offset, float scale_log2) {
   using namespace hopper;
-  constexpr int kP = kD / 64;
+  constexpr int kP = kD / 64, kPv = kDv / 64;
+  static_assert(kDv == 64 || kDv == 128, "P V runs as one n64 or n128 wgmma");
   extern __shared__ uint8_t smem_raw[];
-  Smem<kD>& sm = *reinterpret_cast<Smem<kD>*>(align_1k(smem_raw));
+  Smem<kD, kDv>& sm = *reinterpret_cast<Smem<kD, kDv>*>(align_1k(smem_raw));
 
   const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = qt * kBQ;
@@ -312,8 +326,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         mbar_arrive_expect_tx(&sm.k_full[s], kP * kPanelK * 2);
         for (int p = 0; p < kP; ++p)
           tma_load_4d(sm.k[s][p], &tk, &sm.k_full[s], 64 * p, hk, t * kBK, b);
-        mbar_arrive_expect_tx(&sm.v_full[s], kP * kPanelK * 2);
-        for (int p = 0; p < kP; ++p)
+        mbar_arrive_expect_tx(&sm.v_full[s], kPv * kPanelK * 2);
+        for (int p = 0; p < kPv; ++p)
           tma_load_4d(sm.v[s][p], &tv, &sm.v_full[s], 64 * p, hk, t * kBK, b);
       }
     }
@@ -325,9 +339,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     const int row0 = q0 + 64 * c + 16 * (tid >> 5) + (lane >> 2);  // and +8
     const int first_pos = q0 + 64 * c + q_offset;  // the WG's first query
 
-    float acc[kD / 2];
+    float acc[kDv / 2];
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kDv / 2; ++i) acc[i] = 0.f;
     float sc[kBK / 2];
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
@@ -389,7 +403,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
           l[e >> 1] += p;
         }
 #pragma unroll
-      for (int i = 0; i < kD / 8; ++i)
+      for (int i = 0; i < kDv / 8; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[4 * i + e] *= corr[e >> 1];
       uint32_t pa[kBK / 16][4];
@@ -405,7 +419,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < kBK / 16; ++kk) {
         const uint64_t db =
             desc_sw128(&sm.v[s][0][kk * 16 * 64], kPanelK * 2, 1024);
-        if constexpr (kD == 128)
+        if constexpr (kDv == 128)
           wgmma_m64n128k16_rs<1>(acc, pa[kk], db, 1);
         else
           wgmma_m64n64k16_rs<1>(acc, pa[kk], db, 1);
@@ -416,8 +430,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(&sm.empty[s]);
     }
 
-    const long long q_stride = (long long)H * D;  // between positions
-    bf16* ob = o + ((long long)b * Sq * H + h) * D;
+    const long long o_stride = (long long)H * Dv;  // between positions
+    bf16* ob = o + ((long long)b * Sq * H + h) * Dv;
     float denom[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {  // the row's sum over its quad
@@ -437,10 +451,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       const int row = row0 + 8 * hh;
       if (row >= Sq) continue;
 #pragma unroll
-      for (int i = 0; i < kD / 8; ++i) {
+      for (int i = 0; i < kDv / 8; ++i) {
         const int col = 8 * i + 2 * quad;
-        if (col < D)
-          *reinterpret_cast<__nv_bfloat162*>(ob + row * q_stride + col) =
+        if (col < Dv)
+          *reinterpret_cast<__nv_bfloat162*>(ob + row * o_stride + col) =
               __floats2bfloat162_rn(acc[4 * i + 2 * hh] / denom[hh],
                                     acc[4 * i + 2 * hh + 1] / denom[hh]);
       }
@@ -448,29 +462,29 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int kD>
+template <int kD, int kDv>
 int run(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
         void* o, void* lse, int B, int H, int Hk, int Sq, int Skv, int D,
-        int causal, int q_offset, cudaStream_t st) {
-  const int smem = (int)sizeof(Smem<kD>) + 1024;
+        int Dv, int causal, int q_offset, cudaStream_t st) {
+  const int smem = (int)sizeof(Smem<kD, kDv>) + 1024;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_wgmma<kD, kDv>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
-  flash_fwd_wgmma<kD><<<grid, kThreads, smem, st>>>(
+  flash_fwd_wgmma<kD, kDv><<<grid, kThreads, smem, st>>>(
       tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), H, Hk, Sq,
-      Skv, D, causal, q_offset, scale_log2);
+      Skv, Dv, causal, q_offset, scale_log2);
   return (int)cudaGetLastError();
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int H, int Hk, int Sq, int Skv, int D, int causal,
+           int B, int H, int Hk, int Sq, int Skv, int D, int Dv, int causal,
            int q_offset, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0) return 0;
-  if (D < 16 || D > 128 || D % 16 != 0 || Hk < 1 || H % Hk != 0 ||
-      q_offset < 0)
+  if (D < 16 || D > 192 || D % 16 != 0 || Dv < 16 || Dv > 128 ||
+      Dv % 16 != 0 || Hk < 1 || H % Hk != 0 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   // (D, H, S, B), innermost first; boxes of 64 columns x one head x a
   // tile of positions
@@ -482,54 +496,64 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   const cuuint64_t kd[4] = {(cuuint64_t)D, (cuuint64_t)Hk, (cuuint64_t)Skv,
                             (cuuint64_t)B};
   const cuuint64_t ks[3] = {e * D, e * D * Hk, e * D * Hk * Skv};
+  const cuuint64_t vd[4] = {(cuuint64_t)Dv, (cuuint64_t)Hk, (cuuint64_t)Skv,
+                            (cuuint64_t)B};
+  const cuuint64_t vs[3] = {e * Dv, e * Dv * Hk, e * Dv * Hk * Skv};
   const cuuint32_t qbox[4] = {64, 1, kBQ, 1}, kbox[4] = {64, 1, kBK, 1};
   int err = hopper::make_map_bf16(&tq, q, 4, qd, qs, qbox);
   if (!err) err = hopper::make_map_bf16(&tk, k, 4, kd, ks, kbox);
-  if (!err) err = hopper::make_map_bf16(&tv, v, 4, kd, ks, kbox);
+  if (!err) err = hopper::make_map_bf16(&tv, v, 4, vd, vs, kbox);
   if (err) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? run<64>(tq, tk, tv, o, lse, B, H, Hk, Sq, Skv, D, causal,
-                           q_offset, st)
-                 : run<128>(tq, tk, tv, o, lse, B, H, Hk, Sq, Skv, D, causal,
-                            q_offset, st);
+  if (D <= 64 && Dv <= 64)
+    return run<64, 64>(tq, tk, tv, o, lse, B, H, Hk, Sq, Skv, D, Dv, causal,
+                       q_offset, st);
+  if (D <= 128)
+    return run<128, 128>(tq, tk, tv, o, lse, B, H, Hk, Sq, Skv, D, Dv,
+                         causal, q_offset, st);
+  return run<192, 128>(tq, tk, tv, o, lse, B, H, Hk, Sq, Skv, D, Dv, causal,
+                       q_offset, st);
 }
 
 }  // namespace tc
 
 }  // namespace
 
-// q (B, Sq, H, D), k/v (B, Skv, Hk, D), o (B, Sq, H, D), contiguous, on
-// the current device; D <= 128, H % Hk == 0, B * H <= 65535.  lse, when
-// not null, receives each row's natural log-sum-exp of its scaled scores
-// as (B, H, Sq) float32 (the backward's input).  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).  Does not synchronise.
+// q (B, Sq, H, D), k (B, Skv, Hk, D), v (B, Skv, Hk, Dv), o (B, Sq, H,
+// Dv), contiguous, on the current device; D <= 192, Dv <= 128, H % Hk ==
+// 0, B * H <= 65535.  lse, when not null, receives each row's natural
+// log-sum-exp of its scaled scores as (B, H, Sq) float32 (the backward's
+// input).  Launches on `stream` and returns cudaGetLastError() (0 on
+// success).  Does not synchronise.
 extern "C" int flash_attn_launch_f32(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int B, int H, int Hk, int Sq, int Skv,
-                                     int D, int causal, int q_offset,
+                                     int D, int Dv, int causal, int q_offset,
                                      void* stream) {
-  return launch<float>(q, k, v, o, lse, B, H, Hk, Sq, Skv, D, causal,
+  return launch<float>(q, k, v, o, lse, B, H, Hk, Sq, Skv, D, Dv, causal,
                        q_offset, stream);
 }
 
 extern "C" int flash_attn_launch_bf16(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int B, int H, int Hk, int Sq, int Skv,
-                                      int D, int causal, int q_offset,
+                                      int D, int Dv, int causal, int q_offset,
                                       void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, lse, B, H, Hk, Sq, Skv, D, causal,
-                               q_offset, stream);
+  return launch<__nv_bfloat16>(q, k, v, o, lse, B, H, Hk, Sq, Skv, D, Dv,
+                               causal, q_offset, stream);
 }
 
-// The wgmma variant: bf16 q (B, Sq, H, D), k/v (B, Skv, Hk, D), o (B, Sq,
-// H, D), contiguous, 16-byte aligned, D % 16 == 0 and D <= 128, H % Hk ==
-// 0, B * H <= 65535; lse as above.  Launches on `stream` and returns a
-// cudaError_t (0 on success).  Does not synchronise.
+// The wgmma variant: bf16 q (B, Sq, H, D), k (B, Skv, Hk, D), v (B, Skv,
+// Hk, Dv), o (B, Sq, H, Dv), contiguous, 16-byte aligned, D and Dv
+// multiples of 16 with D <= 192 and Dv <= 128, H % Hk == 0, B * H <=
+// 65535; lse as above.  Launches on `stream` and returns a cudaError_t (0
+// on success).  Does not synchronise.
 extern "C" int flash_attn_launch_bf16_wgmma(const void* q, const void* k,
                                             const void* v, void* o, void* lse,
                                             int B, int H, int Hk, int Sq,
-                                            int Skv, int D, int causal,
-                                            int q_offset, void* stream) {
-  return tc::launch(q, k, v, o, lse, B, H, Hk, Sq, Skv, D, causal, q_offset,
-                    stream);
+                                            int Skv, int D, int Dv,
+                                            int causal, int q_offset,
+                                            void* stream) {
+  return tc::launch(q, k, v, o, lse, B, H, Hk, Sq, Skv, D, Dv, causal,
+                    q_offset, stream);
 }

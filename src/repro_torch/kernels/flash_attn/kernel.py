@@ -27,7 +27,7 @@ _SYMBOLS = {(torch.float32, "simt"): "flash_attn_launch_f32",
 def _launcher(dtype: torch.dtype, variant: str):
     fn = getattr(build.load(SOURCE), _SYMBOLS[dtype, variant])
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -37,22 +37,22 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out: torch.Tensor, causal: bool, q_offset: int,
                     variant: str, lse: torch.Tensor | None = None) -> None:
     """Launch the kernel's ``variant`` on the current stream of ``q``'s
-    device.  q (B, Sq, H, D), k/v (B, Skv, Hk, D), out (B, Sq, H, D), all
-    contiguous and of one dtype; ``lse``, when given, (B, H, Sq) float32
-    receives each row's log-sum-exp.  The caller has checked them and
-    picked the variant (``ops.route``)."""
+    device.  q (B, Sq, H, D), k (B, Skv, Hk, D), v (B, Skv, Hk, Dv), out
+    (B, Sq, H, Dv), all contiguous and of one dtype; ``lse``, when given,
+    (B, H, Sq) float32 receives each row's log-sum-exp.  The caller has
+    checked them and picked the variant (``ops.route``)."""
     B, Sq, H, D = q.shape
-    Skv, Hk = k.shape[1], k.shape[2]
+    Skv, Hk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher(q.dtype, variant)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            0 if lse is None else lse.data_ptr(), B, H, Hk, Sq, Skv, D,
+            0 if lse is None else lse.data_ptr(), B, H, Hk, Sq, Skv, D, Dv,
             int(causal), q_offset, stream)
     if err != 0:
         raise RuntimeError(f"flash_attn kernel launch failed: CUDA error "
                            f"{err} ({variant}, B={B}, Sq={Sq}, Skv={Skv}, "
-                           f"H={H}, Hk={Hk}, D={D}, {q.dtype})")
+                           f"H={H}, Hk={Hk}, D={D}, Dv={Dv}, {q.dtype})")
 
 
 # kernel -> (number of pointer arguments, number of int arguments)

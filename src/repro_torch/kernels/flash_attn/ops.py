@@ -5,11 +5,14 @@ The tensor's device decides.  A CUDA tensor launches the kernel or
 raises — there is no fallback — and each launch adds one to
 :data:`launches`, so a run can show that its main path went through the
 kernel.  Which of the kernel's variants runs is decided before the
-launch by :func:`route`, from dtype, head width and alignment alone, and
-counted in :data:`launches_by_variant`: "wgmma" (bf16 on the tensor
+launch by :func:`route`, from dtype, head widths and alignment alone,
+and counted in :data:`launches_by_variant`: "wgmma" (bf16 on the tensor
 cores, TMA-fed) or "simt" (f32 on the CUDA cores, and every other
-shape).  The kernel reads the (B, S, H, D) tensors in place and indexes
-the kv head of query head ``h`` as ``h // (H // Hk)``.  A CPU tensor
+shape).  q and k share the head width D <= 192 (:data:`MAX_HEAD_DIM`);
+v's width Dv <= 128 (:data:`MAX_V_DIM`) may differ from it, as MLA's
+does (D = 192, Dv = 128).  The kernel reads the (B, S, H, D|Dv) tensors
+in place and indexes the kv head of query head ``h`` as ``h // (H //
+Hk)``.  A CPU tensor
 takes the reference's ``ops.py`` route: GQA broadcast by ``repeat``, the
 (B·H, S, D) layout, and :func:`flash_attention_ref`; both give the same
 result.
@@ -25,7 +28,8 @@ each, counted in :data:`bwd_launches`; dkdv and dq through the variant
 :data:`bwd_launches_by_variant`) and on the CPU runs
 :func:`flash_attention_bwd_ref`.  Both functions are looked up when the
 Function runs, so a caller that swaps them for their plain versions
-(``chip_smoke.py``'s plain path) swaps the training path too.
+(``chip_smoke.py``'s plain path) swaps the training path too.  The
+backward kernels take Dv == D <= 128 (:data:`BWD_MAX_HEAD_DIM`).
 """
 from __future__ import annotations
 
@@ -42,18 +46,23 @@ bwd_launches = dict.fromkeys(BWD_KERNELS, 0)   # backward launches, by kernel
 BWD_VARIANTS = ("wgmma", "simt")
 # launches of dkdv and dq by the variant route_bwd picked (two a backward)
 bwd_launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 192      # q/k head width the forward kernels take
+MAX_V_DIM = 128         # v head width the forward kernels take
+BWD_MAX_HEAD_DIM = 128  # the backward kernels: Dv == D up to this
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def route(dtype: torch.dtype, head_dim: int, ptrs=()) -> str:
-    """The kernel variant for these inputs, from their dtype, head width
-    and data pointers alone, never from a launch: "wgmma" for bf16 with
-    ``head_dim % 16 == 0``, ``head_dim <= 128`` and every pointer 16-byte
+def route(dtype: torch.dtype, head_dim: int, ptrs=(),
+          v_dim: int | None = None) -> str:
+    """The kernel variant for these inputs, from their dtype, head widths
+    (``v_dim``, v's, defaults to ``head_dim``) and data pointers alone,
+    never from a launch: "wgmma" for bf16 with both widths multiples of
+    16, ``head_dim <= 192``, ``v_dim <= 128`` and every pointer 16-byte
     aligned (the wrapper passes contiguous tensors, whose strides are then
     multiples of 32 bytes), else "simt"."""
-    if (dtype == torch.bfloat16 and head_dim % 16 == 0
-            and 0 < head_dim <= MAX_HEAD_DIM
+    v_dim = head_dim if v_dim is None else v_dim
+    if (dtype == torch.bfloat16 and head_dim % 16 == 0 and v_dim % 16 == 0
+            and 0 < head_dim <= MAX_HEAD_DIM and 0 < v_dim <= MAX_V_DIM
             and all(p % 16 == 0 for p in ptrs)):
         return "wgmma"
     return "simt"
@@ -65,7 +74,7 @@ def route_bwd(dtype: torch.dtype, head_dim: int, ptrs=()) -> str:
     for bf16 with ``head_dim % 16 == 0``, ``head_dim <= 128`` and every
     pointer 16-byte aligned, else "simt"."""
     if (dtype == torch.bfloat16 and head_dim % 16 == 0
-            and 0 < head_dim <= MAX_HEAD_DIM
+            and 0 < head_dim <= BWD_MAX_HEAD_DIM
             and all(p % 16 == 0 for p in ptrs)):
         return "wgmma"
     return "simt"
@@ -130,13 +139,10 @@ def flash_attention_k(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_k runs on cuda or cpu, not "
                          f"{q.device}")
-    if Dv != D:
-        raise NotImplementedError(
-            f"flash_attn kernel needs Dv == D (got D={D}, Dv={Dv}); "
-            f"MLA's value width comes with the MLA slice")
-    if D > MAX_HEAD_DIM:
+    if D > MAX_HEAD_DIM or Dv > MAX_V_DIM:
         raise NotImplementedError(f"flash_attn kernel takes D <= "
-                                  f"{MAX_HEAD_DIM}, got {D}")
+                                  f"{MAX_HEAD_DIM} and Dv <= {MAX_V_DIM}, "
+                                  f"got D={D}, Dv={Dv}")
     from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
 
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -147,7 +153,7 @@ def flash_attention_k(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attn kernel takes B*H <= 65535, got {B * H}")
     if out.numel():
         variant = route(q.dtype, D, (q.data_ptr(), k.data_ptr(),
-                                     v.data_ptr(), out.data_ptr()))
+                                     v.data_ptr(), out.data_ptr()), Dv)
         flash_attn_cuda(q, k, v, out, causal, int(q_offset), variant, lse)
         launches += 1
         launches_by_variant[variant] += 1
@@ -179,10 +185,11 @@ def flash_attention_bwd_k(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_k runs on cuda or cpu, not "
                          f"{q.device}")
-    if v.shape[-1] != D or D > MAX_HEAD_DIM:
+    if v.shape[-1] != D or D > BWD_MAX_HEAD_DIM:
         raise NotImplementedError(f"flash_attn backward kernels take Dv == D "
-                                  f"<= {MAX_HEAD_DIM}, got D={D}, "
-                                  f"Dv={v.shape[-1]}")
+                                  f"<= {BWD_MAX_HEAD_DIM}, got D={D}, "
+                                  f"Dv={v.shape[-1]}: ROADMAP.md queue A "
+                                  f"item 24")
     if B * H > 65535:
         raise ValueError(f"flash_attn kernels take B*H <= 65535, got {B * H}")
     from repro_torch.kernels.flash_attn.kernel import flash_attn_bwd_cuda

@@ -10,7 +10,9 @@ a ``torch.autograd.Function`` whose backward is a kernel too (on the CPU
 its plain version), so training runs the same path as serving.  The
 projections, norms, rope, the router and :func:`decode_attention` are
 plain PyTorch with plain autograd on both, as the reference leaves them
-to XLA.  The MLA functions come with the MLA slice.
+to XLA; so are the MLA functions apart from prefill's attention, which
+is :func:`flash_attention` at D = qk_nope + qk_rope and Dv = v_head_dim
+(the absorbed decode, like the reference's, runs outside any kernel).
 """
 from __future__ import annotations
 
@@ -141,6 +143,94 @@ def gqa_qkv(p, cfg: TransformerConfig, x, positions):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     return q, k, v
+
+
+# --------------------------------------------------------------------------- #
+# MLA (DeepSeek multi-head latent attention)
+# --------------------------------------------------------------------------- #
+def init_mla_params(gen: torch.Generator, cfg: TransformerConfig, dtype,
+                    device=None) -> dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+    def w(shape):
+        return _init(gen, shape, dtype=dtype, device=device)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=device)
+
+    return dict(
+        w_dq=w((d, m.q_lora_rank)), q_norm=ones(m.q_lora_rank),
+        w_uq=w((m.q_lora_rank, H * qk_head)),
+        w_dkv=w((d, m.kv_lora_rank)), kv_norm=ones(m.kv_lora_rank),
+        w_kr=w((d, m.qk_rope_head_dim)),
+        w_uk=w((m.kv_lora_rank, H * m.qk_nope_head_dim)),
+        w_uv=w((m.kv_lora_rank, H * m.v_head_dim)),
+        wo=w((H * m.v_head_dim, d)))
+
+
+def mla_compress(p, cfg: TransformerConfig, x, positions):
+    """x (B,S,d) -> (c_kv (B,S,r), k_rope (B,S,1,Dr)) — what the KV cache
+    stores (the MLA memory saving)."""
+    m = cfg.mla
+    c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
+    k_r = (x @ p["w_kr"]).reshape(*x.shape[:-1], 1, m.qk_rope_head_dim)
+    cos, sin = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    return c_kv, apply_rope(k_r, cos, sin)
+
+
+def mla_queries(p, cfg: TransformerConfig, x, positions):
+    """x (B,S,d) -> (q_nope (B,S,H,Dn), q_rope (B,S,H,Dr)), rope applied."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(B, S, cfg.n_heads,
+                                 m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    cos, sin = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def mla_expand_kv(p, cfg: TransformerConfig, c_kv):
+    """Naive execution: materialize per-head k_nope / v from the latent."""
+    m = cfg.mla
+    B, S, _ = c_kv.shape
+    H = cfg.n_heads
+    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, H, m.qk_nope_head_dim)
+    v = (c_kv @ p["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    return k_nope, v
+
+
+def mla_absorbed_decode(p, cfg: TransformerConfig, x, c_kv_cache, kr_cache,
+                        length, positions):
+    """Weight-absorbed MLA decode: attention runs in the latent space, with
+    no per-head K/V over the cache (W_uk folded into the queries, W_uv
+    applied after).  x (B,1,d); c_kv_cache (B,S,r); kr_cache (B,S,1,Dr);
+    ``length`` masks positions >= it (int or (B,)).  The reference's dtype
+    sequence: ``q_lat`` in x's dtype, both score products and ``o_lat``
+    summed in float32 (against the float32 cache), ``o_lat`` cast back to
+    x's dtype before W_uv."""
+    m = cfg.mla
+    B, S, r = c_kv_cache.shape
+    H = cfg.n_heads
+    q_nope, q_rope = mla_queries(p, cfg, x, positions)       # (B,1,H,*)
+    w_uk = p["w_uk"].reshape(r, H, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)     # (B,1,H,r)
+    c32 = c_kv_cache.to(q_lat.dtype).float()
+    s_lat = torch.einsum("bqhr,bkr->bhqk", q_lat.float(), c32)
+    s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                          kr_cache[:, :, 0].to(q_rope.dtype).float())
+    s = (s_lat + s_rope) * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    ln = torch.as_tensor(length, device=x.device)
+    mask = (torch.arange(S, device=x.device)[None, :]
+            < (ln[:, None] if ln.dim() else ln))
+    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    pattn = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhqk,bkr->bqhr", pattn, c_kv_cache.float())
+    w_uv = p["w_uv"].reshape(r, H, m.v_head_dim)
+    o = torch.einsum("bqhr,rhd->bqhd", o_lat.to(x.dtype), w_uv)
+    return o.reshape(B, 1, H * m.v_head_dim) @ p["wo"]
 
 
 # --------------------------------------------------------------------------- #

@@ -1,6 +1,6 @@
-"""LM transformer (dense GQA: the qwen family; MoE: olmoe): serving with
-``prefill`` then ``decode_step`` over a KV cache, ``lm_forward``, and
-training with ``lm_loss``.
+"""LM transformer (dense GQA: the qwen family; MoE: olmoe; MLA + MoE:
+deepseek-v3): serving with ``prefill`` then ``decode_step`` over a KV
+cache, ``lm_forward``, and training with ``lm_loss``.
 
 The reference (``models/transformer.py``) scans over weights stacked on
 a layer axis; here :class:`TransformerLM` holds a list of
@@ -15,10 +15,14 @@ under ``torch.no_grad()``.  Training turns the gradients on
 are each recomputed in the backward (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint``), and through the kernels' backward
 ``autograd.Function``s (``models/layers.py``).  The KV cache is a dict
-``{"k", "v"}`` of (L, B, max_len, Hk, Dh) tensors, which ``decode_step``
-updates in place where the reference returns a new one.  MLA and MTP
-(DeepSeek-V3) come with their slice: a config with ``mla`` or
-``mtp_depth`` raises.
+of per-layer tensors, which ``decode_step`` updates in place where the
+reference returns a new one: ``{"k", "v"}`` of (L, B, max_len, Hk, Dh)
+for GQA, and for MLA (DeepSeek-V3) the latent ``{"c_kv": (L, B,
+max_len, kv_lora_rank), "k_rope": (L, B, max_len, qk_rope_head_dim)}``.
+An MLA config's decode runs naive (per-head K/V expanded from the
+latent) or absorbed (attention in the latent space).  Its multi-token
+prediction head (``mtp``) is drawn and carried as parameters; serving
+does not use it, and training an MLA or MTP config raises (``lm_loss``).
 """
 from __future__ import annotations
 
@@ -33,8 +37,11 @@ from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (_init, decode_attention,
                                        flash_attention, gqa_qkv,
-                                       init_gqa_params, init_moe_params,
-                                       moe_block, rms_norm, swiglu)
+                                       init_gqa_params, init_mla_params,
+                                       init_moe_params, mla_absorbed_decode,
+                                       mla_compress, mla_expand_kv,
+                                       mla_queries, moe_block, rms_norm,
+                                       swiglu)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -43,12 +50,13 @@ def _dt(cfg: TransformerConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
-def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for the parts of the config the port does not run yet."""
+def check_trainable(cfg: TransformerConfig) -> None:
+    """Raise for a config whose training the port does not run yet: MLA
+    (its flash_attn backward at D != Dv) and the MTP loss."""
     if cfg.mla is not None or cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: MLA (mla) and multi-token prediction (mtp_depth) "
-            f"are not ported yet: ROADMAP.md queue A item 11")
+            f"{cfg.name}: training with MLA (mla) or multi-token prediction "
+            f"(mtp_depth) is not ported yet: ROADMAP.md queue A item 24")
 
 
 def _params(d: dict) -> nn.ParameterDict:
@@ -57,7 +65,7 @@ def _params(d: dict) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One transformer layer: ``attn`` (GQA projections and norms),
+    """One transformer layer: ``attn`` (GQA or MLA projections and norms),
     ``ffn`` (a dense SwiGLU, or the router and the stacked experts when
     ``moe``), and the two RMS-norm weights."""
 
@@ -71,15 +79,27 @@ class Block(nn.Module):
         self.moe = moe
 
 
+class MTPHead(nn.Module):
+    """The depth-1 multi-token prediction head: a dense ``block``, the
+    (2d, d) ``proj`` and its RMS-norm weight ``norm``."""
+
+    def __init__(self, block: Block, proj: torch.Tensor, norm: torch.Tensor):
+        super().__init__()
+        self.block = block
+        self.proj = nn.Parameter(proj, requires_grad=False)
+        self.norm = nn.Parameter(norm, requires_grad=False)
+
+
 class TransformerLM(nn.Module):
     """The LM: embedding, blocks, final norm and head (the embedding's
-    transpose when ``cfg.tie_embeddings``)."""
+    transpose when ``cfg.tie_embeddings``), and the MTP head when
+    ``cfg.mtp_depth``."""
 
     def __init__(self, cfg: TransformerConfig, embed: torch.Tensor,
                  blocks: list, final_norm: torch.Tensor,
-                 lm_head: torch.Tensor | None = None):
+                 lm_head: torch.Tensor | None = None,
+                 mtp: MTPHead | None = None):
         super().__init__()
-        check_supported(cfg)
         if len(blocks) != cfg.n_layers:
             raise ValueError(f"{cfg.name}: {len(blocks)} blocks for "
                              f"{cfg.n_layers} layers")
@@ -93,6 +113,10 @@ class TransformerLM(nn.Module):
             if lm_head is None:
                 raise ValueError(f"{cfg.name}: untied embeddings need lm_head")
             self.lm_head = nn.Parameter(lm_head, requires_grad=False)
+        if bool(cfg.mtp_depth) != (mtp is not None):
+            raise ValueError(f"{cfg.name}: mtp_depth {cfg.mtp_depth} with "
+                             f"{'an' if mtp is not None else 'no'} MTP head")
+        self.mtp = mtp
 
     @property
     def head(self) -> torch.Tensor:
@@ -118,7 +142,8 @@ def init_ffn_params(gen: torch.Generator, cfg: TransformerConfig, d_ff: int,
 
 def _init_block(gen: torch.Generator, cfg: TransformerConfig, moe: bool,
                 dtype, device=None) -> Block:
-    attn = init_gqa_params(gen, cfg, dtype, device)
+    attn = (init_mla_params(gen, cfg, dtype, device) if cfg.mla is not None
+            else init_gqa_params(gen, cfg, dtype, device))
     if moe:
         ffn = init_moe_params(gen, cfg, dtype, device)
     else:
@@ -134,8 +159,8 @@ def init_lm_params(gen: torch.Generator, cfg: TransformerConfig,
     """A random model, initialised as the reference's ``init_lm_params``
     does (normal weights scaled by ``1/sqrt(shape[0])``, the embedding and
     head by 0.02, norms 1, biases 0), drawn from ``gen`` — a
-    :class:`torch.Generator` on ``device`` (default: the card)."""
-    check_supported(cfg)
+    :class:`torch.Generator` on ``device`` (default: the card); with
+    ``cfg.mtp_depth`` also the MTP head's dense block and projection."""
     device = resolve_device(device)
     if gen.device.type != device.type:
         raise ValueError(f"generator on {gen.device}, model on {device}")
@@ -150,7 +175,13 @@ def init_lm_params(gen: torch.Generator, cfg: TransformerConfig,
     if not cfg.tie_embeddings:
         lm_head = _init(gen, (cfg.d_model, cfg.vocab), scale=0.02,
                         dtype=dtype, device=device)
-    return TransformerLM(cfg, embed, blocks, final_norm, lm_head)
+    mtp = None
+    if cfg.mtp_depth:
+        mtp = MTPHead(_init_block(gen, cfg, False, dtype, device),
+                      _init(gen, (2 * cfg.d_model, cfg.d_model), dtype=dtype,
+                            device=device),
+                      torch.ones((cfg.d_model,), dtype=dtype, device=device))
+    return TransformerLM(cfg, embed, blocks, final_norm, lm_head, mtp)
 
 
 # --------------------------------------------------------------------------- #
@@ -164,27 +195,48 @@ def _ffn(blk: Block, cfg: TransformerConfig, hn: torch.Tensor):
             torch.zeros((), dtype=torch.float32, device=hn.device))
 
 
+def _mla_qk(attn, cfg: TransformerConfig, x, positions, c_kv, k_r):
+    """MLA's per-head q, k and v for attention over the latent ``c_kv``
+    (B, S, r) and ``k_r`` (B, S, 1, Dr): q = [q_nope, q_rope] and k =
+    [k_nope, k_r broadcast over the heads], each of width Dn + Dr, v of
+    width Dv."""
+    k_nope, v = mla_expand_kv(attn, cfg, c_kv)
+    q_nope, q_rope = mla_queries(attn, cfg, x, positions)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_r.expand(*k_nope.shape[:-1], k_r.shape[-1])],
+                  dim=-1)
+    return q, k, v
+
+
 def _attn_full(blk: Block, cfg: TransformerConfig, x, positions):
     """Full-sequence (train/prefill) attention for one block; returns the
-    projected output and the layer's (k, v)."""
-    q, k, v = gqa_qkv(blk.attn, cfg, x, positions)
+    projected output and the layer's cache entries (``{"k", "v"}``, or
+    MLA's ``{"c_kv", "k_rope"}``)."""
+    if cfg.mla is not None:
+        c_kv, k_r = mla_compress(blk.attn, cfg, x, positions)
+        q, k, v = _mla_qk(blk.attn, cfg, x, positions, c_kv, k_r)
+        kv = dict(c_kv=c_kv, k_rope=k_r[:, :, 0])
+    else:
+        q, k, v = gqa_qkv(blk.attn, cfg, x, positions)
+        kv = dict(k=k, v=v)
     o = flash_attention(q, k, v, causal=True)
     B, S = x.shape[:2]
-    return o.reshape(B, S, -1) @ blk.attn["wo"], k, v
+    return o.reshape(B, S, -1) @ blk.attn["wo"], kv
 
 
 def _block_fwd(blk: Block, cfg: TransformerConfig, x, positions):
-    """One layer over the full sequence: ``(out, aux, k, v)``."""
-    o, k, v = _attn_full(blk, cfg, rms_norm(x, blk.ln1, cfg.norm_eps),
-                         positions)
+    """One layer over the full sequence: ``(out, aux, kv)``, ``kv`` the
+    layer's cache entries."""
+    o, kv = _attn_full(blk, cfg, rms_norm(x, blk.ln1, cfg.norm_eps),
+                       positions)
     h = x + o
     y, aux = _ffn(blk, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
-    return h + y, aux, k, v
+    return h + y, aux, kv
 
 
 def _block_out(blk: Block, cfg: TransformerConfig, x, positions):
     """One layer over the full sequence, for training: ``(out, aux)``."""
-    out, aux, _, _ = _block_fwd(blk, cfg, x, positions)
+    out, aux, _ = _block_fwd(blk, cfg, x, positions)
     return out, aux
 
 
@@ -196,7 +248,7 @@ def lm_forward(model: TransformerLM, tokens: torch.Tensor):
     positions = torch.arange(S, device=tokens.device)[None, :]
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for blk in model.blocks:
-        x, aux, _, _ = _block_fwd(blk, cfg, x, positions)
+        x, aux, _ = _block_fwd(blk, cfg, x, positions)
         aux_total = aux_total + aux
     hidden = rms_norm(x, model.final_norm, cfg.norm_eps)
     return hidden @ model.head, aux_total, hidden
@@ -291,9 +343,10 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor,
     """Next-token cross entropy plus the MoE load-balance term
     ``aux_weight * aux / n_layers`` (unless the router is aux-free), as
     the reference's ``lm_loss``.  ``xent`` is "sharded" (bf16 logits) or
-    "chunked" (vocab chunks).  The reference's MTP term comes with MTP
-    (``check_supported`` raises for such a config)."""
+    "chunked" (vocab chunks).  An MLA or MTP config raises
+    (``check_trainable``), on every device, before any work."""
     cfg = model.cfg
+    check_trainable(cfg)
     _, aux, hidden = lm_forward_hidden(model, tokens, remat=remat)
     if xent == "chunked":
         loss = chunked_xent(hidden, model.head, labels, chunk=xent_chunk)
@@ -312,13 +365,17 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor,
 @dataclass
 class CacheSpec:
     """Shapes of the per-layer decode cache."""
-    kind: str          # "gqa" ("mla" comes with the MLA slice)
+    kind: str          # "gqa" | "mla"
     shapes: dict
 
 
 def cache_spec(cfg: TransformerConfig, batch: int, max_len: int) -> CacheSpec:
-    check_supported(cfg)
     L, dt = cfg.n_layers, _dt(cfg)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return CacheSpec("mla", dict(
+            c_kv=((L, batch, max_len, m.kv_lora_rank), dt),
+            k_rope=((L, batch, max_len, m.qk_rope_head_dim), dt)))
     shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return CacheSpec("gqa", dict(k=(shape, dt), v=(shape, dt)))
 
@@ -331,12 +388,34 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
             for k, (s, d) in spec.shapes.items()}
 
 
+def _mla_decode_attn(blk: Block, cfg: TransformerConfig, cache: dict,
+                     li: int, xn, positions, length: int, absorbed: bool):
+    """MLA attention of one decode step: this step's latent and rope key
+    go to position ``length`` of layer ``li``'s cache, then naive (per-head
+    K/V expanded from the whole cache, :func:`decode_attention`) or
+    absorbed (:func:`mla_absorbed_decode`) attention over it; returns the
+    output after ``wo``."""
+    c_kv, k_r = mla_compress(blk.attn, cfg, xn, positions)
+    ck, kr = cache["c_kv"][li], cache["k_rope"][li]
+    ck[:, length] = c_kv[:, 0].to(ck.dtype)
+    kr[:, length] = k_r[:, 0, 0].to(kr.dtype)
+    if absorbed:
+        return mla_absorbed_decode(blk.attn, cfg, xn, ck, kr[:, :, None],
+                                   length + 1, positions)
+    q, k, v = _mla_qk(blk.attn, cfg, xn, positions, ck, kr[:, :, None])
+    o = decode_attention(q, k, v, length + 1)
+    return o.reshape(xn.shape[0], 1, -1) @ blk.attn["wo"]
+
+
 @torch.no_grad()
 def decode_step(model: TransformerLM, cache: dict, tokens: torch.Tensor,
-                length: int):
+                length: int, absorbed: bool = False):
     """One decode step. tokens (B,) int; ``length`` = current cache fill
-    (int): this step's k/v go to position ``length``.  Returns
-    ``(logits (B, V), cache)``, the cache updated in place.
+    (int): this step's k/v (MLA: latent and rope key) go to position
+    ``length``.  Returns ``(logits (B, V), cache)``, the cache updated in
+    place.  ``absorbed`` picks MLA's weight-absorbed attention (the
+    reference's serving mode for MLA) over the naive one; a GQA config
+    ignores it.
 
     A full cache (``length >= max_len``, the cache's sequence axis)
     raises ``ValueError`` before any slot is written.  The reference
@@ -345,7 +424,7 @@ def decode_step(model: TransformerLM, cache: dict, tokens: torch.Tensor,
     attends to the overwritten key; the port refuses instead."""
     cfg = model.cfg
     length = int(length)
-    max_len = cache["k"].shape[2]
+    max_len = next(iter(cache.values())).shape[2]
     if not 0 <= length < max_len:
         raise ValueError(f"decode_step: length = {length} does not fit a "
                          f"cache of max_len = {max_len}")
@@ -355,12 +434,16 @@ def decode_step(model: TransformerLM, cache: dict, tokens: torch.Tensor,
                            device=tokens.device)
     for li, blk in enumerate(model.blocks):
         xn = rms_norm(x, blk.ln1, cfg.norm_eps)
-        q, k, v = gqa_qkv(blk.attn, cfg, xn, positions)
-        ck, cv = cache["k"][li], cache["v"][li]
-        ck[:, length] = k[:, 0].to(ck.dtype)
-        cv[:, length] = v[:, 0].to(cv.dtype)
-        o = decode_attention(q, ck, cv, length + 1)
-        h = x + o.reshape(B, 1, -1) @ blk.attn["wo"]
+        if cfg.mla is not None:
+            h = x + _mla_decode_attn(blk, cfg, cache, li, xn, positions,
+                                     length, absorbed)
+        else:
+            q, k, v = gqa_qkv(blk.attn, cfg, xn, positions)
+            ck, cv = cache["k"][li], cache["v"][li]
+            ck[:, length] = k[:, 0].to(ck.dtype)
+            cv[:, length] = v[:, 0].to(cv.dtype)
+            o = decode_attention(q, ck, cv, length + 1)
+            h = x + o.reshape(B, 1, -1) @ blk.attn["wo"]
         y, _ = _ffn(blk, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
         x = h + y
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
@@ -382,9 +465,9 @@ def prefill(model: TransformerLM, tokens: torch.Tensor,
     x = model.embed[tokens]
     positions = torch.arange(S, device=tokens.device)[None, :]
     for li, blk in enumerate(model.blocks):
-        x, _, k, v = _block_fwd(blk, cfg, x, positions)
-        cache["k"][li, :, :S] = k
-        cache["v"][li, :, :S] = v
+        x, _, kv = _block_fwd(blk, cfg, x, positions)
+        for name, t in kv.items():
+            cache[name][li, :, :S] = t
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     if last_only:
         return x[:, -1:] @ model.head, cache

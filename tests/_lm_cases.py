@@ -18,12 +18,14 @@ MOE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 MOE_ROW_CHECK = ("float32", 1)
 
 
-def flash_inputs(B, Sq, Skv, H, Hk, D, seed=0):
-    """q (B, Sq, H, D), k/v (B, Skv, Hk, D) float32, standard normal."""
+def flash_inputs(B, Sq, Skv, H, Hk, D, seed=0, Dv=None):
+    """q (B, Sq, H, D), k (B, Skv, Hk, D), v (B, Skv, Hk, Dv) float32,
+    standard normal; Dv defaults to D."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, Sq, H, D), dtype=np.float32)
     k = rng.standard_normal((B, Skv, Hk, D), dtype=np.float32)
-    v = rng.standard_normal((B, Skv, Hk, D), dtype=np.float32)
+    v = rng.standard_normal((B, Skv, Hk, D if Dv is None else Dv),
+                            dtype=np.float32)
     return q, k, v
 
 

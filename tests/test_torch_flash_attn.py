@@ -47,6 +47,20 @@ def test_plain_matches_pallas_sweep(S, H, Hk, D, dtype):
     _close(got, want, FLASH_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_pallas_mla_widths(causal, dtype):
+    """D != Dv: the reduced DeepSeek-V3's MLA head (D = 16 + 8, Dv = 16),
+    GQA 4/2; the output takes v's width."""
+    (jq, jk, jv), (q, k, v) = _both(
+        flash_inputs(2, 64, 64, 4, 2, 24, seed=11, Dv=16), dtype)
+    want = jax_flash_k(jq, jk, jv, causal=causal, use_kernel=True,
+                       interpret=True, bq=32, bk=32)
+    got = ops.flash_attention_k(q, k, v, causal=causal)
+    assert got.shape == (2, 64, 4, 16)
+    _close(got, want, FLASH_TOL[dtype])
+
+
 def test_plain_matches_pallas_non_causal():
     (jq, jk, jv), (q, k, v) = _both(flash_inputs(2, 64, 96, 4, 1, 32, seed=7),
                                     "float32")
@@ -113,7 +127,7 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 80, (), "wgmma"),          # two panels, the second padded
     (BF16, 72, (), "simt"),           # D % 16 != 0
     (BF16, 8, (), "simt"),
-    (BF16, 144, (), "simt"),          # D > 128
+    (BF16, 144, (), "simt"),          # Dv = D > 128
     (BF16, 128, (0x1000, 0x1008), "simt"),   # an 8-byte-aligned pointer
     (F32, 128, (), "simt"),           # f32 stays on the CUDA cores
     (F32, 64, (0x1000,), "simt"),
@@ -122,6 +136,21 @@ def test_route(dtype, D, ptrs, want):
     assert ops.route(dtype, D, ptrs) == want
     assert want in ops.VARIANTS
     assert set(ops.launches_by_variant) == set(ops.VARIANTS)
+
+
+@pytest.mark.parametrize("dtype,D,Dv,want", [
+    (BF16, 192, 128, "wgmma"),        # DeepSeek-V3's MLA: 3 + 2 panels
+    (BF16, 176, 112, "wgmma"),        # padded to (192, 128)
+    (BF16, 64, 128, "wgmma"),         # padded to (128, 128)
+    (BF16, 128, 64, "wgmma"),
+    (BF16, 24, 16, "simt"),           # the reduced MLA head: D % 16 != 0
+    (BF16, 208, 128, "simt"),         # D > 192
+    (BF16, 192, 144, "simt"),         # Dv > 128
+    (BF16, 192, 120, "simt"),         # Dv % 16 != 0
+    (F32, 192, 128, "simt"),
+])
+def test_route_with_v_width(dtype, D, Dv, want):
+    assert ops.route(dtype, D, (0x1000, 0x2000), Dv) == want
 
 
 def _flash_wgmma_rounding(q, k, v, causal, q_offset=0, bk=128):

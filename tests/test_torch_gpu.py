@@ -324,37 +324,55 @@ def _variant_counted(ops, dtype, bf16_variant, before):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,Sq,Skv,H,Hk,D,causal,q_offset,bf16_variant", [
-    *[(2, S, S, H, Hk, D, True, 0, "wgmma") for S, H, Hk, D in FLASH_SWEEP],
-    (2, 100, 100, 4, 4, 64, True, 0, "wgmma"),   # ragged tiles, qwen1.5's D
-    (1, 37, 150, 4, 1, 128, False, 0, "wgmma"),  # non-causal, ragged keys
-    (2, 40, 170, 4, 2, 16, True, 130, "wgmma"),  # the last 40 of 170
-    (1, 1024, 1024, 16, 16, 128, True, 0, "wgmma"),  # OLMoE's heads
-    (1, 512, 512, 32, 8, 128, True, 0, "wgmma"),     # qwen3-4b's GQA 32/8
-    # the wgmma variant's tile edges: 128-query and 128-key tiles, the
-    # 2-stage ring wrapping, q_offset across a tile, padded heads
-    (1, 129, 129, 2, 1, 128, True, 0, "wgmma"),
-    (2, 257, 385, 2, 2, 64, False, 0, "wgmma"),
-    (1, 200, 455, 4, 2, 128, True, 255, "wgmma"),
-    (1, 130, 130, 2, 2, 48, True, 0, "wgmma"),   # one padded panel
-    (1, 130, 260, 2, 1, 80, False, 0, "wgmma"),  # two, the second padded
-    (1, 64, 64, 2, 2, 72, True, 0, "simt"),      # D % 16 != 0
-])
-def test_flash_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, Hk, D,
+@pytest.mark.parametrize(
+    "B,Sq,Skv,H,Hk,D,Dv,causal,q_offset,bf16_variant", [
+        *[(2, S, S, H, Hk, D, D, True, 0, "wgmma")
+          for S, H, Hk, D in FLASH_SWEEP],
+        (2, 100, 100, 4, 4, 64, 64, True, 0, "wgmma"),  # qwen1.5's D
+        (1, 37, 150, 4, 1, 128, 128, False, 0, "wgmma"),  # ragged keys
+        (2, 40, 170, 4, 2, 16, 16, True, 130, "wgmma"),  # last 40 of 170
+        (1, 1024, 1024, 16, 16, 128, 128, True, 0, "wgmma"),  # OLMoE
+        (1, 512, 512, 32, 8, 128, 128, True, 0, "wgmma"),  # qwen3-4b 32/8
+        # the wgmma variant's tile edges: 128-query and 128-key tiles, the
+        # 2-stage ring wrapping, q_offset across a tile, padded heads
+        (1, 129, 129, 2, 1, 128, 128, True, 0, "wgmma"),
+        (2, 257, 385, 2, 2, 64, 64, False, 0, "wgmma"),
+        (1, 200, 455, 4, 2, 128, 128, True, 255, "wgmma"),
+        (1, 130, 130, 2, 2, 48, 48, True, 0, "wgmma"),  # one padded panel
+        (1, 130, 260, 2, 1, 80, 80, False, 0, "wgmma"),  # second padded
+        (1, 64, 64, 2, 2, 72, 72, True, 0, "simt"),      # D % 16 != 0
+        # D != Dv: MLA's (192, 128), causal and not, ragged, GQA, q_offset
+        (1, 1024, 1024, 16, 16, 192, 128, True, 0, "wgmma"),
+        (2, 300, 300, 8, 8, 192, 128, True, 0, "wgmma"),
+        (1, 200, 333, 8, 2, 192, 128, False, 0, "wgmma"),
+        (1, 130, 390, 4, 1, 192, 128, True, 260, "wgmma"),
+        (1, 150, 150, 2, 2, 176, 112, True, 0, "wgmma"),  # padded panels
+        # a q/k or a v panel wholly past the head in (128, 128)
+        (1, 257, 257, 4, 4, 64, 128, True, 0, "wgmma"),
+        (1, 257, 257, 4, 2, 128, 64, False, 0, "wgmma"),
+        (2, 100, 100, 4, 2, 24, 16, True, 0, "simt"),   # the reduced MLA
+    ])
+def test_flash_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, Hk, D, Dv,
                                             causal, q_offset, bf16_variant,
                                             dtype):
     q, k, v = (torch.as_tensor(a, device=cuda).to(DTYPES[dtype])
-               for a in flash_inputs(B, Sq, Skv, H, Hk, D, seed=Sq + H))
+               for a in flash_inputs(B, Sq, Skv, H, Hk, D, seed=Sq + H,
+                                     Dv=Dv))
+    assert flash_ops.route(q.dtype, D, (), Dv) == (
+        bf16_variant if dtype == "bfloat16" else "simt")
     before = flash_ops.launches
     by_variant = dict(flash_ops.launches_by_variant)
     got = flash_ops.flash_attention_k(q, k, v, causal=causal,
                                       q_offset=q_offset)
     torch.cuda.synchronize()
-    assert flash_ops.launches == before + 1
+    assert flash_ops.launches == before + 1 and got.shape == (B, Sq, H, Dv)
     _variant_counted(flash_ops, dtype, bf16_variant, by_variant)
     want = flash_ops.flash_attention_plain(q, k, v, causal=causal,
                                            q_offset=q_offset)
     _assert_close(got, want, FLASH_TOL[dtype])
+    again = flash_ops.flash_attention_k(q, k, v, causal=causal,
+                                        q_offset=q_offset)
+    assert torch.equal(again, got)          # deterministic
 
 
 MOE_CARD_CASES = [
@@ -421,11 +439,52 @@ def test_moe_gemm_kernel_matches_plain_on_card(cuda, E, C, d, f, bf16_variant,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-4b"])
+@pytest.mark.parametrize("C,variant", [(1, "stream"), (24, "wgmma")])
+def test_moe_gemm_kernel_at_deepseek_widths_on_card(cuda, C, variant):
+    """DeepSeek-V3's routed experts in bf16: E = 256, d = 7,168, f = 2,048
+    (22.5 GB of weights, drawn on the card at the model's init scale
+    1/sqrt(E)), at decode (C = 1) and a prefill tile (C = 24).  Each pass
+    against its plain version elementwise and against the function
+    computed exactly, 16 experts at a time (the plain versions' float32
+    and float64 copies of all 256 would take 45 and 90 GB); two launches
+    bit-identical."""
+    E, d, f = 256, 7168, 2048
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(C)
+    x = torch.randn((E, C, d), generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    wg, wu = (torch.randn((E, d, f), generator=gen, device=cuda,
+                          dtype=torch.bfloat16).mul_(E ** -0.5)
+              for _ in range(2))
+    wd = torch.randn((E, f, d), generator=gen, device=cuda,
+                     dtype=torch.bfloat16).mul_(E ** -0.5)
+    assert moe_ops.route(x.dtype, C, d, f) == variant
+    by_variant = dict(moe_ops.launches_by_variant)
+    got = moe_ops.moe_gemm(x, wg, wu, wd)
+    _variant_counted(moe_ops, "bfloat16", variant, by_variant)
+    h = torch.empty((E, C, f), dtype=x.dtype, device=cuda)
+    again = torch.empty_like(x)
+    moe_kernel.moe_gemm_cuda(x, wg, wu, wd, h, again, variant)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+    for e in range(0, E, 16):
+        sl = slice(e, e + 16)
+        _assert_close(h[sl], moe_hidden_ref(x[sl], wg[sl], wu[sl]),
+                      MOE_TOL["bfloat16"])
+        _assert_close(got[sl], moe_down_ref(h[sl], wd[sl]),
+                      MOE_TOL["bfloat16"])
+        exact = moe_gemm_f64(x[sl], wg[sl], wu[sl], wd[sl])
+        assert bound_ratio(h[sl], exact["h"], exact["h_bound"]) <= 1
+        assert bound_ratio(got[sl], exact["out"], exact["out_bound"]) <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-4b",
+                                  "deepseek-v3-671b"])
 def test_serving_on_card_matches_cpu(cuda, arch):
     """Reduced model in float32: prefill and four decode steps on the card
     (through both kernels) against the port's CPU run of the same
-    weights."""
+    weights; DeepSeek-V3's decode steps alternate naive and absorbed."""
     cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
     model = init_lm_params(torch.Generator().manual_seed(0), cfg,
                            device="cpu")
@@ -437,16 +496,21 @@ def test_serving_on_card_matches_cpu(cuda, arch):
     got, gcache = prefill(card, tokens.to(cuda), max_len=32)
     want, cache = prefill(model, tokens, max_len=32)
     assert flash_ops.launches == before[0] + cfg.n_layers
-    if cfg.moe is not None:
-        assert moe_ops.launches == before[1] + cfg.n_layers
+    if cfg.moe is not None:     # one launch a MoE layer
+        assert moe_ops.launches == (before[1] + cfg.n_layers
+                                    - cfg.moe.first_k_dense)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     nxt = want[:, -1].argmax(-1)
     for i in range(4):
-        got, gcache = decode_step(card, gcache, nxt.to(cuda), 24 + i)
-        want, cache = decode_step(model, cache, nxt, 24 + i)
+        absorbed = i % 2 == 1
+        got, gcache = decode_step(card, gcache, nxt.to(cuda), 24 + i,
+                                  absorbed=absorbed)
+        want, cache = decode_step(model, cache, nxt, 24 + i,
+                                  absorbed=absorbed)
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
         nxt = want.argmax(-1)
-    for k in ("k", "v"):
+    assert set(gcache) == set(cache)
+    for k in cache:
         torch.testing.assert_close(gcache[k].cpu(), cache[k], rtol=1e-4,
                                    atol=1e-4)
 

@@ -4,7 +4,7 @@ the reference's parameters from ``init_lm_params(PRNGKey(0))`` carried
 across by ``lm_params_from_arrays``.  ``lm_forward`` logits, ``prefill``
 logits and cache, and three ``decode_step``s are held to a relative 1e-4
 in float32 and 5e-2 in bfloat16 (max |port - reference| over max
-|reference|).  Configs the port does not run yet raise."""
+|reference|).  Training an MLA or MTP config raises."""
 import dataclasses
 
 import jax
@@ -22,7 +22,7 @@ from repro.models.transformer import prefill as jax_prefill
 from repro_torch.configs import MLAConfig, get_config, get_reduced
 from repro_torch.convert import lm_params_from_arrays
 from repro_torch.models import (decode_step, init_lm_params, lm_forward,
-                                prefill)
+                                lm_loss, prefill)
 
 torch.set_num_threads(1)
 
@@ -102,13 +102,18 @@ def test_init_follows_reference_scales():
 
 
 def test_mla_and_mtp_raise():
-    with pytest.raises(NotImplementedError, match="MLA"):
-        get_config("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        get_reduced("deepseek-v3-671b")
-    cfg = dataclasses.replace(get_reduced("qwen3-4b"), mla=MLAConfig())
-    with pytest.raises(NotImplementedError, match="MLA"):
-        init_lm_params(torch.Generator(), cfg, device="cpu")
+    """Serving runs an MLA or MTP config; training one raises, naming the
+    ROADMAP item that ports it, before any work (on every device)."""
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    for over in (dict(mla=MLAConfig()), dict(mtp_depth=1)):
+        cfg = dataclasses.replace(get_reduced("qwen3-4b"), **over)
+        model = init_lm_params(torch.Generator(), cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="item 24"):
+            lm_loss(model, tokens, tokens)
+    model = init_lm_params(torch.Generator(),
+                           get_reduced("deepseek-v3-671b"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 24"):
+        lm_loss(model, tokens, tokens)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
