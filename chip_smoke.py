@@ -181,10 +181,26 @@ every phase holds:
               the kernel path against the plain path in bf16 (a dense and
               the MoE layer, router pinned) and f32 (one dense layer).
 
+20. mla_train — the train_dsv3 cell: DeepSeek-V3 at its published
+              widths in bfloat16 with seeded random weights, cut to its 3
+              dense layers plus the MTP head: flash_attn's backward
+              kernels at D != Dv against their plain versions (the reduced
+              (24, 16) and (192, 128) in f32 through "simt", (192, 128) in
+              bf16 through "wgmma", timed at the cell's shape beside the
+              bound, the plain backward and SDPA's), moe_gemm's backward
+              at DeepSeek's expert widths (E = 256, C = 320, d = 7,168, f
+              = 2,048), against plain per 16 experts, timed; one training
+              step's loss and every gradient, MTP included, kernel path
+              against plain path in f32 (one dense layer) and bf16; then
+              10 steps of 2 x 4,096 tokens twice from one seed, the losses
+              bit-equal and falling, step ms, tokens/s, peak memory,
+              launches by kernel and variant, one step profiled.
+
 ``--lm-train-only`` runs phases 1, 2 and 12-14 and prints no result;
 ``--gnn-train-only`` runs phases 1, 2 and 15-17 and prints no result;
 ``--dist-only`` runs phases 1, 2 and 18 and prints no result;
-``--mla-only`` runs phases 1, 2 and 19 and prints no result.
+``--mla-only`` runs phases 1, 2 and 19 and prints no result;
+``--mla-train-only`` runs phases 1, 2 and 20 and prints no result.
 Each phase prints one JSON line.  Then come the kernels line, the
 ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -292,6 +308,18 @@ MLA_LAYERS = 4
 MLA_NAIVE_STEPS = 4
 MLA_NAIVE_TOL = 5e-2   # naive against absorbed: tests/test_arch_smoke.py
 MOE_CHUNK = 16         # experts a plain or float64 moe_gemm check takes
+# DeepSeek-V3 training (phase 20): the published widths in bf16 with the
+# depth cut from 61 layers to its 3 dense layers plus the MTP head (4.29 B
+# parameters take 51.5 GB with bf16 gradients and f32 moments; the routed
+# experts of one MoE layer alone hold 11.27 B) and train_4k's global batch
+# cut from 256 to 2 sequences of 4,096 tokens
+MLA_TRAIN_LAYERS, MLA_TRAIN_BATCH, MLA_TRAIN_STEPS = 3, 2, 10
+# train_4k's optimizer settings but the peak learning rate: at 1e-3 the
+# loss of this 7,168-wide model rises over the 10 steps (21.15 -> 27.12),
+# and at every rate down to 1e-4; at 1e-5 it falls at every few steps
+# (tools/dsv3_lr_sweep.py)
+MLA_TRAIN_LR = 1e-5
+MLA_TRAIN_PARITY_SEQ = 512   # mla_train_parity: PARITY_BATCH x 512 tokens
 DEVICE = "cuda"
 SASS_OPS = ("HGMMA", "UTMALDG")   # counted in each library's SASS
 TIMING_KEYS = {"compiles", "compile_s", "compile_cache_hits", "wave_s_total",
@@ -2573,27 +2601,195 @@ def _grad_ratio(got, want, tol: float) -> float:
                  / (tol * w.abs().max()).clamp_min(1e-30))
 
 
-def _flash_bwd_work(B, Sq, Skv, H, Hk, D, causal, dtype) -> dict:
+def _flash_bwd_work(B, Sq, Skv, H, Hk, D, causal, dtype, Dv=None) -> dict:
     """(bytes, flops) of each backward kernel, as ``_flash_work`` counts
-    the forward's: each input read once, each output written once; 8·D
-    flops per kept (query, key) pair in dkdv (S, dP, dV, dK), 6·D in dq
-    (S, dP, dQ)."""
+    the forward's: each input read once, each output written once; per
+    kept (query, key) pair 4·D + 4·Dv flops in dkdv (S and dK over D, dP
+    and dV over Dv) and 4·D + 2·Dv in dq (S over D, dP over Dv, dQ over
+    D); delta reads O and dO (Dv defaults to D)."""
+    Dv = D if Dv is None else Dv
     e = 2 if dtype == "bfloat16" else 4
     nq, nk = B * Sq * H * D, B * Skv * Hk * D
+    nqv, nkv = B * Sq * H * Dv, B * Skv * Hk * Dv
     rows = B * H * Sq
     pairs = B * H * Sq * Skv / (2 if causal else 1)
-    return {"delta": (e * 2 * nq + 4 * rows, 2 * nq),
-            "dkdv": (e * (2 * nq + 4 * nk) + 8 * rows, 8 * D * pairs),
-            "dq": (e * (3 * nq + 2 * nk) + 8 * rows, 6 * D * pairs)}
+    return {"delta": (e * 2 * nqv + 4 * rows, 2 * nqv),
+            "dkdv": (e * (nq + nqv + 2 * nk + 2 * nkv) + 8 * rows,
+                     (4 * D + 4 * Dv) * pairs),
+            "dq": (e * (2 * nq + nqv + nk + nkv) + 8 * rows,
+                   (4 * D + 2 * Dv) * pairs)}
+
+
+def _held_grads(row, names, got, want, tol) -> None:
+    """Each gradient within ``tol`` of its plain version's largest
+    magnitude (``_grad_ratio``), recorded in ``row``; fails otherwise."""
+    ratios = {n: _grad_ratio(g, w, tol) for n, g, w in zip(names, got, want)}
+    row.setdefault("ratio", {}).update(ratios)
+    row["max_abs_err"] = max(row.get("max_abs_err", 0.0), *(
+        float((g.float() - w.float()).abs().max())
+        for g, w in zip(got, want)))
+    for n, r in ratios.items():
+        check(r <= 1, f"{row['kernel']} {row['shape']} {row['dtype']} {n}: "
+                      f"|kernel - plain| / max|plain| is {r * tol} > {tol}")
+
+
+def _sdpa_ms(make, D, Dv, iters) -> dict:
+    """The library yardstick of flash_attn: ``make()`` runs what must run
+    first (the forward a backward is timed from) and returns the call to
+    time.  At D == Dv PyTorch picks SDPA's backend; at D != Dv the first
+    of flash, cuDNN and efficient that takes it (``library_backend``;
+    ``library_refused`` says why the others refused; ``library_ms`` is
+    None where all do), never the math one, which would hold the whole
+    score matrix."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    if D == Dv:
+        return dict(library_ms=cuda_ms(make(), warmup=1, iters=iters))
+    refused = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel(backend):
+                ms = cuda_ms(make(), warmup=1, iters=iters)
+        except RuntimeError as e:    # the yardstick only, never the port
+            refused[backend.name] = str(e).strip().splitlines()[0][:200]
+            continue
+        return dict(library_ms=ms, library_backend=backend.name,
+                    library_refused=refused)
+    return dict(library_ms=None, library_refused=refused)
+
+
+def _sdpa_bwd_ms(q, k, v, do, causal, iters, D, Dv) -> dict:
+    """One SDPA backward (autograd through ``scaled_dot_product_attention``
+    in its (B, H, S, D) layout, ``_sdpa_ms``), the library yardstick of
+    the three backward kernels."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def make():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        return lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                           retain_graph=True)
+
+    return _sdpa_ms(make, D, Dv, iters)
+
+
+def _flash_bwd_case(phase, gen, name, B, Sq, Skv, H, Hk, D, dtype,
+                    causal=True, q_offset=0, timed=False, iters=3, Dv=None):
+    """flash_attn's backward kernels ("delta", "dkdv", "dq", through
+    ``flash_attention_bwd_k``) against ``flash_attention_bwd_ref`` on the
+    forward kernel's own output and ``lse`` (held against the plain
+    forward's), q and k D wide, v, o and dO Dv wide (default D); each
+    gradient held to ``TRAIN_TOL``, two calls bit-identical, dkdv and dq
+    through the variant ``route_bwd`` must pick.  ``timed`` adds each
+    kernel's ms beside its bound, the "simt" first version's (for a
+    "wgmma" row), the plain backward's, the plain rowsum's and SDPA's
+    backward (``_sdpa_bwd_ms``).  Emits the row under ``phase``."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as flash_kernel
+    from repro_torch.kernels.flash_attn import ops as flash
+    from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_ref
+    dev = torch.device(DEVICE)
+    Dv = D if Dv is None else Dv
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    tol = TRAIN_TOL[dtype]
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    want_variant = ("wgmma" if dtype == "bfloat16" and D % 16 == 0
+                    and Dv % 16 == 0 else "simt")
+    q, do = randn((B, Sq, H, D)), randn((B, Sq, H, Dv))
+    k, v = randn((B, Skv, Hk, D)), randn((B, Skv, Hk, Dv))
+    row = dict(kernel="flash_attn_bwd", shape=name, dtype=dtype, B=B,
+               Sq=Sq, Skv=Skv, H=H, Hk=Hk, D=D, Dv=Dv, causal=causal,
+               q_offset=q_offset, tol=tol)
+    o, lse = flash.flash_attention_k(q, k, v, causal=causal,
+                                     q_offset=q_offset, return_lse=True)
+    _, lse_plain = flash.flash_attention_plain(q, k, v, causal, q_offset,
+                                               return_lse=True)
+    row["lse_max_abs_err"] = float((lse - lse_plain).abs().max())
+    check(row["lse_max_abs_err"]
+          <= 1e-4 * max(1.0, float(lse_plain.abs().max())),
+          f"flash {name} {dtype}: the forward's lse is "
+          f"{row['lse_max_abs_err']} from the plain forward's")
+    before = dict(flash.bwd_launches)
+    before_v = dict(flash.bwd_launches_by_variant)
+    args = (q, k, v, o, lse, do, causal, q_offset)
+    got = flash.flash_attention_bwd_k(*args)
+    again = flash.flash_attention_bwd_k(*args)
+    check(all(flash.bwd_launches[n] == before[n] + 2
+              for n in flash.BWD_KERNELS),
+          f"flash {name}: backward launches {before} -> "
+          f"{flash.bwd_launches}")
+    row["variant"] = want_variant
+    check(flash.bwd_launches_by_variant[want_variant]
+          == before_v[want_variant] + 4,
+          f"flash {name} {dtype}: dkdv and dq did not run {want_variant}: "
+          f"{before_v} -> {flash.bwd_launches_by_variant}")
+    want = flash_attention_bwd_ref(*args)
+    torch.cuda.synchronize()
+    row["bit_stable"] = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(row["bit_stable"], f"flash {name} {dtype}: two backward calls "
+                             f"differ")
+    check([t.shape[-1] for t in got] == [D, D, Dv],
+          f"flash {name}: gradient widths {[t.shape for t in got]}")
+    _held_grads(row, ("dq", "dk", "dv"), got, want, tol)
+    del got, again, want
+    if timed:
+        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        outs = {"delta": (), "dkdv": (dk, dv), "dq": (dq,)}
+        row["kernel_ms"] = {n: cuda_ms(
+            lambda n=n: flash_kernel.flash_attn_bwd_cuda(
+                n, q, k, v, o, lse, do, delta, outs[n], causal, q_offset,
+                want_variant), warmup=1, iters=iters)
+            for n in flash.BWD_KERNELS}
+        if want_variant != "simt":   # the first version, same inputs
+            row["simt_ms"] = {n: cuda_ms(
+                lambda n=n: flash_kernel.flash_attn_bwd_cuda(
+                    n, q, k, v, o, lse, do, delta, outs[n], causal,
+                    q_offset, "simt"), warmup=1, iters=2)
+                for n in ("dkdv", "dq")}
+        delta_plain = (do.float() * o.float()).sum(-1).transpose(1, 2)
+        row["delta_max_abs_err"] = float((delta - delta_plain).abs().max())
+        check(row["delta_max_abs_err"]
+              <= 1e-4 * float(delta_plain.abs().max()),
+              f"flash {name} {dtype}: delta is {row['delta_max_abs_err']} "
+              f"from the plain rowsum")
+        row["plain_delta_ms"] = cuda_ms(
+            lambda: (do.float() * o.float()).sum(-1).transpose(1, 2),
+            warmup=1, iters=iters)
+        row["bwd_ms"] = cuda_ms(lambda: flash.flash_attention_bwd_k(*args),
+                                warmup=1, iters=iters)
+        row["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_ref(*args),
+                                  warmup=1, iters=2)
+        row["library_ms"] = None
+        if H == Hk and q_offset == 0:
+            row.update(_sdpa_bwd_ms(q, k, v, do, causal, iters, D, Dv))
+        work = _flash_bwd_work(B, Sq, Skv, H, Hk, D, causal, dtype, Dv)
+        row["bound_ms"], row["bound_by"] = {}, {}
+        for n, (nbytes, flops) in work.items():
+            row["bound_ms"][n], row["bound_by"][n] = _bound(nbytes, flops,
+                                                            dtype)
+        row["library_covers"] = "dq, dk, dv (one SDPA backward)"
+        row["plain_covers"] = ("delta, dq, dk, dv; plain_delta_ms: delta "
+                               "alone")
+        del delta, dq, dk, dv, delta_plain
+    emit(phase=phase, **row)
+    del q, k, v, o, lse, do, lse_plain
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_lm_train_kernels():
     """The training path's backward kernels against their plain versions
     on the card, in float32 and bfloat16: flash_attn's "delta", "dkdv"
-    and "dq" (through ``flash_attention_bwd_k``, on the forward kernel's
-    own output and ``lse``, which is held against the plain forward's) and
-    moe_gemm's backward (the whole gradient through ``moe_gemm_bwd_k``,
-    and the kernel's own da, db and h against ``moe_bwd_hidden_ref``).
+    and "dq" (``_flash_bwd_case``) and moe_gemm's backward (the whole
+    gradient through ``moe_gemm_bwd_k``, and the kernel's own da, db and
+    h against ``moe_bwd_hidden_ref``).
     Shapes: the test sweep, edges (ragged tiles, GQA 8/2, q_offset 0 and
     past a tile) and the training shapes (B·H = 64, S = 4,096, D = 128,
     causal; E = 64, C = 2,560, d = 2,048, f = 1,024).  Each gradient is
@@ -2604,10 +2800,6 @@ def phase_lm_train_kernels():
     three ``bmm`` for moe_gemm_bwd's products, and the six ``bmm`` of the
     dense expert backward).  Returns the timed bfloat16 rows."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attn import kernel as flash_kernel
-    from repro_torch.kernels.flash_attn import ops as flash
-    from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_ref
     from repro_torch.kernels.moe_gemm import kernel as moe_kernel
     from repro_torch.kernels.moe_gemm import ops as moe
     from repro_torch.kernels.moe_gemm.ref import (moe_bwd_hidden_ref,
@@ -2621,111 +2813,8 @@ def phase_lm_train_kernels():
     def randn(shape, dt, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
 
-    def held(row, names, got, want, tol):
-        ratios = {n: _grad_ratio(g, w, tol) for n, g, w in
-                  zip(names, got, want)}
-        row.setdefault("ratio", {}).update(ratios)
-        row["max_abs_err"] = max(row.get("max_abs_err", 0.0), *(
-            float((g.float() - w.float()).abs().max())
-            for g, w in zip(got, want)))
-        for n, r in ratios.items():
-            check(r <= 1, f"{row['kernel']} {row['shape']} {row['dtype']} "
-                          f"{n}: |kernel - plain| / max|plain| is {r * tol} "
-                          f"> {tol}")
-
-    def flash_case(name, B, Sq, Skv, H, Hk, D, dtype, causal=True,
-                   q_offset=0, timed=False, iters=3):
-        dt, tol = dts[dtype], TRAIN_TOL[dtype]
-        want_variant = "wgmma" if dtype == "bfloat16" and D % 16 == 0 \
-            else "simt"
-        q, do = randn((B, Sq, H, D), dt), randn((B, Sq, H, D), dt)
-        k, v = randn((B, Skv, Hk, D), dt), randn((B, Skv, Hk, D), dt)
-        row = dict(kernel="flash_attn_bwd", shape=name, dtype=dtype, B=B,
-                   Sq=Sq, Skv=Skv, H=H, Hk=Hk, D=D, causal=causal,
-                   q_offset=q_offset, tol=tol)
-        o, lse = flash.flash_attention_k(q, k, v, causal=causal,
-                                         q_offset=q_offset, return_lse=True)
-        _, lse_plain = flash.flash_attention_plain(q, k, v, causal, q_offset,
-                                                   return_lse=True)
-        row["lse_max_abs_err"] = float((lse - lse_plain).abs().max())
-        check(row["lse_max_abs_err"]
-              <= 1e-4 * max(1.0, float(lse_plain.abs().max())),
-              f"flash {name} {dtype}: the forward's lse is "
-              f"{row['lse_max_abs_err']} from the plain forward's")
-        before = dict(flash.bwd_launches)
-        before_v = dict(flash.bwd_launches_by_variant)
-        args = (q, k, v, o, lse, do, causal, q_offset)
-        got = flash.flash_attention_bwd_k(*args)
-        again = flash.flash_attention_bwd_k(*args)
-        check(all(flash.bwd_launches[n] == before[n] + 2
-                  for n in flash.BWD_KERNELS),
-              f"flash {name}: backward launches {before} -> "
-              f"{flash.bwd_launches}")
-        row["variant"] = want_variant
-        check(flash.bwd_launches_by_variant[want_variant]
-              == before_v[want_variant] + 4,
-              f"flash {name} {dtype}: dkdv and dq did not run "
-              f"{want_variant}: {before_v} -> "
-              f"{flash.bwd_launches_by_variant}")
-        want = flash_attention_bwd_ref(*args)
-        torch.cuda.synchronize()
-        row["bit_stable"] = all(torch.equal(a, b) for a, b in zip(got, again))
-        check(row["bit_stable"], f"flash {name} {dtype}: two backward calls "
-                                 f"differ")
-        held(row, ("dq", "dk", "dv"), got, want, tol)
-        del got, again, want
-        if timed:
-            delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-            outs = {"delta": (), "dkdv": (dk, dv), "dq": (dq,)}
-            row["kernel_ms"] = {n: cuda_ms(
-                lambda n=n: flash_kernel.flash_attn_bwd_cuda(
-                    n, q, k, v, o, lse, do, delta, outs[n], causal,
-                    q_offset, want_variant), warmup=1, iters=iters)
-                for n in flash.BWD_KERNELS}
-            if want_variant != "simt":   # the first version, same inputs
-                row["simt_ms"] = {n: cuda_ms(
-                    lambda n=n: flash_kernel.flash_attn_bwd_cuda(
-                        n, q, k, v, o, lse, do, delta, outs[n], causal,
-                        q_offset, "simt"), warmup=1, iters=2)
-                    for n in ("dkdv", "dq")}
-            delta_plain = (do.float() * o.float()).sum(-1).transpose(1, 2)
-            row["delta_max_abs_err"] = float((delta - delta_plain).abs().max())
-            check(row["delta_max_abs_err"]
-                  <= 1e-4 * float(delta_plain.abs().max()),
-                  f"flash {name} {dtype}: delta is "
-                  f"{row['delta_max_abs_err']} from the plain rowsum")
-            row["plain_delta_ms"] = cuda_ms(
-                lambda: (do.float() * o.float()).sum(-1).transpose(1, 2),
-                warmup=1, iters=iters)
-            row["bwd_ms"] = cuda_ms(lambda: flash.flash_attention_bwd_k(
-                *args), warmup=1, iters=iters)
-            row["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_ref(*args),
-                                      warmup=1, iters=2)
-            row["library_ms"] = None
-            if H == Hk and q_offset == 0:
-                qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                              for t in (q, k, v))
-                out = F.scaled_dot_product_attention(qt, kt, vt,
-                                                     is_causal=causal)
-                dot = do.transpose(1, 2).contiguous()
-                row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                    out, (qt, kt, vt), dot, retain_graph=True), warmup=1,
-                    iters=iters)
-                del qt, kt, vt, out, dot
-            work = _flash_bwd_work(B, Sq, Skv, H, Hk, D, causal, dtype)
-            row["bound_ms"], row["bound_by"] = {}, {}
-            for n, (nbytes, flops) in work.items():
-                row["bound_ms"][n], row["bound_by"][n] = _bound(nbytes, flops,
-                                                                dtype)
-            row["library_covers"] = "dq, dk, dv (one SDPA backward)"
-            row["plain_covers"] = ("delta, dq, dk, dv; plain_delta_ms: "
-                                   "delta alone")
-            del delta, dq, dk, dv, delta_plain
-        emit(phase="lm_train_kernels", **row)
-        del q, k, v, o, lse, do, lse_plain
-        torch.cuda.empty_cache()
-        return row
+    def flash_case(*a, **k):
+        return _flash_bwd_case("lm_train_kernels", gen, *a, **k)
 
     def moe_case(name, E, C, d, f, dtype, w_scale, timed=False, iters=3,
                  variant=None):
@@ -2746,7 +2835,7 @@ def phase_lm_train_kernels():
         row["bit_stable"] = all(torch.equal(a, b) for a, b in zip(got, again))
         check(row["bit_stable"], f"moe {name} {dtype}: two backward calls "
                                  f"differ")
-        held(row, ("dx", "dwg", "dwu", "dwd"), got, want, tol)
+        _held_grads(row, ("dx", "dwg", "dwu", "dwd"), got, want, tol)
         del got, again, want
         # the kernel's own outputs against the plain version of its function
         hid = [torch.empty((E, C, f), dtype=dt, device=dev) for _ in range(3)]
@@ -2756,8 +2845,8 @@ def phase_lm_train_kernels():
               f"moe {name} {dtype} routes to {row['variant']}, not "
               f"{variant}")
         moe_kernel.moe_gemm_bwd_cuda(x, wg, wu, wd, dy, *hid, row["variant"])
-        held(row, ("da", "db", "h"), hid,
-             moe_bwd_hidden_ref(x, wg, wu, wd, dy), tol)
+        _held_grads(row, ("da", "db", "h"), hid,
+                    moe_bwd_hidden_ref(x, wg, wu, wd, dy), tol)
         if timed:
             row["kernel_ms"] = cuda_ms(lambda: moe_kernel.moe_gemm_bwd_cuda(
                 x, wg, wu, wd, dy, *hid, row["variant"]), warmup=1,
@@ -2853,17 +2942,25 @@ def _zero_train_launches() -> None:
     moe.bwd_launches_by_variant = dict.fromkeys(moe.BWD_VARIANTS, 0)
 
 
-def _train_want(steps: int, n_layers: int, variant: str) -> dict:
+def _train_want(steps: int, n_layers: int, variant: str,
+                n_moe: int | None = None, mtp: bool = False) -> dict:
     """What ``_train_launches`` must read after ``steps`` training steps
     with per-block recompute: each block's forward kernels twice a step,
-    each backward kernel once."""
-    fwd = {variant: 2 * n_layers * steps}
+    each backward kernel once; ``n_moe`` of the blocks (default all) run
+    moe_gemm; an MTP head's block (``mtp``) runs without recompute, its
+    forward once."""
+    n_moe = n_layers if n_moe is None else n_moe
+    blocks = n_layers + int(mtp)
     bwd = "wgmma" if variant == "wgmma" else "simt"
-    return {"flash_attn": fwd,
-            "flash_attn_bwd": {k: n_layers * steps
+    want = {"flash_attn": {variant: (2 * n_layers + int(mtp)) * steps},
+            "flash_attn_bwd": {k: blocks * steps
                                for k in ("delta", "dkdv", "dq")},
-            "flash_attn_bwd_by_variant": {bwd: 2 * n_layers * steps},
-            "moe_gemm": dict(fwd), "moe_gemm_bwd": {bwd: n_layers * steps}}
+            "flash_attn_bwd_by_variant": {bwd: 2 * blocks * steps},
+            "moe_gemm": {}, "moe_gemm_bwd": {}}
+    if n_moe:
+        want["moe_gemm"] = {variant: 2 * n_moe * steps}
+        want["moe_gemm_bwd"] = {bwd: n_moe * steps}
+    return want
 
 
 @contextlib.contextmanager
@@ -4156,14 +4253,9 @@ def _mla_flash_case(name, B, S, H, D, Dv, dtype, gen, variant,
     """flash_attn at D != Dv, causal, against its plain version
     elementwise at FLASH_TOL, two calls bit-identical, through
     ``variant``; ``timed`` adds the kernel's, the plain version's and
-    SDPA's ms beside the bound.  SDPA runs through the first of its
-    flash, cuDNN and efficient backends that takes D != Dv
-    (``library_backend``), never the math one, which would hold the
-    whole score matrix; ``library_refused`` says why the others refused,
-    and ``library_ms`` is None where all do."""
+    SDPA's ms (``_sdpa_ms``) beside the bound."""
     import torch
     import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attn import ops as flash
     dev = torch.device(DEVICE)
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
@@ -4194,20 +4286,8 @@ def _mla_flash_case(name, B, S, H, D, Dv, dtype, gen, variant,
         row["plain_ms"] = cuda_ms(lambda: flash.flash_attention_plain(
             q, k, v, causal=True), warmup=1, iters=2)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        row["library_ms"], refused = None, {}
-        for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
-                        SDPBackend.EFFICIENT_ATTENTION):
-            try:
-                with sdpa_kernel(backend):
-                    row["library_ms"] = cuda_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            qt, kt, vt, is_causal=True), warmup=1, iters=5)
-            except RuntimeError as e:    # the yardstick only, never the port
-                refused[backend.name] = str(e).strip().splitlines()[0][:200]
-                continue
-            row["library_backend"] = backend.name
-            break
-        row["library_refused"] = refused
+        row.update(_sdpa_ms(lambda: lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), D, Dv, 5))
         del qt, kt, vt
         _timed(row, _flash_work(B, S, S, H, H, D, True, dtype, Dv), dtype)
     emit(phase="mla_kernels", **row)
@@ -4477,6 +4557,256 @@ def phase_mla_serve():
                            "(671 B parameters do not fit one 80 GB card)"})
     return dict(rows=rows, launches=runs[0]["launches"])
 
+# --------------------------------------------------------------------------- #
+# phase 20: DeepSeek-V3 training (MLA, the MTP loss)
+# --------------------------------------------------------------------------- #
+def _moe_bwd_chunked_case(name, E, C, d, f, gen, iters=3):
+    """moe_gemm's backward kernel in bf16 at DeepSeek-V3's expert widths,
+    on seeded weights of the init's scale: two launches bit-identical; its
+    da, db and h held to TRAIN_TOL of the plain version's largest
+    magnitude, MOE_CHUNK experts at a time (the plain version's float32
+    copies of all 256 experts' weights would take 45 GB); timed beside
+    the bound, the plain version over the same chunks and three ``bmm``."""
+    import torch
+    from repro_torch.kernels.moe_gemm import kernel as moe_kernel
+    from repro_torch.kernels.moe_gemm import ops as moe
+    from repro_torch.kernels.moe_gemm.ref import moe_bwd_hidden_ref
+    dev, dt, tol = torch.device(DEVICE), torch.bfloat16, TRAIN_TOL["bfloat16"]
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=dt).mul_(scale)
+
+    x, dy = randn((E, C, d)), randn((E, C, d))
+    wg, wu = randn((E, d, f), E ** -0.5), randn((E, d, f), E ** -0.5)
+    wd = randn((E, f, d), E ** -0.5)
+    row = dict(kernel="moe_gemm_bwd", shape=name, dtype="bfloat16", E=E,
+               C=C, d=d, f=f, tol=tol)
+    hid = [torch.empty((E, C, f), dtype=dt, device=dev) for _ in range(3)]
+    again = [torch.empty_like(t) for t in hid]
+    row["variant"] = moe.route_bwd(dt, d, f, [
+        t.data_ptr() for t in (x, wg, wu, wd, dy, *hid, *again)])
+    check(row["variant"] == "wgmma",
+          f"moe_gemm_bwd {name} routes to {row['variant']}, not wgmma")
+    for out in (hid, again):
+        moe_kernel.moe_gemm_bwd_cuda(x, wg, wu, wd, dy, *out, row["variant"])
+    torch.cuda.synchronize()
+    row["bit_stable"] = all(torch.equal(a, b) for a, b in zip(hid, again))
+    check(row["bit_stable"], f"moe_gemm_bwd {name}: two launches differ")
+    del again
+    chunks = [slice(e, e + MOE_CHUNK) for e in range(0, E, MOE_CHUNK)]
+    names = ("da", "db", "h")
+    err, top = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    for sl in chunks:
+        want = moe_bwd_hidden_ref(x[sl], wg[sl], wu[sl], wd[sl], dy[sl])
+        for n, g, w in zip(names, hid, want):
+            err[n] = max(err[n], float((g[sl].float() - w.float()).abs()
+                                       .max()))
+            top[n] = max(top[n], float(w.float().abs().max()))
+        del want
+    row["ratio"] = {n: err[n] / max(tol * top[n], 1e-30) for n in names}
+    row["max_abs_err"] = max(err.values())
+    for n, r in row["ratio"].items():
+        check(r <= 1, f"moe_gemm_bwd {name} {n}: |kernel - plain| / "
+                      f"max|plain| is {r * tol} > {tol}")
+    row["kernel_ms"] = cuda_ms(lambda: moe_kernel.moe_gemm_bwd_cuda(
+        x, wg, wu, wd, dy, *hid, row["variant"]), warmup=1, iters=iters)
+    row["plain_ms"] = cuda_ms(lambda: [moe_bwd_hidden_ref(
+        x[sl], wg[sl], wu[sl], wd[sl], dy[sl]) for sl in chunks], warmup=0,
+        iters=1)
+    row["library_ms"] = cuda_ms(lambda: (
+        torch.bmm(x, wg), torch.bmm(x, wu), torch.bmm(dy, wd.transpose(1, 2))),
+        warmup=1, iters=iters)
+    row["bound_ms"], row["bound_by"] = _bound(
+        2 * (2 * E * C * d + 3 * E * d * f + 3 * E * C * f),
+        6 * E * C * d * f, "bfloat16")
+    row["library_covers"] = "x wg, x wu, dy wd^T (three bmm)"
+    row["plain_covers"] = f"{len(chunks)} chunks of {MOE_CHUNK} experts"
+    emit(phase="mla_train_kernels", **row)
+    del x, dy, wg, wu, wd, hid
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_mla_train():
+    """The train_dsv3 cell: DeepSeek-V3 at its published widths in bf16,
+    cut to its MLA_TRAIN_LAYERS dense layers plus the MTP head.  (a) The
+    backward kernels at D != Dv against ``flash_attention_bwd_ref``
+    (``_flash_bwd_case``): the reduced config's (24, 16) in f32 and bf16
+    ("simt"), (192, 128) in f32 ("simt") and, ragged with GQA, in bf16
+    ("wgmma"), then the cell's shape in bf16 ("wgmma", timed); moe_gemm's
+    backward at DeepSeek's expert widths (``_moe_bwd_chunked_case``; the
+    cell has no MoE layer).  (b) The kernel path against the plain path
+    (``_plain_kernels``) for one step's loss and every gradient, MTP
+    included: f32 with one dense layer and the MTP head at 1e-3, bf16
+    with the cell's layers at 5e-2, PARITY_BATCH x MLA_TRAIN_PARITY_SEQ
+    tokens.  (c) MLA_TRAIN_STEPS ``Trainer`` steps of MLA_TRAIN_BATCH x
+    TRAIN_SEQ tokens, train_4k's optimizer settings at a peak learning
+    rate of MLA_TRAIN_LR, twice from the same
+    seed and data, no checkpoint (one would be 51.5 GB): the losses
+    bit-equal, the loss falls, launches read around run 2; then one step
+    under ``torch.profiler``.  Returns the timed rows and run 2's
+    launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import Prefetcher, lm_token_stream
+    from repro_torch.models import init_lm_params, lm_loss
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig, deterministic
+    dev = torch.device(DEVICE)
+    full = get_config(MLA_ARCH).model
+    m, mo = full.mla, full.moe
+    H, D, Dv = full.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim, \
+        m.v_head_dim
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    t_phase = time.perf_counter()
+
+    def flash_case(*a, **k):
+        return _flash_bwd_case("mla_train_kernels", gen, *a, **k)
+
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        flash_case("mla_reduced_24_16", 2, 512, 512, 4, 4, 24, dtype, Dv=16)
+    flash_case("mla_192_128_f32", 1, 1024, 1024, 16, 16, D, "float32", Dv=Dv)
+    flash_case("mla_192_128_ragged_gqa", 1, 300, 300, 4, 2, D, "bfloat16",
+               Dv=Dv)
+    rows["flash_attn_bwd"] = flash_case(
+        "train_dsv3", MLA_TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, H, H, D,
+        "bfloat16", timed=True, Dv=Dv)
+    C = max(int(MLA_TRAIN_BATCH * TRAIN_SEQ * mo.top_k / mo.n_experts
+                * mo.capacity_factor), 1)
+    rows["moe_gemm_bwd"] = _moe_bwd_chunked_case(
+        "train_dsv3_experts", mo.n_experts, C, full.d_model, mo.d_expert, gen)
+
+    # (b) the kernel path against the plain path
+    parity = {}
+    for dtype, L, tol in (("float32", 1, 1e-3),
+                          ("bfloat16", MLA_TRAIN_LAYERS, 5e-2)):
+        cfg = dataclasses.replace(full, dtype=dtype, n_layers=L)
+        gen.manual_seed(21)
+        model = init_lm_params(gen, cfg, device=dev).requires_grad_(True)
+        tokens, labels = (torch.randint(0, cfg.vocab, (
+            PARITY_BATCH, MLA_TRAIN_PARITY_SEQ), generator=gen, device=dev)
+            for _ in range(2))
+        params = dict(model.named_parameters())
+
+        def run(plain):
+            with _plain_kernels(plain), deterministic():
+                _zero_train_launches()
+                loss = lm_loss(model, tokens, labels)
+                grads = torch.autograd.grad(loss, list(params.values()))
+                torch.cuda.synchronize()
+                return loss.detach(), grads, _train_launches()
+
+        lp, gp, launches_plain = run(True)
+        lk, gk, launches = run(False)
+        want = _train_want(1, L, "simt" if dtype == "float32" else "wgmma",
+                           n_moe=0, mtp=True)
+        check(launches == want, f"mla_train_parity {dtype} kernel path "
+                                f"launches {launches} != {want}")
+        check(all(not n for n in launches_plain.values()),
+              f"mla_train_parity {dtype} plain path launched kernels: "
+              f"{launches_plain}")
+        rel = {"loss": _rel(lk, lp)}
+        rel.update({n: _rel(a, b) for n, a, b in zip(params, gk, gp)})
+        check(any(n.startswith("mtp.") for n in rel),
+              "mla_train_parity: no MTP gradient")
+        for key, val in rel.items():
+            check(val <= tol, f"mla_train_parity {dtype} {key}: kernel vs "
+                              f"plain rel {val} > {tol}")
+        worst = max(rel, key=rel.get)
+        parity[dtype] = dict(
+            n_layers=L, mtp=True, tol=tol, n_grads=len(gk),
+            loss={"kernel": float(lk), "plain": float(lp)},
+            rel_err_loss=rel["loss"],
+            rel_err_grad_max={"param": worst, "rel": rel[worst]},
+            rel_err=rel, kernel_launches=launches)
+        del model, params, gp, gk
+        torch.cuda.empty_cache()
+    emit(phase="mla_train_parity", arch=MLA_ARCH, batch=PARITY_BATCH,
+         seq=MLA_TRAIN_PARITY_SEQ, parity=parity)
+
+    # (c) the cell, twice from the same seed and data
+    cfg = dataclasses.replace(full, n_layers=MLA_TRAIN_LAYERS)
+
+    def loss_fn(mdl, b):
+        return lm_loss(mdl, torch.as_tensor(b["tokens"], device=dev),
+                       torch.as_tensor(b["labels"], device=dev))
+
+    def run_cell():
+        g = torch.Generator(device=dev)
+        g.manual_seed(22)
+        model = init_lm_params(g, cfg, device=dev)
+        tr = Trainer(loss_fn, model,
+                     AdamWConfig(lr=MLA_TRAIN_LR, warmup_steps=5,
+                                 total_steps=MLA_TRAIN_STEPS),
+                     TrainerConfig(ckpt_dir=os.path.join(
+                         ROOT, "build", "chip_smoke_ckpt", "dsv3"),
+                         ckpt_every=1 << 30, log_every=MLA_TRAIN_STEPS))
+        data = Prefetcher(lm_token_stream(cfg.vocab, MLA_TRAIN_BATCH,
+                                          TRAIN_SEQ, seed=1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_train_launches()
+        t0 = time.perf_counter()
+        hist = [tr.train_step(next(data)) for _ in range(MLA_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        return dict(model=model, tr=tr, hist=hist,
+                    wall_s=time.perf_counter() - t0,
+                    peak=torch.cuda.max_memory_allocated(),
+                    launches=_train_launches())
+
+    r1 = run_cell()
+    losses1 = [h["loss"] for h in r1["hist"]]
+    n_params = sum(p.numel() for p in r1["model"].parameters())
+    del r1["model"], r1["tr"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    r2 = run_cell()
+    losses2 = [h["loss"] for h in r2["hist"]]
+    check(all(math.isfinite(v) for v in losses2), "mla_train: a loss is not "
+                                                  "finite")
+    check(losses1 == losses2, f"mla_train: two runs differ: {losses1} vs "
+                              f"{losses2}")
+    check(losses2[-1] < losses2[0], f"mla_train: the loss did not fall: "
+                                    f"{losses2}")
+    want = _train_want(MLA_TRAIN_STEPS, MLA_TRAIN_LAYERS, "wgmma", n_moe=0,
+                       mtp=True)
+    check(r2["launches"] == want,
+          f"mla_train run 2 launches {r2['launches']} != {want}")
+    check(r2["peak"] < 80e9, f"mla_train peak {r2['peak']} bytes")
+    batch = next(iter(lm_token_stream(cfg.vocab, MLA_TRAIN_BATCH, TRAIN_SEQ,
+                                      seed=2, n_steps=1)))
+    profile_split = _profile_train_step(r2["tr"], batch)
+    r2["tr"].finish()
+    secs = [h["secs"] for h in r2["hist"]]
+
+    def pct(p):
+        return float(np.percentile(np.asarray(secs) * 1e3, p))
+
+    emit(phase="mla_train", arch=MLA_ARCH, n_layers=MLA_TRAIN_LAYERS,
+         mtp_depth=cfg.mtp_depth, dtype=cfg.dtype, n_params=n_params,
+         batch=MLA_TRAIN_BATCH, seq=TRAIN_SEQ, steps=MLA_TRAIN_STEPS,
+         lr=MLA_TRAIN_LR,
+         losses=losses2, runs_bit_equal=True,
+         step_ms_p50=pct(50), step_ms_p90=pct(90), step_ms_first=secs[0] * 1e3,
+         tokens_per_s=MLA_TRAIN_BATCH * TRAIN_SEQ / (pct(50) / 1e3),
+         wall_s={"run1": r1["wall_s"], "run2": r2["wall_s"]},
+         peak_bytes={"run1": r1["peak"], "run2": r2["peak"]},
+         launches=r2["launches"], profile_step=profile_split,
+         cuts={"n_layers": "61 -> 3 (its 3 dense layers) plus the MTP head: "
+                           "4.29 B parameters, 51.5 GB of bf16 weights and "
+                           "gradients and f32 moments (one MoE layer's "
+                           "routed experts alone hold 11.27 B)",
+               "train_4k": "global batch 256 -> 2 (8,192 tokens a step)"},
+         phase_s=time.perf_counter() - t_phase)
+    launches = r2["launches"]
+    del r2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launches=launches)
+
 
 def main():
     ap = argparse.ArgumentParser()
@@ -4498,6 +4828,10 @@ def main():
     ap.add_argument("--mla-only", action="store_true",
                     help="run the device and build phases, then only the "
                          "DeepSeek-V3 serving phase (19), printing no "
+                         "result")
+    ap.add_argument("--mla-train-only", action="store_true",
+                    help="run the device and build phases, then only the "
+                         "DeepSeek-V3 training phase (20), printing no "
                          "result")
     ap.add_argument("--dist-n", type=int, default=DIST_N,
                     help=f"vertices of the dist phase's graph (published: "
@@ -4537,6 +4871,9 @@ def main():
         return
     if args.mla_only:
         phase_mla_serve()
+        return
+    if args.mla_train_only:
+        phase_mla_train()
         return
     # the full-scale graph: its shapes and degrees drive the kernel timings
     t0 = time.perf_counter()
@@ -4632,6 +4969,11 @@ def main():
     torch.cuda.empty_cache()
     mla = phase_mla_serve()
 
+    # DeepSeek-V3 training: the backward kernels at (192, 128), each launch
+    # count read around the cell's second run
+    torch.cuda.empty_cache()
+    mla_train = phase_mla_train()
+
     # membership on the back-edge filter's own inputs, against the bound
     # of what those inputs need
     t = dict(timing["backedge_engine"],
@@ -4682,6 +5024,14 @@ def main():
            "src/repro/kernels/flash_attn/kernel.py:62",
            train_launches["flash_attn_bwd"][k],
            _bwd_row(train_rows["flash_attn_bwd", "bfloat16"], k))
+          for k in ("delta", "dkdv", "dq")),
+        # DeepSeek-V3 training: MLA's backward through the (192, 128)
+        # instantiations
+        *((f"flash_attn_bwd_{k}_mla_d192_dv128",
+           "src/repro_torch/kernels/flash_attn/csrc/flash_attn_bwd.cu",
+           "src/repro/kernels/flash_attn/kernel.py:62",
+           mla_train["launches"]["flash_attn_bwd"][k],
+           _bwd_row(mla_train["rows"]["flash_attn_bwd"], k))
           for k in ("delta", "dkdv", "dq")),
         ("moe_gemm_bwd", "src/repro_torch/kernels/moe_gemm/csrc/moe_gemm_bwd.cu",
          "src/repro/kernels/moe_gemm/kernel.py:44",

@@ -1,8 +1,10 @@
 // Backward of softmax attention for Hopper (sm_90a), in FlashAttention-2's
 // form: three kernels, launched back to back on one stream by the wrapper
-// (ops.flash_attention_bwd_k):
+// (ops.flash_attention_bwd_k).  q and k share the head width D <= 192; v,
+// o and dO have their own, Dv <= 128 (MLA trains with D = 128 + 64 = 192
+// and Dv = 128); dq and dk come back D wide, dv Dv wide.
 //   1. flash_bwd_delta: delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]
-//      in f32, one warp a row;
+//      over Dv in f32, one warp a row;
 //   2. flash_bwd_dkdv: one block per (key tile, b, kv head).  For each
 //      query head of the kv head's group (GQA's dK and dV are sums over
 //      them) and each 64-query tile that the causal mask lets see the key
@@ -29,7 +31,11 @@
 // causal) the work is 14*D flops per kept (query, key) pair, 8 in dkdv (S,
 // dP, dV, dK) and 6 in dq (S, dP, dQ): 0.96 TFLOP against 0.54 GB of q, k,
 // v, o, dO, lse and the three gradients in bf16, so it is bound by
-// operations: 0.97 ms at the bf16 tensor cores' 989 TFLOP/s.
+// operations: 0.97 ms at the bf16 tensor cores' 989 TFLOP/s.  At D != Dv
+// a kept pair costs 4*D + 4*Dv flops in dkdv (S and dK over D, dP and dV
+// over Dv) and 4*D + 2*Dv in dq: at DeepSeek-V3's training shape (B*H =
+// 256, S = 4,096, D = 192, Dv = 128, causal) 2.75 TFLOP (2.78 ms) and
+// 2.20 TFLOP (2.23 ms); delta reads O and dO once, 0.54 GB (0.16 ms).
 //
 // Two variants of dkdv and dq; ops.route_bwd picks one from dtype, head
 // width and alignment ("delta" has one).
@@ -38,12 +44,15 @@
 // simt forward's skeleton: 256 threads as 16 x 16, 64-row tiles staged in
 // shared memory as f32 with odd row pitches (the 16 rows a half-warp reads
 // in one column fall in 16 banks), each thread a 4 x 4 tile of S and dP
-// and a 4 x ceil(D/16) tile of each accumulator.
-// "wgmma" (bf16, D % 16 == 0, D <= 128, 16-byte aligned): every product on
-// the tensor cores, fed by TMA, on the forward "wgmma" variant's skeleton:
-// a CTA of three warpgroups, the first issuing TMA loads from one thread
-// into a 4-stage mbarrier ring, the other two each owning 64 rows of the
-// CTA's 128.  Nothing is transposed through shared memory.  dkdv works in
+// and a 4 x ceil(D/16) tile of dK or dQ and 4 x ceil(Dv/16) of dV.  Q and
+// K are staged at D, V and dO at Dv: 194 KB at (192, 128), where four
+// tiles at D would take 231 KB, over the 227 KB a block may have.
+// "wgmma" (bf16, D and Dv multiples of 16, D <= 192, Dv <= 128, 16-byte
+// aligned): every product on the tensor cores, fed by TMA, on the forward
+// "wgmma" variant's skeleton: a CTA of three warpgroups, the first issuing
+// TMA loads from one thread into a 4-stage mbarrier ring (3 stages at
+// (192, 128): a stage of five 8 KB panels), the other two each owning 64
+// rows of the CTA's 128.  Nothing is transposed through shared memory.  dkdv works in
 // the transposed form: its rows are keys, so S^T = K Q^T and dP^T = V dO^T
 // come from 128-byte-swizzled shared memory with both operands K-major
 // over D, P^T and dS^T sit in registers in the A layout (rows = keys,
@@ -51,10 +60,18 @@
 // with dO and Q as MN-major B; each stage is a 64-query tile of Q and dO
 // with its lse and delta (a flat f32 map of (B, H, Sq)).  dq owns 128
 // queries and streams 64-key tiles of K and V: S = Q K^T and dP = dO V^T
-// from shared memory, dQ += dS K with K as MN-major B.  q, k, v and dO are
-// read in place through 4-D (D, H, S, B) maps; rows and columns past S
-// and D arrive as zeros and stores are guarded; D < 64 pads the head to
-// one 64-column panel, 64 < D <= 128 to two.  dkdv runs the low key tiles
+// from shared memory, dQ += dS K with K as MN-major B.  S and S^T contract
+// over D's panels, dP and dP^T over Dv's; dK and dQ are m64nDk16 products
+// (N = 192 at MLA's width), dV m64nDvk16.  q, k, v and dO are read in
+// place through 4-D (D or Dv, H, S, B) maps; rows and columns past S, D
+// and Dv arrive as zeros and stores are guarded.  (D, Dv) is padded to
+// 64-column panels, one of three instantiations: (64, 64), (128, 128) or
+// (192, 128); a panel wholly past D or Dv arrives as zeros too.  At (192,
+// 128) the resident tiles take 80 KB and three stages 120 KB: 203 KB with
+// the lse/delta slots, barriers and alignment.  A dkdv consumer holds dK
+// (96 f32 a thread), dV (64), S^T (32) and dP^T (32); ptxas gives each
+// consumer 240 registers after setmaxnreg and spills 44 bytes there (dq:
+// dQ 96 + S 32 + dP 32, no spill).  dkdv runs the low key tiles
 // (the most queries under the causal mask) first, dq the high query tiles.
 // The rounding points are the first tensor-core version's: P and dS are
 // rounded to bf16 as A operands, dK and dQ scaled once at the end.
@@ -70,8 +87,10 @@ namespace {
 
 constexpr int kB = 64;          // rows of a query or key tile
 constexpr int kThreads = 256;   // 16 x 16: rows ty + 16 i, columns tx + 16 j
-constexpr int kMaxD = 128;
-constexpr int kDPer = kMaxD / 16;  // accumulator columns per thread
+constexpr int kMaxD = 192;      // q/k head width
+constexpr int kMaxDv = 128;     // v head width
+constexpr int kDPer = kMaxD / 16;    // dK or dQ columns per thread
+constexpr int kDvPer = kMaxDv / 16;  // dV columns per thread
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -87,20 +106,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// 1. delta = rowsum(dO * O), one warp per (b, s, h) row in memory order
+// 1. delta = rowsum(dO * O), one warp per (b, s, h) row in memory order;
+// Dv is the rows' width
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
-                float* __restrict__ delta, int H, int Sq, int D,
+                float* __restrict__ delta, int H, int Sq, int Dv,
                 long long rows) {
   const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
-  const T* op = o + row * D;
-  const T* dp = dout + row * D;
+  const T* op = o + row * Dv;
+  const T* dp = dout + row * Dv;
   float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(to_f(op[c]), to_f(dp[c]), acc);
+  for (int c = lane; c < Dv; c += 32)
+    acc = fmaf(to_f(op[c]), to_f(dp[c]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -113,29 +134,23 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
-// Stage rows r0 .. r0 + 63 of two (B, S, heads, D) tensors at one head as
-// f32 (rows past S as zeros): a and b point at the head's row 0.
+// Stage rows r0 .. r0 + 63 of a (B, S, heads, W) tensor at one head as f32
+// (rows past S as zeros) with row pitch ld: a points at the head's row 0.
 template <typename T>
-__device__ __forceinline__ void stage2(float* As, float* Bs, const T* a,
-                                       const T* b, long long stride, int r0,
-                                       int S, int D, int ld) {
-  for (int e = threadIdx.x; e < kB * D; e += kThreads) {
-    const int r = e / D, c = e - r * D;
+__device__ __forceinline__ void stage(float* As, const T* a, long long stride,
+                                      int r0, int S, int W, int ld) {
+  for (int e = threadIdx.x; e < kB * W; e += kThreads) {
+    const int r = e / W, c = e - r * W;
     const int s = r0 + r;
-    float av = 0.f, bv = 0.f;
-    if (s < S) {
-      av = to_f(a[s * stride + c]);
-      bv = to_f(b[s * stride + c]);
-    }
-    As[r * ld + c] = av;
-    Bs[r * ld + c] = bv;
+    As[r * ld + c] = s < S ? to_f(a[s * stride + c]) : 0.f;
   }
 }
 
-// Shared memory of both gradient kernels: four kB x (D + 1) tiles, `np`
-// kB x (kB + 1) tiles of P or dS, and lse and delta of kB queries.
-size_t smem_bytes(int D, int np) {
-  return sizeof(float) * (4 * (size_t)kB * (D + 1) +
+// Shared memory of both gradient kernels: two kB x (D + 1) tiles (Q and
+// K), two kB x (Dv + 1) tiles (dO and V), `np` kB x (kB + 1) tiles of P or
+// dS, and lse and delta of kB queries: 194 KB at D = 192, Dv = 128.
+size_t smem_bytes(int D, int Dv, int np) {
+  return sizeof(float) * (2 * (size_t)kB * (D + 1) + 2 * (size_t)kB * (Dv + 1) +
                           (size_t)np * kB * (kB + 1) + 2 * kB);
 }
 
@@ -148,14 +163,15 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                T* __restrict__ dk, T* __restrict__ dv, int H, int Hk, int Sq,
-               int Skv, int D, int causal, int q_offset, float scale) {
+               int Skv, int D, int Dv, int causal, int q_offset,
+               float scale) {
   extern __shared__ float smem[];
-  const int ld = D + 1, ldp = kB + 1;
+  const int ld = D + 1, ldv = Dv + 1, ldp = kB + 1;
   float* Ks = smem;             // kB keys x ld
-  float* Vs = Ks + kB * ld;
-  float* Qs = Vs + kB * ld;     // kB queries x ld
-  float* dOs = Qs + kB * ld;
-  float* Ps = dOs + kB * ld;    // P^T: key x query
+  float* Vs = Ks + kB * ld;     // kB keys x ldv
+  float* Qs = Vs + kB * ldv;    // kB queries x ld
+  float* dOs = Qs + kB * ld;    // kB queries x ldv
+  float* Ps = dOs + kB * ldv;   // P^T: key x query
   float* dSs = Ps + kB * ldp;   // dS^T
   float* Ls = dSs + kB * ldp;   // lse of the tile's queries
   float* Ds = Ls + kB;          // delta of the tile's queries
@@ -164,16 +180,21 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int rep = H / Hk;
   const int k0 = blockIdx.x * kB;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long q_stride = (long long)H * D;   // between positions
-  const long long kv_stride = (long long)Hk * D;
-  stage2(Ks, Vs, k + ((long long)b * Skv * Hk + hk) * D,
-         v + ((long long)b * Skv * Hk + hk) * D, kv_stride, k0, Skv, D, ld);
+  // between positions
+  const long long q_stride = (long long)H * D, o_stride = (long long)H * Dv;
+  const long long k_stride = (long long)Hk * D, v_stride = (long long)Hk * Dv;
+  const long long kv_head = (long long)b * Skv * Hk + hk;
+  stage(Ks, k + kv_head * D, k_stride, k0, Skv, D, ld);
+  stage(Vs, v + kv_head * Dv, v_stride, k0, Skv, Dv, ldv);
 
-  float adk[4][kDPer], adv[4][kDPer];
+  float adk[4][kDPer], adv[4][kDvPer];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int jj = 0; jj < kDPer; ++jj) adk[i][jj] = adv[i][jj] = 0.f;
+    for (int jj = 0; jj < kDPer; ++jj) adk[i][jj] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kDvPer; ++jj) adv[i][jj] = 0.f;
+  }
 
   // the first query tile with a query that sees this tile's first key
   const int t_first = causal ? max(0, k0 - q_offset) / kB : 0;
@@ -186,7 +207,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     for (int t = t_first; t < n_qt; ++t) {
       const int q0 = t * kB;
       __syncthreads();  // the previous tile's readers are done
-      stage2(Qs, dOs, q + head * D, dout + head * D, q_stride, q0, Sq, D, ld);
+      stage(Qs, q + head * D, q_stride, q0, Sq, D, ld);
+      stage(dOs, dout + head * Dv, o_stride, q0, Sq, Dv, ldv);
       if (tid < kB) {
         const int s = q0 + tid;
         Ls[tid] = s < Sq ? lb[s] : 0.f;
@@ -194,31 +216,34 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
 
-      // S^T and dP^T for keys ty + 16 i and queries tx + 16 j
+      // S^T (over D) and dP^T (over Dv) for keys ty + 16 i and queries
+      // tx + 16 j
       float sc[4][4], dp[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
       for (int c = 0; c < D; ++c) {
-        float kk[4], vv[4], qq[4], oo[4];
+        float kk[4], qq[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kk[i] = Ks[(ty + 16 * i) * ld + c];
-          vv[i] = Vs[(ty + 16 * i) * ld + c];
-        }
+        for (int i = 0; i < 4; ++i) kk[i] = Ks[(ty + 16 * i) * ld + c];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qq[j] = Qs[(tx + 16 * j) * ld + c];
-          oo[j] = dOs[(tx + 16 * j) * ld + c];
-        }
+        for (int j = 0; j < 4; ++j) qq[j] = Qs[(tx + 16 * j) * ld + c];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            sc[i][j] = fmaf(kk[i], qq[j], sc[i][j]);
-            dp[i][j] = fmaf(vv[i], oo[j], dp[i][j]);
-          }
+          for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(kk[i], qq[j], sc[i][j]);
+      }
+      for (int c = 0; c < Dv; ++c) {
+        float vv[4], oo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) vv[i] = Vs[(ty + 16 * i) * ldv + c];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) oo[j] = dOs[(tx + 16 * j) * ldv + c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(vv[i], oo[j], dp[i][j]);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -244,15 +269,18 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
           sv[i] = dSs[(ty + 16 * i) * ldp + j];
         }
 #pragma unroll
+        for (int jj = 0; jj < kDvPer; ++jj) {
+          const int c = tx + 16 * jj;
+          const float od = c < Dv ? dOs[j * ldv + c] : 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) adv[i][jj] = fmaf(pv[i], od, adv[i][jj]);
+        }
+#pragma unroll
         for (int jj = 0; jj < kDPer; ++jj) {
           const int c = tx + 16 * jj;
-          const float od = c < D ? dOs[j * ld + c] : 0.f;
           const float qd = c < D ? Qs[j * ld + c] : 0.f;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            adv[i][jj] = fmaf(pv[i], od, adv[i][jj]);
-            adk[i][jj] = fmaf(sv[i], qd, adk[i][jj]);
-          }
+          for (int i = 0; i < 4; ++i) adk[i][jj] = fmaf(sv[i], qd, adk[i][jj]);
         }
       }
     }
@@ -262,14 +290,16 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty + 16 * i;
     if (key >= Skv) continue;
-    const long long base = (((long long)b * Skv + key) * Hk + hk) * D;
+    const long long at = ((long long)b * Skv + key) * Hk + hk;
 #pragma unroll
     for (int jj = 0; jj < kDPer; ++jj) {
       const int c = tx + 16 * jj;
-      if (c < D) {
-        dk[base + c] = from_f<T>(adk[i][jj] * scale);
-        dv[base + c] = from_f<T>(adv[i][jj]);
-      }
+      if (c < D) dk[at * D + c] = from_f<T>(adk[i][jj] * scale);
+    }
+#pragma unroll
+    for (int jj = 0; jj < kDvPer; ++jj) {
+      const int c = tx + 16 * jj;
+      if (c < Dv) dv[at * Dv + c] = from_f<T>(adv[i][jj]);
     }
   }
 }
@@ -283,14 +313,14 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              T* __restrict__ dq, int H, int Hk, int Sq, int Skv, int D,
-             int causal, int q_offset, float scale) {
+             int Dv, int causal, int q_offset, float scale) {
   extern __shared__ float smem[];
-  const int ld = D + 1, ldp = kB + 1;
+  const int ld = D + 1, ldv = Dv + 1, ldp = kB + 1;
   float* Qs = smem;             // kB queries x ld
-  float* dOs = Qs + kB * ld;
-  float* Ks = dOs + kB * ld;    // kB keys x ld
-  float* Vs = Ks + kB * ld;
-  float* dSs = Vs + kB * ld;    // dS: query x key
+  float* dOs = Qs + kB * ld;    // kB queries x ldv
+  float* Ks = dOs + kB * ldv;   // kB keys x ld
+  float* Vs = Ks + kB * ld;     // kB keys x ldv
+  float* dSs = Vs + kB * ldv;   // dS: query x key
   float* Ls = dSs + kB * ldp;
   float* Ds = Ls + kB;
 
@@ -298,18 +328,20 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (H / Hk);
   const int q0 = blockIdx.x * kB;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long q_stride = (long long)H * D;
-  const long long kv_stride = (long long)Hk * D;
+  const long long q_stride = (long long)H * D, o_stride = (long long)H * Dv;
+  const long long k_stride = (long long)Hk * D, v_stride = (long long)Hk * Dv;
   const long long head = (long long)b * Sq * H + h;
-  stage2(Qs, dOs, q + head * D, dout + head * D, q_stride, q0, Sq, D, ld);
+  stage(Qs, q + head * D, q_stride, q0, Sq, D, ld);
+  stage(dOs, dout + head * Dv, o_stride, q0, Sq, Dv, ldv);
   if (tid < kB) {
     const int s = q0 + tid;
     const long long lrow = ((long long)b * H + h) * Sq;
     Ls[tid] = s < Sq ? lse[lrow + s] : 0.f;
     Ds[tid] = s < Sq ? delta[lrow + s] : 0.f;
   }
-  const T* kb = k + ((long long)b * Skv * Hk + hk) * D;
-  const T* vb = v + ((long long)b * Skv * Hk + hk) * D;
+  const long long kv_head = (long long)b * Skv * Hk + hk;
+  const T* kb = k + kv_head * D;
+  const T* vb = v + kv_head * Dv;
 
   float adq[4][kDPer];
 #pragma unroll
@@ -323,34 +355,37 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kB;
     __syncthreads();  // the previous tile's readers are done
-    stage2(Ks, Vs, kb, vb, kv_stride, k0, Skv, D, ld);
+    stage(Ks, kb, k_stride, k0, Skv, D, ld);
+    stage(Vs, vb, v_stride, k0, Skv, Dv, ldv);
     __syncthreads();
 
-    // S and dP for queries ty + 16 i and keys tx + 16 j
+    // S (over D) and dP (over Dv) for queries ty + 16 i and keys tx + 16 j
     float sc[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
     for (int c = 0; c < D; ++c) {
-      float qq[4], oo[4], kk[4], vv[4];
+      float qq[4], kk[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qq[i] = Qs[(ty + 16 * i) * ld + c];
-        oo[i] = dOs[(ty + 16 * i) * ld + c];
-      }
+      for (int i = 0; i < 4; ++i) qq[i] = Qs[(ty + 16 * i) * ld + c];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kk[j] = Ks[(tx + 16 * j) * ld + c];
-        vv[j] = Vs[(tx + 16 * j) * ld + c];
-      }
+      for (int j = 0; j < 4; ++j) kk[j] = Ks[(tx + 16 * j) * ld + c];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(qq[i], kk[j], sc[i][j]);
-          dp[i][j] = fmaf(oo[i], vv[j], dp[i][j]);
-        }
+        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qq[i], kk[j], sc[i][j]);
+    }
+    for (int c = 0; c < Dv; ++c) {
+      float oo[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) oo[i] = dOs[(ty + 16 * i) * ldv + c];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vv[j] = Vs[(tx + 16 * j) * ldv + c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(oo[i], vv[j], dp[i][j]);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -394,22 +429,23 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-bool bad_shape(int B, int H, int Hk, int Sq, int Skv, int D, int q_offset) {
-  return B <= 0 || Sq <= 0 || Skv <= 0 || D < 1 || D > kMaxD || Hk < 1 ||
-         H % Hk != 0 || q_offset < 0;
+bool bad_shape(int B, int H, int Hk, int Sq, int Skv, int D, int Dv,
+               int q_offset) {
+  return B <= 0 || Sq <= 0 || Skv <= 0 || D < 1 || D > kMaxD || Dv < 1 ||
+         Dv > kMaxDv || Hk < 1 || H % Hk != 0 || q_offset < 0;
 }
 
 template <typename T>
 int launch_delta(const void* o, const void* dout, void* delta, int B, int H,
-                 int Sq, int D, void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || D < 1) return (int)cudaErrorInvalidValue;
+                 int Sq, int Dv, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Dv < 1) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)B * Sq * H;
   const long long blocks = (rows + 7) / 8;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   flash_bwd_delta<T><<<(unsigned)blocks, 256, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout),
-      static_cast<float*>(delta), H, Sq, D, rows);
+      static_cast<float*>(delta), H, Sq, Dv, rows);
   return (int)cudaGetLastError();
 }
 
@@ -417,44 +453,44 @@ template <typename T>
 int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 void* dk, void* dv, int B, int H, int Hk, int Sq, int Skv,
-                int D, int causal, int q_offset, void* stream) {
-  if (bad_shape(B, H, Hk, Sq, Skv, D, q_offset) || B * Hk > 65535)
+                int D, int Dv, int causal, int q_offset, void* stream) {
+  if (bad_shape(B, H, Hk, Sq, Skv, D, Dv, q_offset) || B * Hk > 65535)
     return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dkdv<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(kMaxD, 2));
+      (int)smem_bytes(kMaxD, kMaxDv, 2));
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((Skv + kB - 1) / kB, B * Hk);
   const float scale = (float)(1.0 / sqrt((double)D));
-  flash_bwd_dkdv<T><<<grid, kThreads, smem_bytes(D, 2),
+  flash_bwd_dkdv<T><<<grid, kThreads, smem_bytes(D, Dv, 2),
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Hk, Sq, Skv, D, causal,
-      q_offset, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Hk, Sq, Skv, D, Dv,
+      causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int H,
-              int Hk, int Sq, int Skv, int D, int causal, int q_offset,
-              void* stream) {
-  if (bad_shape(B, H, Hk, Sq, Skv, D, q_offset) || B * H > 65535)
+              int Hk, int Sq, int Skv, int D, int Dv, int causal,
+              int q_offset, void* stream) {
+  if (bad_shape(B, H, Hk, Sq, Skv, D, Dv, q_offset) || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dq<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(kMaxD, 1));
+      (int)smem_bytes(kMaxD, kMaxDv, 1));
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((Sq + kB - 1) / kB, B * H);
   const float scale = (float)(1.0 / sqrt((double)D));
-  flash_bwd_dq<T><<<grid, kThreads, smem_bytes(D, 1),
+  flash_bwd_dq<T><<<grid, kThreads, smem_bytes(D, Dv, 1),
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Hk, Sq, Skv, D, causal, q_offset, scale);
+      static_cast<T*>(dq), H, Hk, Sq, Skv, D, Dv, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -466,7 +502,6 @@ namespace warpgroup {
 
 using bf16 = __nv_bfloat16;
 constexpr int kT = 64;            // rows of a streamed tile, and of a consumer
-constexpr int kStages = 4;
 constexpr int kThreads = 384;     // producer warpgroup + 2 consumers
 constexpr int kPanel = kT * 64;   // elements of a 64-row, 64-column panel
 constexpr int kPanelBytes = kPanel * 2;
@@ -478,26 +513,36 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kRowsBox = kT + 4;
 constexpr int kRowsSlot = 96;   // 384 bytes: slots stay 128-byte aligned
 
+// Stages of the streamed ring: 4 while a stage's two tiles span at most
+// four panels, 3 at (192, 128), whose five panels (40 KB) a stage would
+// take 240 KB in four.
+template <int kD, int kDv>
+constexpr int stages() {
+  return kD + kDv <= 256 ? 4 : 3;
+}
+
 // dkdv: the CTA's 128 keys of K and V (two 64-row blocks per panel), a
-// ring of 64-query tiles of Q and dO, and each tile's lse and delta.  kD:
-// the head dimension padded to 64 or 128 (one or two panels).
-template <int kD>
+// ring of 64-query tiles of Q and dO, and each tile's lse and delta.  kD,
+// kDv: the q/k and the v head widths padded to 64-column panels.
+template <int kD, int kDv>
 struct SmemKV {
+  static constexpr int kStages = stages<kD, kDv>();
   bf16 k[kD / 64][2][kPanel];
-  bf16 v[kD / 64][2][kPanel];
+  bf16 v[kDv / 64][2][kPanel];
   bf16 q[kStages][kD / 64][kPanel];
-  bf16 o[kStages][kD / 64][kPanel];   // dO
+  bf16 o[kStages][kDv / 64][kPanel];   // dO
   float lse[kStages][kRowsSlot], delta[kStages][kRowsSlot];
   uint64_t kv_full, full[kStages], empty[kStages];
 };
 
 // dq: the CTA's 128 queries of Q and dO, a ring of 64-key tiles of K and V.
-template <int kD>
+template <int kD, int kDv>
 struct SmemQ {
+  static constexpr int kStages = stages<kD, kDv>();
   bf16 q[kD / 64][2][kPanel];
-  bf16 o[kD / 64][2][kPanel];
+  bf16 o[kDv / 64][2][kPanel];
   bf16 k[kStages][kD / 64][kPanel];
-  bf16 v[kStages][kD / 64][kPanel];
+  bf16 v[kStages][kDv / 64][kPanel];
   uint64_t q_full, full[kStages], empty[kStages];
 };
 
@@ -518,15 +563,39 @@ __device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
   for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(a[kk]);
 }
 
+// Store a consumer's 64 rows of an accumulator of width kW (kW / 2 floats
+// a thread) as bf16, times `scale`: rows row0 and row0 + 8 of the thread,
+// each at `at(row)` elements, columns below W, rows below `rows`.
+template <int kW, typename At>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out,
+                                           const float (&acc)[kW / 2],
+                                           int row0, int rows, int W,
+                                           int quad, float scale, At at) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= rows) continue;
+    bf16* p = out + at(row);
+#pragma unroll
+    for (int i = 0; i < kW / 8; ++i) {
+      const int col = 8 * i + 2 * quad;
+      if (col < W)
+        *reinterpret_cast<__nv_bfloat162*>(p + col) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * hh] * scale,
+                                  acc[4 * i + 2 * hh + 1] * scale);
+    }
+  }
+}
+
 // dK, dV: one CTA per (128-key tile, b, kv head), keys k0 + 64c .. + 63 to
 // consumer c.  In the transposed form, rows are keys and columns queries:
-// S^T = K Q^T and dP^T = V dO^T (K and V K-major A, Q and dO K-major B),
-// P^T = exp(S^T * scale - lse) and dS^T = P^T (dP^T - delta) in registers,
-// then dV += P^T dO and dK += dS^T Q with P^T and dS^T as register A and dO
-// and Q as MN-major B.  Query tiles run over the kv head's query heads
-// (GQA) and, per head, from the first tile the causal mask lets see the
-// CTA's first key.
-template <int kD>
+// S^T = K Q^T over kD and dP^T = V dO^T over kDv (K and V K-major A, Q and
+// dO K-major B), P^T = exp(S^T * scale - lse) and dS^T = P^T (dP^T -
+// delta) in registers, then dV += P^T dO (width kDv) and dK += dS^T Q
+// (width kD) with P^T and dS^T as register A and dO and Q as MN-major B.
+// Query tiles run over the kv head's query heads (GQA) and, per head,
+// from the first tile the causal mask lets see the CTA's first key.
+template <int kD, int kDv>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -535,12 +604,13 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tlse,
                      const __grid_constant__ CUtensorMap tdelta,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-                     int Hk, int Sq, int Skv, int D, int causal,
+                     int Hk, int Sq, int Skv, int D, int Dv, int causal,
                      int q_offset, float scale, float scale_log2) {
   using namespace hopper;
-  constexpr int kP = kD / 64;
+  using Smem = SmemKV<kD, kDv>;
+  constexpr int kP = kD / 64, kPv = kDv / 64, kStages = Smem::kStages;
   extern __shared__ uint8_t smem_raw[];
-  SmemKV<kD>& sm = *reinterpret_cast<SmemKV<kD>*>(align_1k(smem_raw));
+  Smem& sm = *reinterpret_cast<Smem*>(align_1k(smem_raw));
 
   const int hk = blockIdx.x % Hk, b = blockIdx.x / Hk;
   const int rep = H / Hk;
@@ -563,25 +633,26 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   if (wgi == 0) {  // producer
     regs_dealloc<24>();
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(&sm.kv_full, 2 * kP * 2 * kPanelBytes);
-      for (int p = 0; p < kP; ++p)
-        for (int r = 0; r < 2; ++r) {
+      mbar_arrive_expect_tx(&sm.kv_full, 2 * (kP + kPv) * kPanelBytes);
+      for (int r = 0; r < 2; ++r) {
+        for (int p = 0; p < kP; ++p)
           tma_load_4d(sm.k[p][r], &tk, &sm.kv_full, 64 * p, hk, k0 + kT * r,
                       b);
+        for (int p = 0; p < kPv; ++p)
           tma_load_4d(sm.v[p][r], &tv, &sm.kv_full, 64 * p, hk, k0 + kT * r,
                       b);
-        }
+      }
       for (int it = 0; it < n_it; ++it) {
         const int s = it % kStages;
         if (it >= kStages) mbar_wait(&sm.empty[s], ((it / kStages) - 1) & 1);
         mbar_arrive_expect_tx(&sm.full[s],
-                              2 * kP * kPanelBytes + 2 * kRowsBox * 4);
+                              (kP + kPv) * kPanelBytes + 2 * kRowsBox * 4);
         const int h = hk * rep + it / nt;
         const int q0 = (t_first + it % nt) * kT;
-        for (int p = 0; p < kP; ++p) {
+        for (int p = 0; p < kP; ++p)
           tma_load_4d(sm.q[s][p], &tq, &sm.full[s], 64 * p, h, q0, b);
+        for (int p = 0; p < kPv; ++p)
           tma_load_4d(sm.o[s][p], &tdo, &sm.full[s], 64 * p, h, q0, b);
-        }
         // rows past Sq (the next head's, or zeros) are masked below
         const int row = ((b * H + h) * Sq + q0) & ~3;
         tma_load_1d(sm.lse[s], &tlse, &sm.full[s], row);
@@ -596,9 +667,11 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     const int key_first = k0 + kT * c;               // the WG's first key
     const int key0 = key_first + 16 * (tid >> 5) + (lane >> 2);  // and + 8
 
-    float adk[kD / 2], adv[kD / 2];
+    float adk[kD / 2], adv[kDv / 2];
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) adk[i] = adv[i] = 0.f;
+    for (int i = 0; i < kD / 2; ++i) adk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDv / 2; ++i) adv[i] = 0.f;
 
     mbar_wait(&sm.kv_full, 0);
     for (int it = 0; it < n_it; ++it) {
@@ -621,7 +694,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                       desc_sw128(&sm.q[s][kk / 4][(kk % 4) * 16], 16, 1024),
                       kk > 0);
 #pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk)
+        for (int kk = 0; kk < kDv / 16; ++kk)
           wgmma_ss<0>(dpt, desc_sw128(&sm.v[kk / 4][c][(kk % 4) * 16], 16,
                                       1024),
                       desc_sw128(&sm.o[s][kk / 4][(kk % 4) * 16], 16, 1024),
@@ -676,31 +749,21 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(&sm.empty[s]);
     }
 
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int key = key0 + 8 * hh;
-      if (key >= Skv) continue;
-      const long long at = (((long long)b * Skv + key) * Hk + hk) * D;
-#pragma unroll
-      for (int i = 0; i < kD / 8; ++i) {
-        const int col = 8 * i + 2 * quad;
-        if (col >= D) continue;
-        *reinterpret_cast<__nv_bfloat162*>(dk + at + col) =
-            __floats2bfloat162_rn(adk[4 * i + 2 * hh] * scale,
-                                  adk[4 * i + 2 * hh + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + at + col) =
-            __floats2bfloat162_rn(adv[4 * i + 2 * hh],
-                                  adv[4 * i + 2 * hh + 1]);
-      }
-    }
+    const auto at = [&](int W) {
+      return [=](int key) {
+        return (((long long)b * Skv + key) * Hk + hk) * W;
+      };
+    };
+    store_rows<kD>(dk, adk, key0, Skv, D, quad, scale, at(D));
+    store_rows<kDv>(dv, adv, key0, Skv, Dv, quad, 1.f, at(Dv));
   }
 }
 
 // dQ: one CTA per (128-query tile, b, h), queries q0 + 64c .. + 63 to
-// consumer c: S = Q K^T and dP = dO V^T (Q and dO K-major A, K and V
-// K-major B), P and dS in registers, dQ += dS K with K as MN-major B, over
-// the 64-key tiles up to the forward's last.
-template <int kD>
+// consumer c: S = Q K^T over kD and dP = dO V^T over kDv (Q and dO K-major
+// A, K and V K-major B), P and dS in registers, dQ += dS K (width kD) with
+// K as MN-major B, over the 64-key tiles up to the forward's last.
+template <int kD, int kDv>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -711,9 +774,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    int H, int Hk, int Sq, int Skv, int D, int causal,
                    int q_offset, float scale, float scale_log2) {
   using namespace hopper;
-  constexpr int kP = kD / 64;
+  using Smem = SmemQ<kD, kDv>;
+  constexpr int kP = kD / 64, kPv = kDv / 64, kStages = Smem::kStages;
   extern __shared__ uint8_t smem_raw[];
-  SmemQ<kD>& sm = *reinterpret_cast<SmemQ<kD>*>(align_1k(smem_raw));
+  Smem& sm = *reinterpret_cast<Smem*>(align_1k(smem_raw));
 
   const int h = blockIdx.x % H, b = blockIdx.x / H;
   const int hk = h / (H / Hk);
@@ -738,21 +802,22 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   if (wgi == 0) {  // producer
     regs_dealloc<24>();
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(&sm.q_full, 2 * kP * 2 * kPanelBytes);
-      for (int p = 0; p < kP; ++p)
-        for (int r = 0; r < 2; ++r) {
+      mbar_arrive_expect_tx(&sm.q_full, 2 * (kP + kPv) * kPanelBytes);
+      for (int r = 0; r < 2; ++r) {
+        for (int p = 0; p < kP; ++p)
           tma_load_4d(sm.q[p][r], &tq, &sm.q_full, 64 * p, h, q0 + kT * r, b);
+        for (int p = 0; p < kPv; ++p)
           tma_load_4d(sm.o[p][r], &tdo, &sm.q_full, 64 * p, h, q0 + kT * r,
                       b);
-        }
+      }
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         if (t >= kStages) mbar_wait(&sm.empty[s], ((t / kStages) - 1) & 1);
-        mbar_arrive_expect_tx(&sm.full[s], 2 * kP * kPanelBytes);
-        for (int p = 0; p < kP; ++p) {
+        mbar_arrive_expect_tx(&sm.full[s], (kP + kPv) * kPanelBytes);
+        for (int p = 0; p < kP; ++p)
           tma_load_4d(sm.k[s][p], &tk, &sm.full[s], 64 * p, hk, t * kT, b);
+        for (int p = 0; p < kPv; ++p)
           tma_load_4d(sm.v[s][p], &tv, &sm.full[s], 64 * p, hk, t * kT, b);
-        }
       }
     }
   } else {  // consumers
@@ -793,7 +858,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                       desc_sw128(&sm.k[s][kk / 4][(kk % 4) * 16], 16, 1024),
                       kk > 0);
 #pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk)
+        for (int kk = 0; kk < kDv / 16; ++kk)
           wgmma_ss<0>(dp, desc_sw128(&sm.o[kk / 4][c][(kk % 4) * 16], 16,
                                      1024),
                       desc_sw128(&sm.v[s][kk / 4][(kk % 4) * 16], 16, 1024),
@@ -836,20 +901,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(&sm.empty[s]);
     }
 
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = row0 + 8 * hh;
-      if (row >= Sq) continue;
-      const long long at = (((long long)b * Sq + row) * H + h) * D;
-#pragma unroll
-      for (int i = 0; i < kD / 8; ++i) {
-        const int col = 8 * i + 2 * quad;
-        if (col >= D) continue;
-        *reinterpret_cast<__nv_bfloat162*>(dq + at + col) =
-            __floats2bfloat162_rn(adq[4 * i + 2 * hh] * scale,
-                                  adq[4 * i + 2 * hh + 1] * scale);
-      }
-    }
+    store_rows<kD>(dq, adq, row0, Sq, D, quad, scale, [=](int row) {
+      return (((long long)b * Sq + row) * H + h) * D;
+    });
   }
 }
 
@@ -863,70 +917,76 @@ int map_rows_f32(CUtensorMap* m, const void* p, long long n) {
                           box);
 }
 
-// The (D, heads, S, B) map of a (B, S, heads, D) bf16 tensor, boxes of 64
+// The (W, heads, S, B) map of a (B, S, heads, W) bf16 tensor, boxes of 64
 // columns of one head at 64 positions.
-int map_bshd(CUtensorMap* m, const void* p, int B, int S, int heads, int D) {
+int map_bshd(CUtensorMap* m, const void* p, int B, int S, int heads, int W) {
   const cuuint64_t e = sizeof(bf16);
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {e * D, e * D * heads, e * D * heads * S};
+  const cuuint64_t strides[3] = {e * W, e * W * heads, e * W * heads * S};
   const cuuint32_t box[4] = {64, 1, kT, 1};
   return hopper::make_map_bf16(m, p, 4, dims, strides, box);
 }
 
-bool bad_wgmma_shape(int B, int H, int Hk, int Sq, int Skv, int D,
+bool bad_wgmma_shape(int B, int H, int Hk, int Sq, int Skv, int D, int Dv,
                      int q_offset) {
-  return bad_shape(B, H, Hk, Sq, Skv, D, q_offset) || D % 16 != 0 ||
-         (long long)B * H * Sq > INT_MAX;
+  return bad_shape(B, H, Hk, Sq, Skv, D, Dv, q_offset) || D % 16 != 0 ||
+         Dv % 16 != 0 || (long long)B * H * Sq > INT_MAX;
 }
 
-template <int kD>
+// The four bf16 maps of q, k, v and dO, which both kernels read: q and k
+// at D, v and dO at Dv.
+int map_qkvo(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
+             const void* dout, int B, int H, int Hk, int Sq, int Skv, int D,
+             int Dv) {
+  int err = map_bshd(&m[0], q, B, Sq, H, D);
+  if (!err) err = map_bshd(&m[1], k, B, Skv, Hk, D);
+  if (!err) err = map_bshd(&m[2], v, B, Skv, Hk, Dv);
+  if (!err) err = map_bshd(&m[3], dout, B, Sq, H, Dv);
+  return err;
+}
+
+template <int kD, int kDv>
 int run_dkdv(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dk, void* dv, int B,
-             int H, int Hk, int Sq, int Skv, int D, int causal, int q_offset,
-             cudaStream_t st) {
-  CUtensorMap tq, tk, tv, tdo, tl, td;
-  int err = map_bshd(&tq, q, B, Sq, H, D);
-  if (!err) err = map_bshd(&tk, k, B, Skv, Hk, D);
-  if (!err) err = map_bshd(&tv, v, B, Skv, Hk, D);
-  if (!err) err = map_bshd(&tdo, dout, B, Sq, H, D);
+             int H, int Hk, int Sq, int Skv, int D, int Dv, int causal,
+             int q_offset, cudaStream_t st) {
+  CUtensorMap t[4], tl, td;
+  int err = map_qkvo(t, q, k, v, dout, B, H, Hk, Sq, Skv, D, Dv);
   if (!err) err = map_rows_f32(&tl, lse, (long long)B * H * Sq);
   if (!err) err = map_rows_f32(&td, delta, (long long)B * H * Sq);
   if (err) return err;
-  const int smem = (int)sizeof(SmemKV<kD>) + 1024;
+  const int smem = (int)sizeof(SmemKV<kD, kDv>) + 1024;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkdv_wgmma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_dkdv_wgmma<kD, kDv>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(B * Hk, (Skv + 2 * kT - 1) / (2 * kT));
   const double scale = 1.0 / sqrt((double)D);
-  flash_bwd_dkdv_wgmma<kD><<<grid, kThreads, smem, st>>>(
-      tq, tk, tv, tdo, tl, td, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      H, Hk, Sq, Skv, D, causal, q_offset, (float)scale,
-      (float)(scale * 1.4426950408889634));
+  flash_bwd_dkdv_wgmma<kD, kDv><<<grid, kThreads, smem, st>>>(
+      t[0], t[1], t[2], t[3], tl, td, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, Hk, Sq, Skv, D, Dv, causal, q_offset,
+      (float)scale, (float)(scale * 1.4426950408889634));
   return (int)cudaGetLastError();
 }
 
-template <int kD>
+template <int kD, int kDv>
 int run_dq(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int B, int H, int Hk,
-           int Sq, int Skv, int D, int causal, int q_offset,
+           int Sq, int Skv, int D, int Dv, int causal, int q_offset,
            cudaStream_t st) {
-  CUtensorMap tq, tk, tv, tdo;
-  int err = map_bshd(&tq, q, B, Sq, H, D);
-  if (!err) err = map_bshd(&tk, k, B, Skv, Hk, D);
-  if (!err) err = map_bshd(&tv, v, B, Skv, Hk, D);
-  if (!err) err = map_bshd(&tdo, dout, B, Sq, H, D);
+  CUtensorMap t[4];
+  const int err = map_qkvo(t, q, k, v, dout, B, H, Hk, Sq, Skv, D, Dv);
   if (err) return err;
-  const int smem = (int)sizeof(SmemQ<kD>) + 1024;
+  const int smem = (int)sizeof(SmemQ<kD, kDv>) + 1024;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_dq_wgmma<kD, kDv>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(B * H, (Sq + 2 * kT - 1) / (2 * kT));
   const double scale = 1.0 / sqrt((double)D);
-  flash_bwd_dq_wgmma<kD><<<grid, kThreads, smem, st>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(lse),
+  flash_bwd_dq_wgmma<kD, kDv><<<grid, kThreads, smem, st>>>(
+      t[0], t[1], t[2], t[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq), H, Hk, Sq,
       Skv, D, causal, q_offset, (float)scale,
       (float)(scale * 1.4426950408889634));
@@ -937,71 +997,83 @@ int run_dq(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// The "wgmma" variant of dkdv and dq: bf16, D % 16 == 0 and D <= 128,
-// every pointer 16-byte aligned; otherwise as the others below.
+// The "wgmma" variant of dkdv and dq: bf16, D and Dv multiples of 16 with
+// D <= 192 and Dv <= 128, every pointer 16-byte aligned; otherwise as the
+// others below.  (D, Dv) is padded to one of three instantiations: (64,
+// 64), (128, 128) or (192, 128).
 extern "C" int flash_attn_bwd_dkdv_bf16_wgmma(const void* q, const void* k,
                                               const void* v, const void* dout,
                                               const void* lse,
                                               const void* delta, void* dk,
                                               void* dv, int B, int H, int Hk,
-                                              int Sq, int Skv, int D,
+                                              int Sq, int Skv, int D, int Dv,
                                               int causal, int q_offset,
                                               void* stream) {
   using namespace warpgroup;
-  if (bad_wgmma_shape(B, H, Hk, Sq, Skv, D, q_offset) ||
+  if (bad_wgmma_shape(B, H, Hk, Sq, Skv, D, Dv, q_offset) ||
       (Skv + 2 * kT - 1) / (2 * kT) > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? run_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hk,
-                                Sq, Skv, D, causal, q_offset, st)
-                 : run_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Hk,
-                                 Sq, Skv, D, causal, q_offset, st);
+  if (D <= 64 && Dv <= 64)
+    return run_dkdv<64, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hk, Sq,
+                            Skv, D, Dv, causal, q_offset, st);
+  if (D <= 128)
+    return run_dkdv<128, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, Hk,
+                              Sq, Skv, D, Dv, causal, q_offset, st);
+  return run_dkdv<192, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, Hk, Sq,
+                            Skv, D, Dv, causal, q_offset, st);
 }
 
 extern "C" int flash_attn_bwd_dq_bf16_wgmma(const void* q, const void* k,
                                             const void* v, const void* dout,
                                             const void* lse, const void* delta,
                                             void* dq, int B, int H, int Hk,
-                                            int Sq, int Skv, int D, int causal,
-                                            int q_offset, void* stream) {
+                                            int Sq, int Skv, int D, int Dv,
+                                            int causal, int q_offset,
+                                            void* stream) {
   using namespace warpgroup;
-  if (bad_wgmma_shape(B, H, Hk, Sq, Skv, D, q_offset) ||
+  if (bad_wgmma_shape(B, H, Hk, Sq, Skv, D, Dv, q_offset) ||
       (Sq + 2 * kT - 1) / (2 * kT) > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? run_dq<64>(q, k, v, dout, lse, delta, dq, B, H, Hk, Sq,
-                              Skv, D, causal, q_offset, st)
-                 : run_dq<128>(q, k, v, dout, lse, delta, dq, B, H, Hk, Sq,
-                               Skv, D, causal, q_offset, st);
+  if (D <= 64 && Dv <= 64)
+    return run_dq<64, 64>(q, k, v, dout, lse, delta, dq, B, H, Hk, Sq, Skv,
+                          D, Dv, causal, q_offset, st);
+  if (D <= 128)
+    return run_dq<128, 128>(q, k, v, dout, lse, delta, dq, B, H, Hk, Sq, Skv,
+                            D, Dv, causal, q_offset, st);
+  return run_dq<192, 128>(q, k, v, dout, lse, delta, dq, B, H, Hk, Sq, Skv, D,
+                          Dv, causal, q_offset, st);
 }
 
-// The three kernels' entry points, each in f32 and bf16.  q, o, dO, dq
-// (B, Sq, H, D); k, v, dk, dv (B, Skv, Hk, D); lse and delta (B, H, Sq)
-// float32; all contiguous, on the current device, D <= 128, H % Hk == 0,
-// q_offset >= 0.  delta is written by the first and read by the other two.
-// Each launches on `stream` and returns cudaGetLastError() (0 on success);
-// none synchronises.
+// The three kernels' entry points, each in f32 and bf16.  q, dq (B, Sq, H,
+// D); o, dO (B, Sq, H, Dv); k, dk (B, Skv, Hk, D); v, dv (B, Skv, Hk, Dv);
+// lse and delta (B, H, Sq) float32; all contiguous, on the current device,
+// D <= 192, Dv <= 128, H % Hk == 0, q_offset >= 0.  delta is written by
+// the first (whose rows are Dv wide) and read by the other two.  Each
+// launches on `stream` and returns cudaGetLastError() (0 on success); none
+// synchronises.
 extern "C" int flash_attn_bwd_delta_f32(const void* o, const void* dout,
                                         void* delta, int B, int H, int Sq,
-                                        int D, void* stream) {
-  return launch_delta<float>(o, dout, delta, B, H, Sq, D, stream);
+                                        int Dv, void* stream) {
+  return launch_delta<float>(o, dout, delta, B, H, Sq, Dv, stream);
 }
 
 extern "C" int flash_attn_bwd_delta_bf16(const void* o, const void* dout,
                                          void* delta, int B, int H, int Sq,
-                                         int D, void* stream) {
-  return launch_delta<__nv_bfloat16>(o, dout, delta, B, H, Sq, D, stream);
+                                         int Dv, void* stream) {
+  return launch_delta<__nv_bfloat16>(o, dout, delta, B, H, Sq, Dv, stream);
 }
 
 extern "C" int flash_attn_bwd_dkdv_f32(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv, int B, int H,
-                                       int Hk, int Sq, int Skv, int D,
+                                       int Hk, int Sq, int Skv, int D, int Dv,
                                        int causal, int q_offset,
                                        void* stream) {
   return launch_dkdv<float>(q, k, v, dout, lse, delta, dk, dv, B, H, Hk, Sq,
-                            Skv, D, causal, q_offset, stream);
+                            Skv, D, Dv, causal, q_offset, stream);
 }
 
 extern "C" int flash_attn_bwd_dkdv_bf16(const void* q, const void* k,
@@ -1009,28 +1081,29 @@ extern "C" int flash_attn_bwd_dkdv_bf16(const void* q, const void* k,
                                         const void* lse, const void* delta,
                                         void* dk, void* dv, int B, int H,
                                         int Hk, int Sq, int Skv, int D,
-                                        int causal, int q_offset,
+                                        int Dv, int causal, int q_offset,
                                         void* stream) {
   return launch_dkdv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, B, H,
-                                    Hk, Sq, Skv, D, causal, q_offset, stream);
+                                    Hk, Sq, Skv, D, Dv, causal, q_offset,
+                                    stream);
 }
 
 extern "C" int flash_attn_bwd_dq_f32(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
                                      void* dq, int B, int H, int Hk, int Sq,
-                                     int Skv, int D, int causal, int q_offset,
-                                     void* stream) {
+                                     int Skv, int D, int Dv, int causal,
+                                     int q_offset, void* stream) {
   return launch_dq<float>(q, k, v, dout, lse, delta, dq, B, H, Hk, Sq, Skv,
-                          D, causal, q_offset, stream);
+                          D, Dv, causal, q_offset, stream);
 }
 
 extern "C" int flash_attn_bwd_dq_bf16(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       void* dq, int B, int H, int Hk, int Sq,
-                                      int Skv, int D, int causal,
+                                      int Skv, int D, int Dv, int causal,
                                       int q_offset, void* stream) {
   return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B, H, Hk,
-                                  Sq, Skv, D, causal, q_offset, stream);
+                                  Sq, Skv, D, Dv, causal, q_offset, stream);
 }

@@ -56,7 +56,7 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # kernel -> (number of pointer arguments, number of int arguments)
-_BWD_ARGS = {"delta": (3, 4), "dkdv": (8, 8), "dq": (7, 8)}
+_BWD_ARGS = {"delta": (3, 4), "dkdv": (8, 9), "dq": (7, 9)}
 _BWD_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -81,11 +81,12 @@ def flash_attn_bwd_cuda(kernel: str, q: torch.Tensor, k: torch.Tensor,
     device: "delta" writes ``delta`` (B, H, Sq) f32 from ``o`` and
     ``do``; "dkdv" writes ``outs = (dk, dv)`` and "dq" ``outs = (dq,)``
     from q, k, v, do, lse and delta, through ``variant`` ("simt" or
-    "wgmma"; "delta" has one).  Every tensor is contiguous, q/k/v/o/do and
-    the outputs of one dtype; the caller has checked them and picked the
-    variant (``ops.route_bwd``)."""
+    "wgmma"; "delta" has one).  q, k, dq, dk are D wide, v, o, do, dv Dv
+    wide.  Every tensor is contiguous, q/k/v/o/do and the outputs of one
+    dtype; the caller has checked them and picked the variant
+    (``ops.route_bwd``)."""
     B, Sq, H, D = q.shape
-    Skv, Hk = k.shape[1], k.shape[2]
+    Skv, Hk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     ptrs = [t.data_ptr() for t in outs]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -93,12 +94,13 @@ def flash_attn_bwd_cuda(kernel: str, q: torch.Tensor, k: torch.Tensor,
                            "simt" if kernel == "delta" else variant)
         if kernel == "delta":
             err = fn(o.data_ptr(), do.data_ptr(), delta.data_ptr(), B, H,
-                     Sq, D, stream)
+                     Sq, Dv, stream)
         else:
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                      lse.data_ptr(), delta.data_ptr(), *ptrs, B, H, Hk, Sq,
-                     Skv, D, int(causal), q_offset, stream)
+                     Skv, D, Dv, int(causal), q_offset, stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd_{kernel} launch failed: CUDA "
                            f"error {err} ({variant}, B={B}, Sq={Sq}, "
-                           f"Skv={Skv}, H={H}, Hk={Hk}, D={D}, {q.dtype})")
+                           f"Skv={Skv}, H={H}, Hk={Hk}, D={D}, Dv={Dv}, "
+                           f"{q.dtype})")

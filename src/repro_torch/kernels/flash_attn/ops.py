@@ -29,7 +29,8 @@ each, counted in :data:`bwd_launches`; dkdv and dq through the variant
 :func:`flash_attention_bwd_ref`.  Both functions are looked up when the
 Function runs, so a caller that swaps them for their plain versions
 (``chip_smoke.py``'s plain path) swaps the training path too.  The
-backward kernels take Dv == D <= 128 (:data:`BWD_MAX_HEAD_DIM`).
+backward kernels take the forward's widths: D <= 192
+(:data:`BWD_MAX_HEAD_DIM`) and Dv <= 128 (:data:`BWD_MAX_V_DIM`).
 """
 from __future__ import annotations
 
@@ -48,7 +49,8 @@ BWD_VARIANTS = ("wgmma", "simt")
 bwd_launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 MAX_HEAD_DIM = 192      # q/k head width the forward kernels take
 MAX_V_DIM = 128         # v head width the forward kernels take
-BWD_MAX_HEAD_DIM = 128  # the backward kernels: Dv == D up to this
+BWD_MAX_HEAD_DIM = 192  # q/k head width the backward kernels take
+BWD_MAX_V_DIM = 128     # v head width the backward kernels take
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -68,13 +70,17 @@ def route(dtype: torch.dtype, head_dim: int, ptrs=(),
     return "simt"
 
 
-def route_bwd(dtype: torch.dtype, head_dim: int, ptrs=()) -> str:
+def route_bwd(dtype: torch.dtype, head_dim: int, ptrs=(),
+              v_dim: int | None = None) -> str:
     """The variant of the dkdv and dq backward kernels, from dtype, head
-    width and data pointers alone: "wgmma" (the tensor cores, TMA-fed)
-    for bf16 with ``head_dim % 16 == 0``, ``head_dim <= 128`` and every
+    widths (``v_dim``, v's, defaults to ``head_dim``) and data pointers
+    alone: "wgmma" (the tensor cores, TMA-fed) for bf16 with both widths
+    multiples of 16, ``head_dim <= 192``, ``v_dim <= 128`` and every
     pointer 16-byte aligned, else "simt"."""
-    if (dtype == torch.bfloat16 and head_dim % 16 == 0
+    v_dim = head_dim if v_dim is None else v_dim
+    if (dtype == torch.bfloat16 and head_dim % 16 == 0 and v_dim % 16 == 0
             and 0 < head_dim <= BWD_MAX_HEAD_DIM
+            and 0 < v_dim <= BWD_MAX_V_DIM
             and all(p % 16 == 0 for p in ptrs)):
         return "wgmma"
     return "simt"
@@ -164,15 +170,17 @@ def flash_attention_bwd_k(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           o: torch.Tensor, lse: torch.Tensor,
                           do: torch.Tensor, causal: bool = True,
                           q_offset: int = 0):
-    """The gradient of :func:`flash_attention_k`: q, o, do (B, Sq, H, D);
-    k, v (B, Skv, Hk, D); ``lse`` (B, H, Sq) float32 from the forward
-    that gave ``o``.  Returns ``(dq, dk, dv)`` in q's dtype.  A CUDA tensor
+    """The gradient of :func:`flash_attention_k`: q (B, Sq, H, D); o, do
+    (B, Sq, H, Dv); k (B, Skv, Hk, D), v (B, Skv, Hk, Dv); ``lse`` (B, H,
+    Sq) float32 from the forward that gave ``o``.  Returns ``(dq, dk,
+    dv)`` in q's dtype, dq and dk D wide, dv Dv wide.  A CUDA tensor
     launches the "delta", "dkdv" and "dq" kernels in turn (or raises); a
     CPU tensor runs :func:`flash_attention_bwd_ref`."""
     _check(q, k, v, q_offset)
     B, Sq, H, D = q.shape
-    Skv, Hk = k.shape[1], k.shape[2]
-    if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
+    Skv, Hk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if (o.shape != (B, Sq, H, Dv) or do.shape != o.shape
+            or o.dtype != q.dtype
             or do.dtype != q.dtype or tuple(lse.shape) != (B, H, Sq)
             or lse.dtype != torch.float32):
         raise ValueError(f"flash_attention_bwd_k: o {tuple(o.shape)} "
@@ -185,11 +193,10 @@ def flash_attention_bwd_k(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_k runs on cuda or cpu, not "
                          f"{q.device}")
-    if v.shape[-1] != D or D > BWD_MAX_HEAD_DIM:
-        raise NotImplementedError(f"flash_attn backward kernels take Dv == D "
-                                  f"<= {BWD_MAX_HEAD_DIM}, got D={D}, "
-                                  f"Dv={v.shape[-1]}: ROADMAP.md queue A "
-                                  f"item 24")
+    if D > BWD_MAX_HEAD_DIM or Dv > BWD_MAX_V_DIM:
+        raise NotImplementedError(f"flash_attn backward kernels take D <= "
+                                  f"{BWD_MAX_HEAD_DIM} and Dv <= "
+                                  f"{BWD_MAX_V_DIM}, got D={D}, Dv={Dv}")
     if B * H > 65535:
         raise ValueError(f"flash_attn kernels take B*H <= 65535, got {B * H}")
     from repro_torch.kernels.flash_attn.kernel import flash_attn_bwd_cuda
@@ -200,7 +207,8 @@ def flash_attention_bwd_k(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     variant = route_bwd(q.dtype, D, [t.data_ptr() for t in
-                                     (q, k, v, do, lse, delta, dq, dk, dv)])
+                                     (q, k, v, do, lse, delta, dq, dk, dv)],
+                        Dv)
     for kernel, outs in (("delta", ()), ("dkdv", (dk, dv)), ("dq", (dq,))):
         flash_attn_bwd_cuda(kernel, q, k, v, o, lse, do, delta, outs, causal,
                             int(q_offset), variant)

@@ -20,9 +20,11 @@ reference returns a new one: ``{"k", "v"}`` of (L, B, max_len, Hk, Dh)
 for GQA, and for MLA (DeepSeek-V3) the latent ``{"c_kv": (L, B,
 max_len, kv_lora_rank), "k_rope": (L, B, max_len, qk_rope_head_dim)}``.
 An MLA config's decode runs naive (per-head K/V expanded from the
-latent) or absorbed (attention in the latent space).  Its multi-token
-prediction head (``mtp``) is drawn and carried as parameters; serving
-does not use it, and training an MLA or MTP config raises (``lm_loss``).
+latent) or absorbed (attention in the latent space).  The multi-token
+prediction head (``mtp``, DeepSeek-V3's depth 1) is carried as
+parameters; serving does not use it, and ``lm_loss`` adds its term.
+:meth:`TransformerLM.decayed_params` names the parameters AdamW decays
+by the reference's rule on its stacked tree.
 """
 from __future__ import annotations
 
@@ -48,15 +50,6 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def _dt(cfg: TransformerConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
-
-
-def check_trainable(cfg: TransformerConfig) -> None:
-    """Raise for a config whose training the port does not run yet: MLA
-    (its flash_attn backward at D != Dv) and the MTP loss."""
-    if cfg.mla is not None or cfg.mtp_depth:
-        raise NotImplementedError(
-            f"{cfg.name}: training with MLA (mla) or multi-token prediction "
-            f"(mtp_depth) is not ported yet: ROADMAP.md queue A item 24")
 
 
 def _params(d: dict) -> nn.ParameterDict:
@@ -128,6 +121,17 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor):
         return lm_forward(self, tokens)
+
+    def decayed_params(self) -> set[str]:
+        """The names of the parameters AdamW decays, by the reference's
+        rule on its own tree (``ndim >= 2``): it stacks every layer's
+        weights on a layer axis, so every parameter under ``blocks.``,
+        norms, biases and ``router_bias`` included, counts one dimension
+        more than it has here.  The MTP head's block is not stacked
+        there: of it, and of the rest, only the 2-D and 3-D tensors
+        (``embed``, ``lm_head``, ``mtp.proj``, the block's matrices)."""
+        return {name for name, p in self.named_parameters()
+                if p.ndim >= 2 or name.startswith("blocks.")}
 
 
 # --------------------------------------------------------------------------- #
@@ -337,25 +341,55 @@ def sharded_xent(hidden: torch.Tensor, head: torch.Tensor,
     return _ce(hidden @ head, labels, mask)
 
 
+def _mtp_hidden(model: TransformerLM, tokens: torch.Tensor,
+                hidden: torch.Tensor) -> torch.Tensor:
+    """The depth-1 MTP head's final-normed hidden states, as the
+    reference's ``lm_loss`` computes them: position t joins the main
+    path's (final-normed) ``hidden[t]``, normed again by ``mtp.norm``, with
+    the embedding of token t + 1 (not normed; the last position wraps to
+    token 0), projects the pair back to d by ``mtp.proj``, and runs the
+    dense MTP block over positions 0..S-1 (without recompute, as there)
+    and ``final_norm``."""
+    cfg, mtp = model.cfg, model.mtp
+    S = tokens.shape[1]
+    # F.embedding, as lm_forward_hidden's: a deterministic backward
+    nxt = F.embedding(torch.roll(tokens, -1, dims=1).long(), model.embed)
+    cat = torch.cat([rms_norm(hidden, mtp.norm, cfg.norm_eps), nxt], dim=-1)
+    positions = torch.arange(S, device=tokens.device)[None, :]
+    h2, _ = _block_out(mtp.block, cfg, cat @ mtp.proj, positions)
+    return rms_norm(h2, model.final_norm, cfg.norm_eps)
+
+
 def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor,
-            aux_weight: float = 0.01, remat: bool = True,
-            xent: str = "sharded", xent_chunk: int = 8192) -> torch.Tensor:
+            aux_weight: float = 0.01, mtp_weight: float = 0.3,
+            remat: bool = True, xent: str = "sharded",
+            xent_chunk: int = 8192) -> torch.Tensor:
     """Next-token cross entropy plus the MoE load-balance term
-    ``aux_weight * aux / n_layers`` (unless the router is aux-free), as
-    the reference's ``lm_loss``.  ``xent`` is "sharded" (bf16 logits) or
-    "chunked" (vocab chunks).  An MLA or MTP config raises
-    (``check_trainable``), on every device, before any work."""
+    ``aux_weight * aux / n_layers`` (unless the router is aux-free) plus,
+    with an MTP head, ``mtp_weight`` times the head's cross entropy
+    against the labels one step on (``roll(labels, -1)``, the last
+    position masked), as the reference's ``lm_loss``.  ``xent`` is
+    "sharded" (bf16 logits) or "chunked" (vocab chunks), for both terms.
+    The MTP term's mask is (1, S), so its masked mean divides the B rows'
+    sum by S - 1, as the reference's does."""
     cfg = model.cfg
-    check_trainable(cfg)
-    _, aux, hidden = lm_forward_hidden(model, tokens, remat=remat)
     if xent == "chunked":
-        loss = chunked_xent(hidden, model.head, labels, chunk=xent_chunk)
+        def ce(h, lab, mask=None):
+            return chunked_xent(h, model.head, lab, mask, chunk=xent_chunk)
     elif xent == "sharded":
-        loss = sharded_xent(hidden, model.head, labels)
+        def ce(h, lab, mask=None):
+            return sharded_xent(h, model.head, lab, mask)
     else:
         raise ValueError(f"xent is 'sharded' or 'chunked', not {xent!r}")
+    _, aux, hidden = lm_forward_hidden(model, tokens, remat=remat)
+    loss = ce(hidden, labels)
     if cfg.moe is not None and not cfg.moe.router_aux_free:
         loss = loss + aux_weight * aux / max(cfg.n_layers, 1)
+    if model.mtp is not None:
+        S = tokens.shape[1]
+        mask = (torch.arange(S, device=tokens.device) < S - 1).float()[None]
+        loss = loss + mtp_weight * ce(_mtp_hidden(model, tokens, hidden),
+                                      torch.roll(labels, -1, dims=1), mask)
     return loss
 
 

@@ -4,7 +4,7 @@ the reference's parameters from ``init_lm_params(PRNGKey(0))`` carried
 across by ``lm_params_from_arrays``.  ``lm_forward`` logits, ``prefill``
 logits and cache, and three ``decode_step``s are held to a relative 1e-4
 in float32 and 5e-2 in bfloat16 (max |port - reference| over max
-|reference|).  Training an MLA or MTP config raises."""
+|reference|).  An MLA or MTP config trains; an unknown arch raises."""
 import dataclasses
 
 import jax
@@ -101,19 +101,28 @@ def test_init_follows_reference_scales():
     assert not any(p.requires_grad for p in model.parameters())
 
 
-def test_mla_and_mtp_raise():
-    """Serving runs an MLA or MTP config; training one raises, naming the
-    ROADMAP item that ports it, before any work (on every device)."""
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    for over in (dict(mla=MLAConfig()), dict(mtp_depth=1)):
-        cfg = dataclasses.replace(get_reduced("qwen3-4b"), **over)
-        model = init_lm_params(torch.Generator(), cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 24"):
-            lm_loss(model, tokens, tokens)
-    model = init_lm_params(torch.Generator(),
-                           get_reduced("deepseek-v3-671b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 24"):
-        lm_loss(model, tokens, tokens)
+def test_mla_and_mtp_configs_train():
+    """An MLA or MTP config trains: ``lm_loss`` is finite and its
+    gradient reaches every parameter but the aux-free router's bias (its
+    selection only; the reference's gradient there is zero)."""
+    tokens = torch.randint(0, 64, (1, 6),
+                           generator=torch.Generator().manual_seed(0))
+    for cfg in (dataclasses.replace(get_reduced("qwen3-4b"), mla=MLAConfig(
+                    q_lora_rank=16, kv_lora_rank=8, qk_nope_head_dim=8,
+                    qk_rope_head_dim=4, v_head_dim=8)),
+                dataclasses.replace(get_reduced("qwen3-4b"), mtp_depth=1),
+                get_reduced("deepseek-v3-671b")):
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        model = init_lm_params(torch.Generator().manual_seed(1), cfg,
+                               device="cpu").requires_grad_(True)
+        loss = lm_loss(model, tokens, tokens)
+        assert bool(torch.isfinite(loss))
+        loss.backward()
+        for name, p in model.named_parameters():
+            assert (p.grad is None) == name.endswith("router_bias"), name
+
+
+def test_unknown_arch_raises():
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -8,7 +8,10 @@ at a relative 1e-5 (max |port - reference| over max |reference|), and
 both against float64 autograd of the plain forward at 1e-12.  Cases:
 GQA, causal and not, lengths off the chunk size, and a query offset.
 The autograd Functions (``FlashAttention``, ``MoeGemm``) run the same
-plain backward on a CPU tensor."""
+plain backward on a CPU tensor.  Card-only (``gpu``, skipped without a
+card): flash_attn's three backward kernels at MLA's head widths, D = 192
+and Dv = 128 (and the reduced config's 24 and 16), against the plain
+backward."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -189,11 +192,74 @@ def test_moe_bwd_route():
 
 
 def test_flash_bwd_route():
-    """The dkdv and dq kernels' variant from dtype, head width and
-    alignment alone."""
+    """The dkdv and dq kernels' variant from dtype, head widths and
+    alignment alone (v's width defaults to q's)."""
     assert flash.route_bwd(torch.bfloat16, 128) == "wgmma"
     assert flash.route_bwd(torch.bfloat16, 64, (0, 32)) == "wgmma"
     assert flash.route_bwd(torch.bfloat16, 64, (0, 8)) == "simt"
     assert flash.route_bwd(torch.bfloat16, 40) == "simt"
-    assert flash.route_bwd(torch.bfloat16, 192) == "simt"
+    assert flash.route_bwd(torch.bfloat16, 192) == "simt"     # Dv = 192
     assert flash.route_bwd(torch.float32, 128) == "simt"
+    # MLA's widths: D <= 192 and Dv <= 128, both multiples of 16
+    assert flash.route_bwd(torch.bfloat16, 192, (0, 32), 128) == "wgmma"
+    assert flash.route_bwd(torch.bfloat16, 64, (), 128) == "wgmma"
+    assert flash.route_bwd(torch.bfloat16, 24, (), 16) == "simt"
+    assert flash.route_bwd(torch.bfloat16, 208, (), 128) == "simt"
+    assert flash.route_bwd(torch.bfloat16, 192, (), 144) == "simt"
+    assert flash.route_bwd(torch.float32, 192, (), 128) == "simt"
+
+
+# (B, Sq, Skv, H, Hk, D, Dv, causal, q_offset) at MLA's widths
+MLA_BWD_CASES = [
+    (2, 128, 128, 4, 4, 24, 16, True, 0),       # the reduced config's
+    (1, 300, 300, 4, 2, 192, 128, True, 0),     # ragged causal tiles, GQA
+    (1, 200, 400, 4, 2, 192, 128, True, 130),   # q_offset past a key tile
+    (1, 100, 150, 4, 1, 192, 128, False, 0),    # non-causal, GQA 4/1
+    (1, 255, 257, 4, 4, 176, 96, True, 2),      # padded to (192, 128)
+]
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of max |plain|
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hk,D,Dv,causal,q_offset",
+                         MLA_BWD_CASES)
+def test_flash_bwd_kernels_at_mla_widths_on_card(cuda, B, Sq, Skv, H, Hk, D,
+                                                 Dv, causal, q_offset,
+                                                 dtype):
+    """"delta", "dkdv" and "dq" at D != Dv (one launch each; "wgmma" in
+    bf16 with both widths multiples of 16, else "simt") on the forward
+    kernel's own output and lse: dq and dk D wide, dv Dv wide, each
+    within BWD_TOL of the plain backward's largest magnitude and bit for
+    bit equal to a second call."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(Sq + D)
+    q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in
+               flash_inputs(B, Sq, Skv, H, Hk, D, seed=Sq, Dv=Dv))
+    do = torch.randn((B, Sq, H, Dv), generator=gen).to(cuda, dt)
+    o, lse = flash.flash_attention_k(q, k, v, causal=causal,
+                                     q_offset=q_offset, return_lse=True)
+    variant = ("wgmma" if dtype == "bfloat16" and D % 16 == 0
+               and Dv % 16 == 0 else "simt")
+    before = dict(flash.bwd_launches)
+    before_v = dict(flash.bwd_launches_by_variant)
+    got = flash.flash_attention_bwd_k(q, k, v, o, lse, do, causal, q_offset)
+    again = flash.flash_attention_bwd_k(q, k, v, o, lse, do, causal,
+                                        q_offset)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal, q_offset)
+    torch.cuda.synchronize()
+    assert all(flash.bwd_launches[n] == before[n] + 2
+               for n in flash.BWD_KERNELS)
+    assert flash.bwd_launches_by_variant[variant] == before_v[variant] + 4
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, w, width in zip(got, want, (D, D, Dv)):
+        assert g.dtype == dt and g.shape == w.shape and g.shape[-1] == width
+        err = (g.float() - w.float()).abs().max()
+        assert err <= BWD_TOL[dtype] * w.float().abs().max()
