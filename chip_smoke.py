@@ -196,11 +196,34 @@ every phase holds:
               bit-equal and falling, step ms, tokens/s, peak memory,
               launches by kernel and variant, one step profiled.
 
+21. din — DIN at its published config (tables of 50 M items, 1 M
+              categories, 8 M user features; embed_dim 18, history 100)
+              in bf16 with seeded weights, at RECSYS_SHAPES' batch sizes,
+              nothing cut: segment_spmm "sum" at serve_bulk's user bag
+              (262,144 bags of 4 rows of 18, f32 elementwise, bf16 within
+              its row's sum of |msg|) and "sum_bwd" of it (bit-exact), the
+              item table's gradient of train_batch's history (6,553,600
+              ids) through ``TableGather``'s unique plan in f32 and bf16
+              (two backwards bit-identical), each timed beside its byte
+              bound, the plain version and a library call
+              (``F.embedding_bag`` for the whole bag, ``index_add_`` for
+              the gradient); one step's loss, logits and every gradient at
+              serve_p99's batch, kernel path against plain path in f32 and
+              bf16, launches by variant; serve_p99 (200 calls, ms p50/p99),
+              serve_bulk (ms, rows/s) and retrieval_cand (one user against
+              1,000,000 candidates and the top 10, ms), peak memory each;
+              train_batch (65,536 rows a step, f32 AdamW moments, the
+              example's optimizer settings) for 20 steps twice from one
+              seed, losses bit-equal and falling, step ms p50/p90, rows/s,
+              peak memory, launches per step by variant, one step profiled
+              and split by kernel.
+
 ``--lm-train-only`` runs phases 1, 2 and 12-14 and prints no result;
 ``--gnn-train-only`` runs phases 1, 2 and 15-17 and prints no result;
 ``--dist-only`` runs phases 1, 2 and 18 and prints no result;
 ``--mla-only`` runs phases 1, 2 and 19 and prints no result;
-``--mla-train-only`` runs phases 1, 2 and 20 and prints no result.
+``--mla-train-only`` runs phases 1, 2 and 20 and prints no result;
+``--din-only`` runs phases 1, 2 and 21 and prints no result.
 Each phase prints one JSON line.  Then come the kernels line, the
 ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -320,6 +343,17 @@ MLA_TRAIN_LAYERS, MLA_TRAIN_BATCH, MLA_TRAIN_STEPS = 3, 2, 10
 # (tools/dsv3_lr_sweep.py)
 MLA_TRAIN_LR = 1e-5
 MLA_TRAIN_PARITY_SEQ = 512   # mla_train_parity: PARITY_BATCH x 512 tokens
+# DIN (phase 21): the published config (configs/din.py) in bf16 with
+# seeded weights, at RECSYS_SHAPES' batch sizes; nothing is cut
+DIN_N_UF = 4              # din_batch_stream's multi-hot user ids a row
+DIN_SERVE_BATCHES, DIN_SERVE_CALLS = 8, 200
+DIN_BULK_CALLS, DIN_RETRIEVAL_CALLS = 5, 10
+DIN_TRAIN_STEPS = 20
+DIN_TRAIN_OPT = dict(lr=2e-3, warmup_steps=10, total_steps=300,
+                     weight_decay=0.0)   # examples/serve_din.py's
+# segment_spmm's launches in one DIN training step: the user bag's "sum"
+# and "sum_bwd", and the three tables' gradient sums
+DIN_STEP_LAUNCHES = {"sum": 4, "gat": 0, "sum_bwd": 1, "gat_bwd": 0}
 DEVICE = "cuda"
 SASS_OPS = ("HGMMA", "UTMALDG")   # counted in each library's SASS
 TIMING_KEYS = {"compiles", "compile_s", "compile_cache_hits", "wave_s_total",
@@ -1529,9 +1563,11 @@ def _plain_kernels(active: bool):
     """While active, the kernel wrappers the models call (flash_attn,
     moe_gemm, segment_spmm and gat_aggregate) are swapped for their plain
     versions, so the models run the port's plain path on the card; the
-    training path's backward wrappers too, and the GNNs' differentiable
-    entries for autograd through the plain versions.  Only the parity
-    checks of phases 7, 10, 13 and 16 turn it on."""
+    training path's backward wrappers too, and the differentiable
+    segment_spmm entries (the GNNs', DIN's bag) for autograd through the
+    plain versions; DIN's table gradients then sum by id with the plain
+    "sum".  Only the parity checks (phases 7, 10, 13, 16, 19-21) and
+    serve_bulk's check of its first rows turn it on."""
     from repro_torch.kernels.flash_attn import ops as flash
     from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_ref
     from repro_torch.kernels.moe_gemm import ops as moe
@@ -3130,7 +3166,8 @@ def _profile_train_step(tr, batch, top: int = 10,
                          if any(k in e.name for k in keys)), "other")
         split[part] += ms
         if part == "other":
-            other[e.name[:80]] = other.get(e.name[:80], 0.0) + ms
+            name = e.name[:240]   # a template's functor is far in
+            other[name] = other.get(name, 0.0) + ms
     if not ranges:   # no device-side range: the CPU range's kernel time
         opt = sum(getattr(e, "device_time_total", 0.0) for e in prof.events()
                   if e.name == "trainer.adamw"
@@ -4808,6 +4845,499 @@ def phase_mla_train():
     return dict(rows=rows, launches=launches)
 
 
+# --------------------------------------------------------------------------- #
+# phase 21: DIN serving and training
+# --------------------------------------------------------------------------- #
+_DIN_STEP_SPLIT = (  # (part, kernel-name substrings), matched in this order
+    ("sum_bwd", ("segment_sum_bwd",)),
+    ("sum", ("segment_sum_kernel",)),
+    # the table gathers, and index_copy_'s deterministic index_put_
+    ("index_ops", ("index", "Index", "gather")),
+    # torch.unique, segment_plan's sorts and index_put_'s
+    ("sorts", ("Sort", "sort", "unique", "Unique")),
+    ("cat", ("CatArray",)),
+    ("gemm_library", ("gemm", "xmma", "nvjet", "cutlass")))
+
+
+def _din_cells() -> dict:
+    """The batch sizes of the port's ``RECSYS_SHAPES`` cells."""
+    from repro_torch.configs import RECSYS_SHAPES
+    return {s.name: s.dims for s in RECSYS_SHAPES}
+
+
+def _din_batch(cfg, batch: int, seed: int):
+    """The first batch of ``din_batch_stream`` at ``cfg``'s table sizes,
+    on the card."""
+    import torch
+    from repro_torch.data import din_batch_stream
+    from repro_torch.models import DINBatch
+    d = next(din_batch_stream(cfg.n_items, cfg.n_cates, cfg.n_user_feats,
+                              batch, cfg.seq_len, seed=seed))
+    return DINBatch.from_arrays(d, torch.device(DEVICE))
+
+
+def _din_kernel_checks(full, cells: dict, gen) -> dict:
+    """segment_spmm at DIN's shapes against its plain versions on the
+    card.  "sum" at serve_bulk's user bag (``bag_plan``; B x n_uf rows of
+    D = embed_dim, a row of 36 bytes in bf16, so the kernel's one-value
+    lanes): f32 elementwise at GNN_TOL against the plain version, bf16
+    (the path's dtype, out bf16) within its row's Σ|msg| in float64
+    (``_sum_ratio``).  "sum_bwd" of that bag bit-exact.  The table
+    gradient of train_batch's history (B x T item ids into the item
+    table) through ``TableGather``'s own steps: ``torch.unique``, the
+    plan of the inverse, "sum" into the touched rows, in f32 and bf16,
+    held like the bag; the whole ``TableGather`` backward twice and
+    bit-identical, its touched rows equal to the sums and the others 0.
+    Each timed beside its byte bound, its plain version and a library
+    call.  Returns the timed bf16 rows."""
+    import torch
+    from repro_torch.kernels.segment_spmm import ops
+    from repro_torch.models import TableGather
+    dev = torch.device(DEVICE)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    D = full.embed_dim
+    rows = {}
+
+    # the user bag at serve_bulk: rows gathered from the user table
+    B, n_uf = cells["serve_bulk"]["batch"], DIN_N_UF
+    plan = ops.bag_plan(B, n_uf, dev)
+    table32 = torch.randn((full.n_user_feats, D), generator=gen,
+                          device=dev) * 0.01
+    ids = torch.randint(0, full.n_user_feats, (B * n_uf,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    for dtype, dt in dts.items():
+        table = table32.to(dt)
+        msgs = table.index_select(0, ids)
+        got = ops.segment_spmm(msgs, plan.dst, B, plan, out_dtype=dt)
+        again = ops.segment_spmm(msgs, plan.dst, B, plan, out_dtype=dt)
+        want = ops.segment_spmm_plain(msgs, plan.dst, B, plan, out_dtype=dt)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"din bag sum {dtype}: two calls "
+                                       f"differ")
+        if dtype == "float32":
+            ok, err, ratio, _ = _compare(got, want, GNN_TOL)
+            gate = "elementwise against plain"
+        else:
+            s, a = _f64_sums(msgs, plan.dst, B)
+            ratio = _sum_ratio(got, s, a, out_bf16=True)
+            ok, err = ratio <= 1, float((got.double() - s).abs().max())
+            gate = "row sum of |msg|, float64"
+            del s, a
+        check(ok, f"din bag sum {dtype}: ratio {ratio} over its gate")
+        row = dict(kernel="segment_spmm", variant="sum", shape="din_user_bag",
+                   E=B * n_uf, n=B, D=D, dtype=dtype, out_dtype=dtype,
+                   max_abs_err=err, ratio=ratio, tol=GNN_TOL, check=gate,
+                   kernel_ms=cuda_ms(lambda: ops.segment_spmm(
+                       msgs, plan.dst, B, plan, out_dtype=dt)),
+                   plain_ms=cuda_ms(lambda: ops.segment_spmm_plain(
+                       msgs, plan.dst, B, plan, out_dtype=dt), iters=5),
+                   library="msgs.view(B, n_uf, D).sum(1)",
+                   library_ms=cuda_ms(
+                       lambda: msgs.view(B, n_uf, D).sum(1)),
+                   # the whole bag, gather and sum, beside one library call
+                   path_ms=cuda_ms(lambda: ops.segment_spmm(
+                       table.index_select(0, ids), plan.dst, B, plan,
+                       out_dtype=dt)),
+                   plain_path_ms=cuda_ms(lambda: ops.segment_spmm_plain(
+                       table.index_select(0, ids), plan.dst, B, plan,
+                       out_dtype=dt), iters=5),
+                   path_library="F.embedding_bag(mode='sum')",
+                   path_library_ms=cuda_ms(lambda: torch.nn.functional
+                                           .embedding_bag(
+                                               ids.view(B, n_uf), table,
+                                               mode="sum")))
+        row["bound_ms"], row["bound_by"] = _spmm_bound_ms(
+            B * n_uf, B, D, msgs.element_size(), got.element_size())
+        # gather + sum: the ids and the gathered rows read once, the bags
+        # written once
+        row["path_bound_ms"], _ = _bound(
+            4 * B * n_uf + B * n_uf * D * msgs.element_size()
+            + B * D * got.element_size(), B * n_uf * D, "float32")
+        emit(phase="din_kernels", **row)
+        rows["sum_bag", dtype] = row
+
+        # its backward: "sum_bwd", a gather of the bags' gradients
+        dout = torch.randn((B, D), generator=gen, device=dev).to(dt)
+        got = ops.segment_spmm_bwd(dout, plan.dst, B, plan, dt)
+        again = ops.segment_spmm_bwd(dout, plan.dst, B, plan, dt)
+        want = ops.segment_spmm_bwd_plain(dout, plan.dst, dt)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want) and torch.equal(got, again),
+              f"din bag sum_bwd {dtype}: differs from its plain version or "
+              f"between two calls")
+        row = dict(kernel="segment_spmm", variant="sum_bwd",
+                   shape="din_user_bag", E=B * n_uf, n=B, D=D, dtype=dtype,
+                   dout_dtype=dtype, max_abs_err=0.0, check="bit-exact",
+                   kernel_ms=cuda_ms(lambda: ops.segment_spmm_bwd(
+                       dout, plan.dst, B, plan, dt)),
+                   plain_ms=cuda_ms(lambda: ops.segment_spmm_bwd_plain(
+                       dout, plan.dst, dt)),
+                   library="dout.repeat_interleave(n_uf, 0)",
+                   library_ms=cuda_ms(lambda: dout.repeat_interleave(
+                       n_uf, 0, output_size=B * n_uf)))
+        row["bound_ms"], row["bound_by"] = _sum_bwd_bound_ms(
+            B * n_uf, B, D, got.element_size(), dout.element_size())
+        emit(phase="din_kernels", **row)
+        rows["sum_bwd_bag", dtype] = row
+        del table, msgs, got, again, want, dout
+    del table32, ids
+
+    # the item table's gradient at train_batch: its history's ids
+    batch = _din_batch(full, cells["train_batch"]["batch"], seed=1)
+    ids = batch.hist_items.reshape(-1)
+    del batch
+    E, V = ids.numel(), full.n_items
+    for dtype, dt in dts.items():
+        d_rows = (torch.randn((E, D), generator=gen, device=dev) * 1e-3
+                  ).to(dt)
+        uniq, inverse = torch.unique(ids, return_inverse=True)
+        n = uniq.numel()
+        plan = ops.segment_plan(inverse, n)
+        got = ops.segment_spmm(d_rows, inverse, n, plan, out_dtype=dt)
+        want = ops.segment_spmm_plain(d_rows, inverse, n, plan,
+                                      out_dtype=dt)
+        s, a = _f64_sums(d_rows, inverse, n)
+        torch.cuda.synchronize()
+        ratio = _sum_ratio(got, s, a, out_bf16=dtype == "bfloat16")
+        plain_ratio = _sum_ratio(want, s, a, out_bf16=dtype == "bfloat16")
+        err = float((got.double() - s).abs().max())
+        check(ratio <= 1, f"din table gradient {dtype}: error over its row "
+                          f"bound {ratio}")
+        del s, a, want
+        # TableGather's whole backward, twice: the same bits, the touched
+        # rows the sums above, every other row 0
+        table = torch.zeros((V, D), dtype=dt, device=dev, requires_grad=True)
+
+        def table_grad():
+            out = TableGather.apply(table, ids)
+            return torch.autograd.grad(out, table, d_rows)[0]
+
+        g1, g2 = table_grad(), table_grad()
+        torch.cuda.synchronize()
+        check(torch.equal(g1, g2), f"din table gradient {dtype}: two "
+                                   f"backwards differ")
+        touched = g1.index_select(0, uniq.long())
+        check(torch.equal(touched, got)
+              and int((g1 != 0).any(1).sum()) == int((got != 0).any(1).sum()),
+              f"din table gradient {dtype}: the gradient is not the sums "
+              f"at the touched rows and 0 elsewhere")
+        del g1, g2, touched
+        row = dict(kernel="segment_spmm", variant="sum",
+                   shape="din_item_table_grad", E=E, n=n, V=V, D=D,
+                   dtype=dtype, out_dtype=dtype, max_abs_err=err,
+                   row_ratio=ratio, plain_row_ratio=plain_ratio, tol=GNN_TOL,
+                   check="row sum of |msg|, float64; TableGather twice "
+                         "bit-identical",
+                   kernel_ms=cuda_ms(lambda: ops.segment_spmm(
+                       d_rows, inverse, n, plan, out_dtype=dt)),
+                   plain_ms=cuda_ms(lambda: ops.segment_spmm_plain(
+                       d_rows, inverse, n, plan, out_dtype=dt), iters=5),
+                   library="index_add_ into (n_unique, D)",
+                   library_ms=cuda_ms(lambda: torch.zeros(
+                       (n, D), dtype=dt, device=dev).index_add_(
+                       0, inverse, d_rows), iters=5),
+                   # the whole table gradient: TableGather's backward
+                   # (unique, plan, "sum", index_copy_ into zeros) beside
+                   # autograd's index_select backward (index_add_)
+                   grad_ms=cuda_ms(table_grad, iters=3),
+                   grad_library="index_add_ into (V, D)",
+                   grad_library_ms=cuda_ms(lambda: torch.zeros(
+                       (V, D), dtype=dt, device=dev).index_add_(
+                       0, ids, d_rows), iters=3))
+        row["bound_ms"], row["bound_by"] = _spmm_bound_ms(
+            E, n, D, d_rows.element_size(), got.element_size())
+        # the gradient: ids and row gradients read once, (V, D) written
+        row["grad_bound_ms"], _ = _bound(
+            4 * E + E * D * d_rows.element_size()
+            + V * D * d_rows.element_size(), E * D, "float32")
+        emit(phase="din_kernels", **row)
+        rows["table_grad", dtype] = row
+        del d_rows, uniq, inverse, plan, got, table
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _din_parity(full, cells: dict) -> None:
+    """One training step's loss, the logits and every parameter's
+    gradient at serve_p99's batch, the kernel path against the plain path
+    (``_plain_kernels``), at the published table sizes in f32 and bf16;
+    the kernel path's launches by variant."""
+    import torch
+    from repro_torch.models import DINModel, din_logits, init_din
+    from repro_torch.runtime import deterministic
+    dev = torch.device(DEVICE)
+    B = cells["serve_p99"]["batch"]
+    batch = _din_batch(full, B, seed=2)
+    parity = {}
+    for dtype, tol in (("float32", GNN_PARITY_TOL), ("bfloat16", 5e-2)):
+        cfg = dataclasses.replace(full, dtype=dtype)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(22)
+        model = DINModel(cfg, init_din(gen, cfg, dev)).requires_grad_(True)
+        params = dict(model.named_parameters())
+
+        def run(plain):
+            with _plain_kernels(plain), deterministic():
+                _zero_gnn_train_launches()
+                loss = model.loss(batch)
+                grads = torch.autograd.grad(loss, list(params.values()))
+                with torch.no_grad():
+                    logits = din_logits(model.params, cfg, batch)
+                torch.cuda.synchronize()
+                return loss.detach(), logits, grads, _gnn_train_launches()
+
+        lp, yp, gp, launches_plain = run(True)
+        lk, yk, gk, launches = run(False)
+        # the loss's bag, its three table gradients and the bag's backward;
+        # the logits' bag
+        want = dict(DIN_STEP_LAUNCHES, sum=DIN_STEP_LAUNCHES["sum"] + 1)
+        check(launches == want, f"din_parity {dtype} kernel path launches "
+                                f"{launches} != {want}")
+        check(not any(launches_plain.values()),
+              f"din_parity {dtype} plain path launched kernels: "
+              f"{launches_plain}")
+        rel = {"loss": _rel(lk, lp), "logits": _rel(yk, yp)}
+        rel.update({n: _rel(a, b) for n, a, b in zip(params, gk, gp)})
+        for key, val in rel.items():
+            check(val <= tol, f"din_parity {dtype} {key}: kernel vs plain "
+                              f"rel {val} > {tol}")
+        check(torch.isfinite(yk).all() and yk.shape == (B,),
+              f"din_parity {dtype}: logits not finite or not ({B},)")
+        worst = max(rel, key=rel.get)
+        parity[dtype] = dict(tol=tol, n_grads=len(gk),
+                             loss={"kernel": float(lk), "plain": float(lp)},
+                             rel_err_grad_max={"param": worst,
+                                               "rel": rel[worst]},
+                             rel_err=rel, kernel_launches=launches)
+        del model, params, gp, gk
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="din_parity", batch=B, parity=parity)
+
+
+def _din_serve(full, cells: dict, gen) -> dict:
+    """The serving cells on the bf16 model: serve_p99 (DIN_SERVE_CALLS
+    calls over DIN_SERVE_BATCHES batches, each call's click probabilities
+    to the host's view, ms p50/p99), serve_bulk (ms, rows/s; its first
+    rows held against the plain path on those rows alone at 5e-2) and
+    retrieval_cand (one user against the cell's candidates plus the top
+    10, ms); the peak memory of each.  Returns the launches of the
+    serve_p99 calls."""
+    import torch
+    from repro_torch.models import (DINBatch, DINModel, din_logits, init_din,
+                                    retrieval_scores)
+    dev = torch.device(DEVICE)
+    model = DINModel(full, init_din(gen, full, dev))
+    params = model.params
+    model_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    out = {}
+
+    def serve(batch):
+        with torch.no_grad():
+            return torch.sigmoid(din_logits(params, full, batch))
+
+    # serve_p99
+    B = cells["serve_p99"]["batch"]
+    batches = [_din_batch(full, B, seed=100 + i)
+               for i in range(DIN_SERVE_BATCHES)]
+    for b in batches:
+        serve(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_gnn_train_launches()
+    ms = []
+    for i in range(DIN_SERVE_CALLS):
+        t0 = time.perf_counter()
+        p = serve(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(p.shape == (B,), f"serve_p99: output {tuple(p.shape)}")
+    p99_launches = _gnn_train_launches()
+    check(p99_launches == dict(DIN_STEP_LAUNCHES, sum=DIN_SERVE_CALLS,
+                               sum_bwd=0),
+          f"serve_p99 launches {p99_launches}: one bag sum a call")
+    check(bool(torch.isfinite(p).all()), "serve_p99: a score not finite")
+    out["serve_p99"] = dict(batch=B, calls=DIN_SERVE_CALLS,
+                            ms_p50=float(np.percentile(ms, 50)),
+                            ms_p99=float(np.percentile(ms, 99)),
+                            ms_first=ms[0], rows_per_s=B / (
+                                np.percentile(ms, 50) / 1e3),
+                            peak_bytes=torch.cuda.max_memory_allocated(),
+                            launches=p99_launches)
+    del batches
+
+    # serve_bulk
+    B = cells["serve_bulk"]["batch"]
+    bulk = _din_batch(full, B, seed=200)
+    serve(bulk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(DIN_BULK_CALLS):
+        t0 = time.perf_counter()
+        p = serve(bulk)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    head = DINBatch(**{f: t[:512] for f, t in vars(bulk).items()})
+    with _plain_kernels(True):
+        want = serve(head)
+    rel = _rel(p[:512], want)
+    check(p.shape == (B,) and bool(torch.isfinite(p).all()) and rel <= 5e-2,
+          f"serve_bulk: shape {tuple(p.shape)}, its first rows rel {rel} "
+          f"against the plain path on them alone")
+    out["serve_bulk"] = dict(batch=B, calls=DIN_BULK_CALLS,
+                             ms_p50=float(np.median(ms)), ms_runs=ms,
+                             rows_per_s=B / (np.median(ms) / 1e3),
+                             peak_bytes=peak, head_rel_vs_plain=rel)
+    del bulk, head, p, want
+
+    # retrieval_cand: one user of a serve_p99 batch
+    dims = cells["retrieval_cand"]
+    user = DINBatch(**{f: t[:dims["batch"]] for f, t in
+                       vars(_din_batch(full, 512, seed=300)).items()})
+    N = dims["n_candidates"]
+    cand = torch.randint(0, full.n_items, (N,), generator=gen, device=dev)
+
+    def retrieve():
+        with torch.no_grad():
+            sc = retrieval_scores(params, full, user, cand,
+                                  cand % full.n_cates)
+            return sc, torch.topk(sc[0].float(), 10)
+
+    sc, top = retrieve()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(DIN_RETRIEVAL_CALLS):
+        t0 = time.perf_counter()
+        sc, top = retrieve()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    check(sc.shape == (dims["batch"], N) and bool(torch.isfinite(sc).all())
+          and torch.equal(top.values, sc[0].float().sort(
+              descending=True).values[:10]),
+          "retrieval_cand: scores not finite or the top 10 wrong")
+    out["retrieval_cand"] = dict(batch=dims["batch"], n_candidates=N,
+                                 calls=DIN_RETRIEVAL_CALLS,
+                                 ms_p50=float(np.median(ms)), ms_runs=ms,
+                                 peak_bytes=torch.cuda.max_memory_allocated())
+    emit(phase="din_serve", dtype=full.dtype, model_bytes=model_bytes, **out)
+    del model, params, user, cand, sc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return p99_launches
+
+
+def _din_train(full, cells: dict) -> dict:
+    """The train_batch cell: bf16 weights, f32 AdamW moments, the
+    example's optimizer settings; DIN_TRAIN_STEPS ``Trainer`` steps of
+    train_batch rows from ``din_batch_stream``, twice from one seed: the
+    losses bit-equal and falling, launches read around run 2 (per step:
+    DIN_STEP_LAUNCHES), step ms p50/p90, rows/s, peak memory; then one
+    step under ``torch.profiler`` split by kernel.  Returns run 2's
+    launches."""
+    import torch
+    from repro_torch.data import Prefetcher, din_batch_stream
+    from repro_torch.models import DINBatch, DINModel, init_din
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    dev = torch.device(DEVICE)
+    B = cells["train_batch"]["batch"]
+
+    def run_cell():
+        g = torch.Generator(device=dev)
+        g.manual_seed(23)
+        model = DINModel(full, init_din(g, full, dev))
+        tr = Trainer(lambda m, b: m.loss(b), model,
+                     AdamWConfig(**DIN_TRAIN_OPT),
+                     TrainerConfig(ckpt_dir=os.path.join(
+                         ROOT, "build", "chip_smoke_ckpt", "din"),
+                         ckpt_every=1 << 30, log_every=DIN_TRAIN_STEPS))
+        data = Prefetcher(DINBatch.from_arrays(d, dev)
+                          for d in din_batch_stream(
+                              full.n_items, full.n_cates, full.n_user_feats,
+                              B, full.seq_len, seed=1,
+                              n_steps=DIN_TRAIN_STEPS))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_gnn_train_launches()
+        t0 = time.perf_counter()
+        hist = [tr.train_step(b) for b in data]
+        torch.cuda.synchronize()
+        return dict(model=model, tr=tr, hist=hist,
+                    wall_s=time.perf_counter() - t0,
+                    peak=torch.cuda.max_memory_allocated(),
+                    launches=_gnn_train_launches())
+
+    r1 = run_cell()
+    losses1 = [h["loss"] for h in r1["hist"]]
+    n_params = sum(p.numel() for p in r1["model"].parameters())
+    del r1["model"], r1["tr"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    r2 = run_cell()
+    losses2 = [h["loss"] for h in r2["hist"]]
+    check(len(losses2) == DIN_TRAIN_STEPS
+          and all(math.isfinite(v) for v in losses2),
+          f"din_train: {len(losses2)} steps, a loss not finite")
+    check(losses1 == losses2, f"din_train: two runs differ: {losses1} vs "
+                              f"{losses2}")
+    check(losses2[-1] < losses2[0], f"din_train: the loss did not fall: "
+                                    f"{losses2}")
+    want = {k: n * DIN_TRAIN_STEPS for k, n in DIN_STEP_LAUNCHES.items()}
+    check(r2["launches"] == want,
+          f"din_train run 2 launches {r2['launches']} != {want}")
+    profile_split = _profile_train_step(
+        r2["tr"], _din_batch(full, B, seed=2), parts=_DIN_STEP_SPLIT)
+    r2["tr"].finish()
+    secs = np.asarray([h["secs"] for h in r2["hist"]]) * 1e3
+
+    emit(phase="din_train", dtype=full.dtype, n_params=n_params, batch=B,
+         steps=DIN_TRAIN_STEPS, opt=DIN_TRAIN_OPT, losses=losses2,
+         runs_bit_equal=True, step_ms_p50=float(np.percentile(secs, 50)),
+         step_ms_p90=float(np.percentile(secs, 90)),
+         step_ms_first=float(secs[0]),
+         rows_per_s=B / (float(np.percentile(secs, 50)) / 1e3),
+         wall_s={"run1": r1["wall_s"], "run2": r2["wall_s"]},
+         peak_bytes={"run1": r1["peak"], "run2": r2["peak"]},
+         launches=r2["launches"],
+         launches_per_step={k: n / DIN_TRAIN_STEPS
+                            for k, n in r2["launches"].items()},
+         profile_step=profile_split)
+    launches = r2["launches"]
+    del r2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_din():
+    """DIN serving and training: the published config (``configs/din.py``:
+    tables of 50 M items, 1 M categories and 8 M user features, embed_dim
+    18, history 100) in bf16 with seeded weights made on the card, at
+    ``RECSYS_SHAPES``' batch sizes, nothing cut.  (a) segment_spmm at
+    DIN's shapes (``_din_kernel_checks``); (b) the kernel path against
+    the plain path (``_din_parity``); (c) the serving cells
+    (``_din_serve``); (d) the training cell (``_din_train``).  Returns
+    the timed rows and the launches of serve_p99 and training run 2."""
+    import torch
+    from repro_torch.configs import get_config
+    full = get_config("din").model
+    cells = _din_cells()
+    gen = torch.Generator(device=torch.device(DEVICE))
+    gen.manual_seed(21)
+    t_phase = time.perf_counter()
+    rows = _din_kernel_checks(full, cells, gen)
+    _din_parity(full, cells)
+    serve_launches = _din_serve(full, cells, gen)
+    train_launches = _din_train(full, cells)
+    emit(phase="din", phase_s=time.perf_counter() - t_phase)
+    return dict(rows=rows, serve_launches=serve_launches,
+                train_launches=train_launches)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--full-n", type=int, default=SMOKE_N,
@@ -4833,6 +5363,9 @@ def main():
                     help="run the device and build phases, then only the "
                          "DeepSeek-V3 training phase (20), printing no "
                          "result")
+    ap.add_argument("--din-only", action="store_true",
+                    help="run the device and build phases, then only the "
+                         "DIN phase (21), printing no result")
     ap.add_argument("--dist-n", type=int, default=DIST_N,
                     help=f"vertices of the dist phase's graph (published: "
                          f"{FULL_N})")
@@ -4874,6 +5407,9 @@ def main():
         return
     if args.mla_train_only:
         phase_mla_train()
+        return
+    if args.din_only:
+        phase_din()
         return
     # the full-scale graph: its shapes and degrees drive the kernel timings
     t0 = time.perf_counter()
@@ -4974,6 +5510,11 @@ def main():
     torch.cuda.empty_cache()
     mla_train = phase_mla_train()
 
+    # DIN: the bag's and the tables' segment sums, launches read around
+    # serve_p99's calls and the training cell's second run
+    torch.cuda.empty_cache()
+    din = phase_din()
+
     # membership on the back-edge filter's own inputs, against the bound
     # of what those inputs need
     t = dict(timing["backedge_engine"],
@@ -5046,7 +5587,23 @@ def main():
          "src/repro_torch/kernels/segment_spmm/csrc/segment_spmm_bwd.cu",
          "src/repro/kernels/segment_spmm/kernel.py:35",
          gat_train_launches["gat_bwd"],
-         gnn_train_rows["gat_bwd_products_l1"])]
+         gnn_train_rows["gat_bwd_products_l1"]),
+        # DIN: the user bag's sum (serve_p99's launches), the training
+        # step's sums (the bag and the three tables' gradients; timed at
+        # the item table's) and the bag's backward, all bf16
+        ("segment_spmm_din_bag",
+         "src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu",
+         "src/repro/kernels/segment_spmm/kernel.py:35",
+         din["serve_launches"]["sum"], din["rows"]["sum_bag", "bfloat16"]),
+        ("segment_spmm_din_table_grad",
+         "src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu",
+         "src/repro/kernels/segment_spmm/kernel.py:35",
+         din["train_launches"]["sum"], din["rows"]["table_grad", "bfloat16"]),
+        ("segment_spmm_sum_bwd_din_bag",
+         "src/repro_torch/kernels/segment_spmm/csrc/segment_spmm_bwd.cu",
+         "src/repro/kernels/segment_spmm/kernel.py:35",
+         din["train_launches"]["sum_bwd"],
+         din["rows"]["sum_bwd_bag", "bfloat16"])]
     emit(kernels=[dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],

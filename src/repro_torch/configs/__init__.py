@@ -1,5 +1,5 @@
 """Configuration of the port: the RADS engine config (:mod:`.rads`) and
-the registry of the LM and GNN architectures whose modules the port has,
+the registry of the LM, GNN and recsys architectures,
 ``get_config(arch_id)`` / ``get_reduced(arch_id)``, with the same ids
 and configs as the reference's registry.
 """
@@ -9,8 +9,8 @@ import importlib
 
 from repro_torch.configs.base import (ArchConfig, GNN_SHAPES, GNNConfig,
                                       LM_SHAPES, MLAConfig, MoEConfig,
-                                      ShapeSpec, TransformerConfig,
-                                      scaled_transformer)
+                                      RECSYS_SHAPES, RecsysConfig, ShapeSpec,
+                                      TransformerConfig, scaled_transformer)
 
 _ARCH_MODULES: dict[str, str] = {
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
@@ -22,12 +22,11 @@ _ARCH_MODULES: dict[str, str] = {
     "schnet": "repro_torch.configs.schnet",
     "pna": "repro_torch.configs.pna",
     "gat-cora": "repro_torch.configs.gat_cora",
+    "din": "repro_torch.configs.din",
 }
 # architectures of the reference's registry whose modules are not ported
-# yet, each with the ROADMAP.md item that ports them
-_NOT_PORTED: dict[str, str] = {
-    "din": "queue A item 12 (DIN serving)",
-}
+# yet, each with the ROADMAP.md item that ports them (none is left)
+_NOT_PORTED: dict[str, str] = {}
 
 ARCH_IDS: tuple[str, ...] = tuple(_ARCH_MODULES)
 
@@ -47,12 +46,13 @@ def get_config(arch_id: str) -> ArchConfig:
     return _module(arch_id).CONFIG
 
 
-def get_reduced(arch_id: str) -> TransformerConfig | GNNConfig:
+def get_reduced(arch_id: str) -> TransformerConfig | GNNConfig | RecsysConfig:
     return _module(arch_id).reduced()
 
 
 __all__ = [
     "ArchConfig", "TransformerConfig", "MoEConfig", "MLAConfig", "GNNConfig",
-    "ShapeSpec", "LM_SHAPES", "GNN_SHAPES", "ARCH_IDS", "get_config",
+    "RecsysConfig", "ShapeSpec", "LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES",
+    "ARCH_IDS", "get_config",
     "get_reduced", "scaled_transformer",
 ]

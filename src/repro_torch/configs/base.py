@@ -1,7 +1,7 @@
-"""Config dataclasses of the LM and GNN families: a field-for-field copy
-of the reference's ``configs/base.py`` (transformer, MoE, MLA and GNN
-configs, the LM and GNN shape cells), so one kwargs dict builds the same
-config in both packages.  The recsys dataclasses come with their slice.
+"""Config dataclasses of the LM, GNN and recsys families: a
+field-for-field copy of the reference's ``configs/base.py`` (transformer,
+MoE, MLA, GNN and recsys configs, the LM, GNN and recsys shape cells), so
+one kwargs dict builds the same config in both packages.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ class ShapeSpec:
     """One input-shape cell. ``kind`` selects which step it drives."""
 
     name: str
-    kind: str  # train | prefill | decode | long_decode | full_graph | minibatch | batched_graphs
+    kind: str  # train | prefill | decode | long_decode | full_graph | minibatch | batched_graphs | serve | retrieval
     dims: dict[str, int] = field(default_factory=dict)
 
     def __getitem__(self, k: str) -> int:
@@ -42,6 +42,13 @@ GNN_SHAPES = (
               {"n_nodes": 2449029, "n_edges": 61859140, "d_feat": 100}),
     ShapeSpec("molecule", "batched_graphs",
               {"n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 16}),
+)
+
+RECSYS_SHAPES = (
+    ShapeSpec("train_batch", "train", {"batch": 65536}),
+    ShapeSpec("serve_p99", "serve", {"batch": 512}),
+    ShapeSpec("serve_bulk", "serve", {"batch": 262144}),
+    ShapeSpec("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 1000000}),
 )
 
 
@@ -119,7 +126,22 @@ class GNNConfig:
     family: str = "gnn"
 
 
-ModelConfig = Any  # TransformerConfig | GNNConfig (recsys: a later slice)
+@dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    kind: str = "din"
+    embed_dim: int = 18
+    seq_len: int = 100
+    attn_mlp: tuple[int, ...] = (80, 40)
+    mlp: tuple[int, ...] = (200, 80)
+    n_items: int = 50_000_000     # production-scale sparse table (rows)
+    n_cates: int = 1_000_000
+    n_user_feats: int = 8_000_000
+    dtype: str = "bfloat16"
+    family: str = "recsys"
+
+
+ModelConfig = Any  # TransformerConfig | GNNConfig | RecsysConfig
 
 
 @dataclass(frozen=True)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import GNNConfig, TransformerConfig
+from repro_torch.configs.base import GNNConfig, RecsysConfig, TransformerConfig
 from repro_torch.core.cache import AdjCache
 from repro_torch.device import resolve_device
 from repro_torch.graph.storage import PartitionedGraph
@@ -175,6 +175,16 @@ def gnn_params_from_arrays(tree: dict, cfg: GNNConfig, device=None) -> dict:
     return out
 
 
+def _arrays(tree, grad: bool):
+    """A nested dict/list of parameters (or, with ``grad``, their
+    gradients) as float32 numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _arrays(v, grad) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_arrays(v, grad) for v in tree]
+    return _array(tree, grad)
+
+
 def _stack(trees: list):
     """Per-layer trees of numpy arrays -> one tree stacked on axis 0."""
     if isinstance(trees[0], dict):
@@ -193,18 +203,35 @@ def gnn_arrays_from_model(model, grad: bool = False) -> dict:
     hold parameters and gradients against the reference's leaf by
     leaf."""
     from repro_torch.models.gnn import STACKED_KINDS
-
-    def arrays(tree):
-        if isinstance(tree, dict):
-            return {k: arrays(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [arrays(v) for v in tree]
-        return _array(tree, grad)
-
-    out = arrays(model.params)
+    out = _arrays(model.params, grad)
     if model.cfg.kind in STACKED_KINDS:
         out["layers"] = _stack(out["layers"])
     return out
+
+
+def din_params_from_arrays(tree: dict, cfg: RecsysConfig, device=None) -> dict:
+    """The port's DIN parameters from the reference's parameter pytree as
+    numpy arrays (``jax.tree.map(np.asarray, init_din(...))``): the same
+    layout, ``item_table``, ``cate_table``, ``user_table`` and the
+    ``attn`` and ``mlp`` lists of ``{w, b}``, as tensors.  The dict
+    builds a trainable model: ``DINModel(cfg, params)``."""
+    d = cfg.embed_dim
+    want = {"item_table": (cfg.n_items, d), "cate_table": (cfg.n_cates, d),
+            "user_table": (cfg.n_user_feats, d)}
+    for key, shape in want.items():
+        if np.shape(tree[key]) != shape:
+            raise ValueError(f"{cfg.name}: {key} {np.shape(tree[key])} in "
+                             f"the tree, {shape} in the config")
+    return _tensors({k: tree[k] for k in (*want, "attn", "mlp")},
+                    resolve_device(device))
+
+
+def din_arrays_from_model(model, grad: bool = False) -> dict:
+    """The inverse of :func:`din_params_from_arrays`: the reference's
+    parameter tree as float32 numpy arrays, from a
+    :class:`~repro_torch.models.recsys.DINModel`'s parameters or, with
+    ``grad``, their ``.grad``."""
+    return _arrays(model.params, grad)
 
 
 _GB_FIELDS = {"node_feats": None, "edge_src": np.int32, "edge_dst": np.int32,

@@ -2,7 +2,6 @@
 so a replay after a restore draws the same batches, with a background
 prefetch thread (double buffering).  A copy of the reference's
 ``data/pipeline.py`` (pure numpy): the same seed gives the same arrays.
-``din_batch_stream`` comes with its slice.
 """
 from __future__ import annotations
 
@@ -53,6 +52,33 @@ def lm_token_stream(vocab: int, batch: int, seq_len: int, seed: int = 0,
         toks[:, 1:] = np.where(coin, follow, toks[:, 1:])
         yield dict(tokens=toks[:, :-1].astype(np.int32),
                    labels=toks[:, 1:].astype(np.int32))
+        step += 1
+
+
+def din_batch_stream(n_items: int, n_cates: int, n_user: int, batch: int,
+                     seq_len: int, n_user_multihot: int = 4, seed: int = 0,
+                     n_steps: int | None = None):
+    """CTR stream with planted signal: label = 1 iff target cate appears in
+    the history cates (plus noise)."""
+    step = 0
+    while n_steps is None or step < n_steps:
+        rng = np.random.default_rng(seed * 7_000_003 + step)
+        hist_items = rng.integers(0, n_items, (batch, seq_len))
+        hist_cates = hist_items % n_cates
+        hist_len = rng.integers(seq_len // 4, seq_len + 1, (batch,))
+        mask = np.arange(seq_len)[None, :] < hist_len[:, None]
+        tgt_item = rng.integers(0, n_items, (batch,))
+        tgt_cate = tgt_item % n_cates
+        match = ((hist_cates == tgt_cate[:, None]) & mask).any(1)
+        noise = rng.random(batch) < 0.1
+        labels = np.where(noise, ~match, match).astype(np.float32)
+        yield dict(user_feats=rng.integers(0, n_user, (batch, n_user_multihot)).astype(np.int32),
+                   target_item=tgt_item.astype(np.int32),
+                   target_cate=tgt_cate.astype(np.int32),
+                   hist_items=hist_items.astype(np.int32),
+                   hist_cates=hist_cates.astype(np.int32),
+                   hist_mask=mask,
+                   labels=labels)
         step += 1
 
 

@@ -37,6 +37,7 @@ the card's checks hold them against.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -144,6 +145,29 @@ def segment_plan(dst: torch.Tensor, n: int, src: torch.Tensor | None = None,
         perm, rowptr, spans, n_heavy, dst, src, mask,
         None if src is None else src.index_select(0, perm).to(torch.int32),
         None if mask is None else mask.index_select(0, perm))
+
+
+@functools.lru_cache(maxsize=32)
+def bag_plan(n_bags: int, bag_size: int, device) -> SegmentPlan:
+    """The plan of ``n_bags`` regular bags of ``bag_size`` consecutive
+    messages each, ``dst = repeat(arange(n_bags), bag_size)`` (int64):
+    field for field what ``segment_plan(dst, n_bags)`` builds, in closed
+    form, so that no call waits for the device (``segment_plan`` reads
+    its counts back).  Cached per ``(n_bags, bag_size, device)``: a
+    serving call with a batch size seen before builds nothing."""
+    E = n_bags * bag_size
+    if E > MAX_INDEX or not 0 <= n_bags <= MAX_INDEX or bag_size < 0:
+        raise ValueError(f"bag_plan takes E and n below 2**31, got "
+                         f"{n_bags} bags of {bag_size}")
+    rows = torch.arange(n_bags, dtype=torch.int32, device=device)
+    rowptr = torch.arange(n_bags + 1, dtype=torch.int32,
+                          device=device) * bag_size
+    spans = torch.stack([rows, rowptr[:-1], rowptr[1:],
+                         torch.zeros_like(rows)], 1)
+    dst = rows.long()[:, None].expand(n_bags, bag_size).reshape(E)
+    return SegmentPlan(torch.arange(E, dtype=torch.int32, device=device),
+                       rowptr, spans, n_bags if bag_size > HUB_DEGREE else 0,
+                       dst)
 
 
 def source_plan(plan: SegmentPlan) -> SegmentPlan:

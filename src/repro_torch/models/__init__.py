@@ -1,12 +1,16 @@
 """The model stack of the port: the LM transformer for serving and
-training (dense GQA and MoE) and the GNNs (GraphCast, SchNet, PNA, GAT)
-for serving and training.  The recsys models come with their slice."""
+training (dense GQA, MoE and MLA), the GNNs (GraphCast, SchNet, PNA,
+GAT) and DIN with its EmbeddingBag, each for serving and training."""
 from repro_torch.models.gnn import (GNNModel, GraphBatch, gat_forward,
                                     gnn_forward, gnn_loss, graphcast_forward,
                                     init_gat, init_gnn, init_graphcast,
                                     init_pna, init_schnet, pna_forward,
                                     schnet_forward)
 from repro_torch.models.layers import flash_attention, moe_block, rms_norm
+from repro_torch.models.recsys import (DINBatch, DINModel, TableGather,
+                                       din_logits, din_loss, din_user_state,
+                                       embedding_bag, init_din,
+                                       retrieval_scores)
 from repro_torch.models.transformer import (Block, CacheSpec, TransformerLM,
                                             cache_spec, chunked_xent,
                                             decode_step, init_cache,
@@ -23,4 +27,6 @@ __all__ = [
     "gat_forward",
     "graphcast_forward", "pna_forward", "schnet_forward", "init_gat",
     "init_graphcast", "init_pna", "init_schnet",
+    "DINBatch", "DINModel", "TableGather", "din_logits", "din_loss",
+    "din_user_state", "embedding_bag", "init_din", "retrieval_scores",
 ]

@@ -380,7 +380,7 @@ def gnn_loss(params: dict, cfg: GNNConfig, gb: GraphBatch) -> torch.Tensor:
     return ((lse - picked) * mask).sum() / denom
 
 
-class _Tree(nn.Module):
+class ParamTree(nn.Module):
     """A nested dict or list of tensors as modules and parameters (a
     leaf's name is its path: ``layers.0.edge_mlp.1.w``); :meth:`tree`
     gives the nesting back, with the parameters as leaves."""
@@ -394,12 +394,12 @@ class _Tree(nn.Module):
                 self.register_parameter(
                     str(key), nn.Parameter(val, requires_grad=False))
             else:
-                self.add_module(str(key), _Tree(val))
+                self.add_module(str(key), ParamTree(val))
 
     def tree(self):
         def leaf(name):
             child = getattr(self, name)
-            return child.tree() if isinstance(child, _Tree) else child
+            return child.tree() if isinstance(child, ParamTree) else child
         if self._keys is not None:
             return {k: leaf(str(k)) for k in self._keys}
         return [leaf(str(i)) for i in range(len(self._parameters)
@@ -416,7 +416,7 @@ class GNNModel(nn.Module):
     def __init__(self, cfg: GNNConfig, params: dict):
         super().__init__()
         self.cfg = cfg
-        self.net = _Tree(params)
+        self.net = ParamTree(params)
 
     @property
     def params(self) -> dict:

@@ -98,6 +98,7 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.kernels.moe_gemm.ops, "
             "repro_torch.kernels.moe_gemm.kernel, "
             "repro_torch.models.gnn, repro_torch.configs.gat_cora, "
+            "repro_torch.models.recsys, repro_torch.configs.din, "
             "repro_torch.configs.graphcast, repro_torch.configs.schnet, "
             "repro_torch.configs.pna, "
             "repro_torch.kernels.segment_spmm.ops, "

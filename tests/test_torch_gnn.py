@@ -150,7 +150,7 @@ def test_gat_aggregate_plain_is_the_layer_before(case, dtype, acc):
         assert not got[ALL_MASKED_NODE].any()
 
 
-@pytest.mark.parametrize("arch", [*GNN_ARCHS, "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", [*GNN_ARCHS, "deepseek-v3-671b", "din"])
 def test_registry_matches_reference(arch):
     assert (dataclasses.asdict(get_config(arch).model)
             == dataclasses.asdict(jax_config(arch).model))
@@ -160,10 +160,14 @@ def test_registry_matches_reference(arch):
             == [dataclasses.asdict(s) for s in jax_config(arch).shapes])
 
 
-@pytest.mark.parametrize("arch,item", [("din", "item 12")])
-def test_unported_archs_raise(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        get_config(arch)
+def test_unported_archs_raise():
+    """Every architecture of the reference's registry is ported, and an
+    id it does not know raises."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    from repro_torch.configs import _NOT_PORTED, ARCH_IDS
+    assert not _NOT_PORTED and sorted(ARCH_IDS) == sorted(JAX_ARCH_IDS)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 def test_plan_built_once_per_batch():

@@ -5,8 +5,8 @@ segment_spmm in both its variants and their backward kernels) against
 their plain PyTorch versions, the whole engine on the card — dense and
 bucketed storage, raw and varint wire, and two ``dist`` ranks sharing the
 card — the reduced OLMoE serving path
-and training step and the four reduced GNNs' forward and training step,
-against the port's CPU path.
+and training step the four reduced GNNs' forward and training step, and reduced DIN's
+training step, against the port's CPU path.
 They skip without a CUDA card, and import no JAX, so they run where
 only PyTorch is installed:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``."""
@@ -923,3 +923,43 @@ def test_gnn_training_step_on_card_matches_cpu(cuda, arch):
     for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
         err = (q.grad.cpu() - p.grad).abs().max()
         assert err <= 1e-4 * p.grad.abs().max().clamp_min(1e-30), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_din_training_step_on_card_matches_cpu(cuda, dtype, tol):
+    """Reduced DIN: the loss and every gradient on the card (the bag
+    through "sum" and "sum_bwd", each table's gradient through
+    ``TableGather``'s "sum") against the port's CPU run of the same
+    weights and batch, and the same bits from a second step."""
+    from repro_torch.data import din_batch_stream
+    from repro_torch.models import DINBatch, DINModel, init_din
+    cfg = dataclasses.replace(get_reduced("din"), dtype=dtype)
+    params = init_din(torch.Generator().manual_seed(0), cfg, device="cpu")
+    arrays = next(din_batch_stream(cfg.n_items, cfg.n_cates,
+                                   cfg.n_user_feats, 64, cfg.seq_len))
+
+    def step(model, device):
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(DINBatch.from_arrays(arrays, device))
+        loss.backward()
+        return loss.detach(), [p.grad.clone() for p in model.parameters()]
+
+    card = DINModel(cfg, _to(params, cuda)).requires_grad_(True)
+    before = {**spmm_ops.launches_by_variant,
+              **spmm_ops.bwd_launches_by_variant}
+    loss, grads = step(card, cuda)
+    torch.cuda.synchronize()
+    after = {**spmm_ops.launches_by_variant,
+             **spmm_ops.bwd_launches_by_variant}
+    assert {k: after[k] - before[k] for k in ("sum", "sum_bwd")} == {
+        "sum": 4, "sum_bwd": 1}
+    loss2, grads2 = step(card, cuda)
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    cpu = DINModel(cfg, params).requires_grad_(True)
+    want, want_grads = step(cpu, "cpu")
+    assert abs(float(loss) - float(want)) <= tol * abs(float(want))
+    for (name, _), g, w in zip(cpu.named_parameters(), grads, want_grads):
+        err = (g.cpu().float() - w.float()).abs().max()
+        assert err <= tol * w.float().abs().max().clamp_min(1e-30), name
