@@ -39,7 +39,8 @@ every phase holds:
               the brute-force oracle, every stat equals the port's own CPU
               run, cache on/off conserves fetch bytes, depth 1 == depth 2;
               and the same for bucketed storage with the varint wire;
-5. full     — two runs of q1 on a DBLP-sized power-law graph (310,000
+5. full     — two runs of q1 (stages as CUDA graphs, phase 22) on a
+              DBLP-sized power-law graph (310,000
               vertices; com-DBLP has 317,080, see ``SMOKE_N``), each held
               against an independent scipy triangle count, with every
               kernel's launch count read around the run: the main path
@@ -51,7 +52,10 @@ every phase holds:
               and the varint codec's launches by variant (the
               bucketed/varint run must launch "encode_ids", "encode_rows"
               and "decode_rows").  The main path's run is repeated under
-              ``torch.profiler`` (the timed run stays unprofiled): the
+              ``torch.profiler`` through the timed run's
+              ``runner_cache`` (a warm call from the escalated
+              capacities, replaying the graphs captured there; the timed
+              run stays unprofiled): the
               card's busy time, idle share, membership's device ms and
               kernels, and the top 8 other kernels (a profile of the
               bucketed/varint run takes about 4 minutes, too many for the
@@ -218,12 +222,36 @@ every phase holds:
               peak memory, launches per step by variant, one step profiled
               and split by kernel.
 
+22. exec — the stage executables (RADS stages as CUDA graphs from
+              ``StageRunner``'s slot table, the per-host store of
+              ``runtime/compile_cache.py``, the background pre-warm):
+              on the small graph, q1..q8 in three configurations
+              (dense/raw, bucketed/varint, cache off), q1, q3 and q6
+              under the ``gather`` exchange, q1 at
+              ``pipeline_depth="auto"`` and q6 at caps from which it
+              escalates three times, each graphed against the card's
+              eager stages (``StageRunner(eager=True)``): counts,
+              embeddings and every non-timing stat equal; q1 twice
+              through ``runner_cache``, the second call capturing
+              nothing and launching what an eager second call launches;
+              a cold process (empty kernel directory and store) and a
+              warm one (another empty kernel directory, the store the
+              cold one filled): the warm one captures nothing that counts
+              as a compile, hits every stage, builds no kernel, and each
+              first call is timed beside the host's graph, partition and
+              plan time; a corrupted entry warns and is captured afresh;
+              then the full cell's dense/raw run of phase 5, graphed,
+              against an eager run of the same cell (every stat; wall
+              time, peak memory, captures, ``compile_s``).
+
 ``--lm-train-only`` runs phases 1, 2 and 12-14 and prints no result;
 ``--gnn-train-only`` runs phases 1, 2 and 15-17 and prints no result;
 ``--dist-only`` runs phases 1, 2 and 18 and prints no result;
 ``--mla-only`` runs phases 1, 2 and 19 and prints no result;
 ``--mla-train-only`` runs phases 1, 2 and 20 and prints no result;
-``--din-only`` runs phases 1, 2 and 21 and prints no result.
+``--din-only`` runs phases 1, 2 and 21 and prints no result;
+``--exec-only`` runs phases 1, 2 and 22 without its full cell and prints
+no result.  Phase 22 runs after phase 5 (it takes phase 5's full run).
 Each phase prints one JSON line.  Then come the kernels line, the
 ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -278,6 +306,14 @@ MOE_ROW_CHECK = ("float32", 1)
 # it against the exact function (``plain_vs_exact_elem_ratio``)
 SMALL_CAPS = dict(frontier_cap=1 << 12, fetch_cap=256, verify_cap=1024,
                   region_group_budget=1 << 11)
+# phase 22: the small graph's three configurations, and caps from which q6
+# escalates three times
+EXEC_CONFIGS = {"dense/raw": {},
+                "bucketed/varint": dict(storage_format="bucketed",
+                                        wire_format="varint"),
+                "cache_off": dict(enable_cache=False)}
+ESCALATE_CAPS = dict(frontier_cap=1 << 8, fetch_cap=16, verify_cap=64,
+                     region_group_budget=1 << 11)
 # GNN forward (phases 9-11): GNN_SHAPES' ogb_products and full_graph_sm at
 # their published sizes, neither cut, on seeded synthetic graphs
 GNN_ARCHS = ("gat-cora", "graphcast", "schnet", "pna")
@@ -358,7 +394,7 @@ DEVICE = "cuda"
 SASS_OPS = ("HGMMA", "UTMALDG")   # counted in each library's SASS
 TIMING_KEYS = {"compiles", "compile_s", "compile_cache_hits", "wave_s_total",
                "sme_wall_us", "dist_wall_us", "wall_us", "sme_pipeline_s",
-               "dist_pipeline_s", "exec_cache_enabled"}
+               "dist_pipeline_s", "exec_cache_enabled", "exec_cache"}
 
 
 def emit(**kw) -> None:
@@ -1131,8 +1167,10 @@ def phase_full(g, pg, expect: int, setup_s: float, storage: str,
     """One full-scale q1 run in the given storage and wire formats, with
     every kernel's launch count and launch shapes set to 0 just before it
     and read just after.  With ``profile``, q1 runs once more under
-    ``torch.profiler`` (the timed run stays unprofiled) for the card's
-    time by kernel.  Returns ``(launches, stats)``."""
+    ``torch.profiler`` through the timed run's ``runner_cache`` (a warm
+    call, replaying its graphs; the timed run stays unprofiled) for the
+    card's time by kernel.  Returns ``(launches, stats, {wall_s, peak,
+    warm})``."""
     import dataclasses
 
     import torch
@@ -1155,9 +1193,11 @@ def phase_full(g, pg, expect: int, setup_s: float, storage: str,
     varint.launches_by_variant = dict.fromkeys(varint.VARIANTS, 0)
     memb.shapes.clear()
     inter.shapes.clear()
+    # the profiled rerun replays this run's graphs
+    rc = {} if profile else None
     t0 = time.perf_counter()
     res = rads_enumerate(pg, pat, cfg, return_embeddings=False,
-                         tracer=tracer, device=DEVICE)
+                         tracer=tracer, runner_cache=rc, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in kernels.items()}
@@ -1208,9 +1248,10 @@ def phase_full(g, pg, expect: int, setup_s: float, storage: str,
          launch_shapes={k: _shape_counts(v) for k, v in shapes.items()},
          est_kernel_device_ms={
              k: _est_device_ms(v, per_row_ms) for k, v in shapes.items()})
+    run = dict(wall_s=wall, peak=peak)
     if profile:
-        _profile_full(pg, pat, cfg, expect, tag, launches)
-    return launches, st
+        run["warm"] = _profile_full(pg, pat, cfg, expect, tag, rc)
+    return launches, st, run
 
 
 # each varint variant's passes, by the name its kernels share: a launch
@@ -1220,23 +1261,27 @@ VARINT_PASSES = {"varint_ids": {"encode_ids": 3, "delta_vlen": 2},
                  "varint_decode": {"decode_rows": 3}}
 
 
-def _profile_full(pg, pat, cfg, expect: int, tag: str, launches: dict):
-    """q1 once more under ``torch.profiler`` (device activity only): the
-    card's busy time and idle share, membership's, intersect's and the
-    varint codec's device ms and kernels (which must be the timed run's
-    launches, times each varint variant's passes), and the top 8 other
-    kernels."""
+def _profile_full(pg, pat, cfg, expect: int, tag: str, rc: dict) -> dict:
+    """q1 once more under ``torch.profiler`` (device activity only),
+    through the timed run's ``runner_cache`` ``rc``: a warm call that
+    starts from the capacities the timed run escalated to, replays the
+    graphs it captured there and captures the SM-E ladder at them.  The card's busy time and idle share, membership's,
+    intersect's and the varint codec's device ms and kernels (which must
+    be this call's launches, times each varint variant's passes), and
+    the top 8 other kernels.  Returns the row."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import rads_enumerate
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    before = _rads_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         res = rads_enumerate(pg, pat, cfg, return_embeddings=False,
-                             device=DEVICE)
+                             runner_cache=rc, device=DEVICE)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3
+    launches = {k: n - before[k] for k, n in _rads_counts().items()}
     check(res.count == expect, f"profiled q1 ({tag}) count {res.count} != "
                                f"scipy triangles {expect}")
     split = _kernel_times(prof, wall, named=("membership", "intersect",
@@ -1248,9 +1293,14 @@ def _profile_full(pg, pat, cfg, expect: int, tag: str, launches: dict):
     for name, row in split["named"].items():
         check(row["count"] == want[name],
               f"profiled q1 ({tag}) shows {row['count']} {name} kernels, "
-              f"the timed run's launches give {want[name]}")
-    emit(phase="full_profile", storage=cfg.storage_format,
-         wire=cfg.wire_format, added_s=time.perf_counter() - t0, **split)
+              f"its launches give {want[name]}")
+    row = dict(phase="full_profile", storage=cfg.storage_format,
+               wire=cfg.wire_format, warm=True, launches=launches,
+               captures=res.stats["compiles"], n_waves=res.stats["n_waves"],
+               cap_escalations=res.stats["cap_escalations"],
+               added_s=time.perf_counter() - t0, **split)
+    emit(**row)
+    return row
 
 
 # --------------------------------------------------------------------------- #
@@ -5338,6 +5388,310 @@ def phase_din():
                 train_launches=train_launches)
 
 
+# --------------------------------------------------------------------------- #
+# phase 22: stage executables
+# --------------------------------------------------------------------------- #
+def _rads_counts() -> dict:
+    """The RADS kernels' launch counts: membership, intersect and the
+    varint codec by variant."""
+    from repro_torch.kernels.intersect import ops as inter
+    from repro_torch.kernels.membership import ops as memb
+    from repro_torch.kernels.varint import ops as varint
+    return {"membership": memb.launches, "intersect": inter.launches,
+            **{f"varint.{v}": n
+               for v, n in varint.launches_by_variant.items()}}
+
+
+def _eager_runner_cache(pg, pat, cfg, mode: str = "sim") -> dict:
+    """A ``runner_cache`` holding, under the driver's key for this call,
+    a :class:`StageRunner` built as the driver builds it but with
+    ``eager=True``: the card's eager path, to hold the graphs against."""
+    import torch
+    from repro_torch.core.cache import build_cache
+    from repro_torch.core.engine import build_plan_data
+    from repro_torch.core.exchange import Exchange
+    from repro_torch.core.plan import best_plan
+    from repro_torch.core.scheduler import StageRunner
+    from repro_torch.graph.storage import device_graph
+    exch = Exchange(mode, wire_format=cfg.wire_format)
+    g = device_graph(pg, cfg.storage_format, DEVICE)
+    runner = StageRunner(g, build_plan_data(best_plan(pat, cfg.plan_rho)),
+                         cfg, exch, cache=build_cache(cfg, g), eager=True)
+    key = (mode, id(pg), pat, cfg, None, str(torch.device(DEVICE)))
+    return {key: (pg, None, runner)}
+
+
+def _eager_run(pg, pat, cfg, rc: dict, **kw):
+    """``rads_enumerate`` through the eager runner of ``rc``; fails if
+    the driver built another runner (its key moved) or captured."""
+    from repro_torch.core import rads_enumerate
+    res = rads_enumerate(pg, pat, cfg, runner_cache=rc, device=DEVICE, **kw)
+    check(len(rc) == 1, "the eager runner was not used: the driver's "
+                        "runner key differs from _eager_runner_cache's")
+    check(res.stats["compiles"] == 0 and not res.stats["exec_cache_enabled"],
+          "the eager runner captured")
+    return res
+
+
+def _same_run(got, want, what: str, skip=()) -> None:
+    """Count, embeddings and every non-timing stat equal."""
+    check(got.count == want.count,
+          f"{what}: count {got.count} != {want.count}")
+    check(got.embeddings == want.embeddings, f"{what}: embeddings differ")
+    for key in (set(got.stats) | set(want.stats)) - TIMING_KEYS - set(skip):
+        check(got.stats.get(key) == want.stats.get(key),
+              f"{what}: stat {key} differs between the graphed and the "
+              f"eager run: {got.stats.get(key)!r} vs "
+              f"{want.stats.get(key)!r}")
+
+
+def _exec_child(store: str, build_dir: str, timeout: float = 300.0) -> dict:
+    """This script in a fresh process (``--exec-store-child``): the
+    small graph's q1 through a fresh runner with ``compile_cache_dir =
+    store`` and the kernel build directory ``build_dir``, dense/raw
+    first (its first call timed) then bucketed/varint."""
+    spec = json.dumps(dict(store=store, build_dir=build_dir))
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--exec-store-child", spec],
+                       capture_output=True, text=True, timeout=timeout)
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+    check(p.returncode == 0 and lines,
+          f"exec store child failed (rc {p.returncode}): "
+          f"{p.stdout[-2000:]}{p.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def exec_store_child(spec: str) -> None:
+    """The child of :func:`_exec_child`: prints one JSON line."""
+    import torch
+    from pathlib import Path
+    from repro_torch.configs.rads import QUERIES, EngineConfig
+    from repro_torch.core import Pattern, rads_enumerate
+    from repro_torch.core.plan import best_plan
+    from repro_torch.graph import erdos_graph, partition
+    from repro_torch.kernels import build
+    spec = json.loads(spec)
+    build.BUILD_DIR = Path(spec["build_dir"])
+    built = []
+    real_build = build.build
+
+    def counting_build(sources):
+        took = real_build(sources)
+        built.extend(s.name for s in took)
+        return took
+    build.build = counting_build
+    t0 = time.perf_counter()
+    g = erdos_graph(120, 5.0, seed=5)
+    t1 = time.perf_counter()
+    pg = partition(g, 8, method="bfs")
+    t2 = time.perf_counter()
+    pat = Pattern.from_edges(QUERIES["q1"])
+    best_plan(pat, 1.0)
+    host = dict(graph_s=t1 - t0, partition_s=t2 - t1,
+                plan_s=time.perf_counter() - t2)
+    runs = {}
+    for name, kw in EXEC_CONFIGS.items():
+        if name == "cache_off":
+            continue
+        rc: dict = {}
+        cfg = EngineConfig(**SMALL_CAPS, compile_cache_dir=spec["store"],
+                           **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rads_enumerate(pg, pat, cfg, runner_cache=rc, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runner = next(iter(rc.values()))[-1]
+        st = res.stats
+        runs[name] = dict(
+            first_call_s=wall, count=res.count,
+            embeddings=sorted(res.embeddings), compiles=st["compiles"],
+            compile_s=st["compile_s"],
+            compile_cache_hits=st["compile_cache_hits"],
+            exec_cache=st["exec_cache"],
+            exec_cache_enabled=st["exec_cache_enabled"],
+            stages=len(runner._slots),
+            entries=runner.exec_cache.entries(),
+            stats={k: v for k, v in st.items()
+                   if k not in TIMING_KEYS})
+    print(json.dumps(dict(runs=runs, host=host, nvcc_built=built,
+                          libraries=sorted(p.name for p in
+                                           build.BUILD_DIR.glob("*.so"))),
+                     default=str), flush=True)
+
+
+def phase_exec(full=None):
+    """Phase 22 (module docstring).  ``full``: phase 5's graphed dense/raw
+    run of the full cell, ``(g, pg, expect, stats, run)``, held against
+    an eager run of the same cell."""
+    import tempfile
+    import warnings
+    import torch
+    from repro_torch.configs.rads import QUERIES, EngineConfig
+    from repro_torch.core import Pattern, rads_enumerate
+    from repro_torch.graph import erdos_graph, partition
+    from repro_torch.runtime.compile_cache import StageExecCache
+    t_phase = time.perf_counter()
+    pg = partition(erdos_graph(120, 5.0, seed=5), 8, method="bfs")
+    # (a) q1-q8 in three configurations, graphed against eager
+    small = {}
+    for name, kw in EXEC_CONFIGS.items():
+        captures, compile_s, wall = 0, 0.0, {"graphed": 0.0, "eager": 0.0}
+        for q, edges in QUERIES.items():
+            pat = Pattern.from_edges(edges)
+            cfg = EngineConfig(**SMALL_CAPS, **kw)
+            t0 = time.perf_counter()
+            got = rads_enumerate(pg, pat, cfg, device=DEVICE)
+            wall["graphed"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = _eager_run(pg, pat, cfg, _eager_runner_cache(pg, pat, cfg))
+            wall["eager"] += time.perf_counter() - t0
+            _same_run(got, want, f"exec {q} {name}")
+            check(got.stats["compiles"] > 0, f"exec {q} {name}: no capture")
+            captures += got.stats["compiles"]
+            compile_s += got.stats["compile_s"]
+        small[name] = dict(captures=captures, compile_s=compile_s,
+                           wall_s=wall)
+    # the gather exchange, dense/raw
+    for q in ("q1", "q3", "q6"):
+        pat = Pattern.from_edges(QUERIES[q])
+        cfg = EngineConfig(**SMALL_CAPS)
+        got = rads_enumerate(pg, pat, cfg, mode="gather", device=DEVICE)
+        check(got.stats["compiles"] > 0, f"exec {q} gather: no capture")
+        _same_run(got, _eager_run(pg, pat, cfg, _eager_runner_cache(
+            pg, pat, cfg, "gather"), mode="gather"), f"exec {q} gather")
+    # (b) q1 twice through runner_cache, graphed and eager: the second
+    # graphed call captures nothing and launches what the eager one does
+    pat = Pattern.from_edges(QUERIES["q1"])
+    cfg = EngineConfig(**SMALL_CAPS)
+    g_rc, e_rc = {}, _eager_runner_cache(pg, pat, cfg)
+    calls = []
+    for _ in range(2):
+        before = _rads_counts()
+        t0 = time.perf_counter()
+        got = rads_enumerate(pg, pat, cfg, runner_cache=g_rc, device=DEVICE)
+        t1 = time.perf_counter()
+        mid = _rads_counts()
+        want = _eager_run(pg, pat, cfg, e_rc)
+        t2 = time.perf_counter()
+        after = _rads_counts()
+        _same_run(got, want, f"exec q1 call {len(calls) + 1}")
+        calls.append(dict(
+            wall_s=dict(graphed=t1 - t0, eager=t2 - t1),
+            compiles=got.stats["compiles"], compile_s=got.stats["compile_s"],
+            launches_graphed={k: mid[k] - before[k] for k in mid},
+            launches_eager={k: after[k] - mid[k] for k in mid}))
+    check(calls[1]["compiles"] == 0 and calls[1]["compile_s"] == 0.0,
+          f"second call through runner_cache captured: {calls[1]}")
+    check(calls[1]["launches_graphed"] == calls[1]["launches_eager"],
+          f"the second call's replays credit other launches than the "
+          f"eager run's: {calls[1]}")
+    # (c) pipeline_depth="auto" (its depth steers from wall time) and (d)
+    # a run that escalates its capacities
+    cfg = EngineConfig(**SMALL_CAPS, pipeline_depth="auto")
+    got = rads_enumerate(pg, pat, cfg, device=DEVICE)
+    _same_run(got, _eager_run(pg, pat, cfg, _eager_runner_cache(pg, pat,
+                                                                 cfg)),
+              "exec q1 auto depth", skip=("auto_depth", "max_inflight_waves"))
+    pat6 = Pattern.from_edges(QUERIES["q6"])
+    cfg = EngineConfig(**ESCALATE_CAPS)
+    esc = rads_enumerate(pg, pat6, cfg, device=DEVICE)
+    _same_run(esc, _eager_run(pg, pat6, cfg,
+                              _eager_runner_cache(pg, pat6, cfg)),
+              "exec q6 escalating")
+    check(esc.stats["cap_escalations"] > 0, "exec q6: no escalation")
+    # (e) the store: a cold process (empty kernel directory, empty store)
+    # fills it; a warm one (another empty kernel directory) must capture
+    # nothing, hit every stage and build nothing; a corrupted entry warns
+    # and is captured afresh
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        store = os.path.join(tmp, "store")
+        cold = _exec_child(store, os.path.join(tmp, "kernels_cold"))
+        warm = _exec_child(store, os.path.join(tmp, "kernels_warm"))
+        check(cold["nvcc_built"], "the cold process built no kernel")
+        check(not warm["nvcc_built"],
+              f"the warm process ran nvcc: {warm['nvcc_built']}")
+        check(warm["libraries"] == cold["libraries"],
+              f"the store restored {warm['libraries']}, the cold process "
+              f"built {cold['libraries']}")
+        for name, w in warm["runs"].items():
+            c = cold["runs"][name]
+            # stages of one call that another already stored (finalize
+            # reads no graph, so both formats share it) hit in the cold
+            # process too
+            check(c["compiles"] > 0 and c["compiles"]
+                  + c["compile_cache_hits"] == c["stages"],
+                  f"cold {name}: {c['compiles']} captures and "
+                  f"{c['compile_cache_hits']} hits for {c['stages']} "
+                  f"stages")
+            check(w["compiles"] == 0 and w["exec_cache_enabled"]
+                  and w["compile_cache_hits"] == w["stages"],
+                  f"warm {name}: compiles {w['compiles']}, hits "
+                  f"{w['compile_cache_hits']} for {w['stages']} stages")
+            check((w["count"], w["embeddings"], w["stats"])
+                  == (c["count"], c["embeddings"], c["stats"]),
+                  f"warm {name}: results differ from the cold process's")
+        entry = cold["runs"]["dense/raw"]["entries"][0]
+        with open(os.path.join(store, entry + ".stagex"), "wb") as f:
+            f.write(b"not an envelope")
+        StageExecCache.clear_memory_memo()
+        cfg = EngineConfig(**SMALL_CAPS, compile_cache_dir=store)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            bad = rads_enumerate(pg, pat, cfg, device=DEVICE)
+        check(any("unusable entry" in str(w.message) for w in caught),
+              "a corrupted entry gave no warning")
+        check(bad.stats["compiles"] == 1
+              and bad.stats["exec_cache"]["errors"] == 1,
+              f"a corrupted entry: compiles {bad.stats['compiles']}, "
+              f"store {bad.stats['exec_cache']}")
+        _same_run(bad, rads_enumerate(pg, pat, EngineConfig(**SMALL_CAPS),
+                                      device=DEVICE), "exec corrupted entry")
+    first_call = {}
+    for kind, child in (("cold", cold), ("warm", warm)):
+        first_call[kind] = dict(host=child["host"],
+                                nvcc_built=child["nvcc_built"])
+        for name, r in child["runs"].items():
+            first_call[kind][name] = {k: r[k] for k in (
+                "first_call_s", "compiles", "compile_s",
+                "compile_cache_hits", "stages")}
+    row = dict(phase="exec", graph="erdos_graph(120, 5.0, seed=5) bfs/8",
+               small=small, runner_cache_calls=calls,
+               escalations=esc.stats["cap_escalations"],
+               escalation_captures=esc.stats["compiles"],
+               first_call=first_call)
+    # (f) the full cell: phase 5's graphed run against an eager run
+    if full is not None:
+        g, fpg, expect, dense, graphed = full
+        from repro_torch.configs.rads import DEFAULT_ENGINE
+        qpat = Pattern.from_edges(QUERIES["q1"])
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eager = _eager_run(fpg, qpat, DEFAULT_ENGINE, _eager_runner_cache(
+            fpg, qpat, DEFAULT_ENGINE), return_embeddings=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(eager.count == expect, f"eager full q1 count {eager.count}")
+        for key in set(dense) - TIMING_KEYS:
+            check(dense[key] == eager.stats[key],
+                  f"full q1 stat {key}: graphed {dense[key]!r} != eager "
+                  f"{eager.stats[key]!r}")
+        warm = graphed.get("warm") or {}
+        row["full"] = dict(
+            graphed=dict(wall_s=graphed["wall_s"], peak=graphed["peak"],
+                         captures=dense["compiles"],
+                         compile_s=dense["compile_s"]),
+            graphed_warm_profiled=dict(
+                wall_ms=warm.get("wall_ms"), busy_ms=warm.get("busy_ms"),
+                idle_share=warm.get("idle_share")),
+            eager=dict(wall_s=wall, peak=torch.cuda.max_memory_allocated()))
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(**row)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--full-n", type=int, default=SMOKE_N,
@@ -5366,6 +5720,12 @@ def main():
     ap.add_argument("--din-only", action="store_true",
                     help="run the device and build phases, then only the "
                          "DIN phase (21), printing no result")
+    ap.add_argument("--exec-only", action="store_true",
+                    help="run the device and build phases, then only the "
+                         "stage-executable phase (22) without its full "
+                         "cell, printing no result")
+    ap.add_argument("--exec-store-child", metavar="SPEC",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--dist-n", type=int, default=DIST_N,
                     help=f"vertices of the dist phase's graph (published: "
                          f"{FULL_N})")
@@ -5383,6 +5743,9 @@ def main():
               file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, src)
+    if args.exec_store_child:
+        exec_store_child(args.exec_store_child)
+        return
     from repro_torch.configs.rads import DEFAULT_ENGINE
     from repro_torch.graph import partition, powerlaw_graph
 
@@ -5411,6 +5774,9 @@ def main():
     if args.din_only:
         phase_din()
         return
+    if args.exec_only:
+        phase_exec()
+        return
     # the full-scale graph: its shapes and degrees drive the kernel timings
     t0 = time.perf_counter()
     g = powerlaw_graph(args.full_n, 6, seed=1)
@@ -5436,10 +5802,10 @@ def main():
     per_row_ms = {kind: r["kernel_ms"] / r["B"] for kind, r in (
         ("backedge", timing["backedge_engine"]), ("verify", timing["verify"]),
         ("intersect", inter["backedge_padded"]))}
-    main_launches, dense = phase_full(g, pg, expect, setup_s, "dense", "raw",
-                                      per_row_ms, profile=True)
-    new_launches, coded = phase_full(g, pg, expect, setup_s, "bucketed",
-                                     "varint", per_row_ms)
+    main_launches, dense, dense_run = phase_full(
+        g, pg, expect, setup_s, "dense", "raw", per_row_ms, profile=True)
+    new_launches, coded, _ = phase_full(g, pg, expect, setup_s, "bucketed",
+                                        "varint", per_row_ms)
     for key in ("bytes_fetch", "bytes_verify", "bytes_saved_cache"):
         check(coded[key] == dense[key],
               f"full-scale {key}: bucketed/varint {coded[key]} != "
@@ -5453,6 +5819,9 @@ def main():
                            "varint": coded["bytes_wire_verify"]},
         bytes_wire_fetch={"raw": dense["bytes_wire_fetch"],
                           "varint": coded["bytes_wire_fetch"]})
+    # the stage executables: graphs against the eager path on the small
+    # graph, the store across processes, and the full cell eager
+    phase_exec((g, pg, expect, dense, dense_run))
 
     # the LM serving path: its own kernels, each launch count read around
     # the serving run (a); the graph stays on the host for phase 18

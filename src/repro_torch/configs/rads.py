@@ -67,16 +67,18 @@ class EngineConfig:
                                        # comm_pipeline is on (power of two so
                                        # it divides the capacity-ladder axes)
     # --- persistent stage-executable cache (runtime/compile_cache.py) ------- #
-    compile_cache_dir: str = ""        # per-host on-disk store of serialized
-                                       # stage executables ("" = disabled);
-                                       # with priors v2 a warm run performs
-                                       # zero traces/compiles
+    compile_cache_dir: str = ""        # per-host on-disk store of the stage
+                                       # executables' kernel libraries ("" =
+                                       # disabled); a warm store leaves a
+                                       # run nothing to build or count as a
+                                       # compile (the graphs are captured
+                                       # in every process)
     compile_cache_budget_bytes: int = 0  # LRU size budget for the store: on
                                        # every save, least-recently-used
                                        # .stagex envelopes (file mtime) are
                                        # evicted until the store fits
-                                       # (0 = unbounded, the old behaviour)
-    prewarm: bool = True               # resolve the stage ladder on a
+                                       # (0 = unbounded)
+    prewarm: bool = True               # capture the stage ladder on a
                                        # background thread during group
                                        # formation (off the critical path)
     # --- accelerator kernels ------------------------------------------------ #

@@ -15,12 +15,23 @@ in :mod:`repro_torch.core.scheduler`; this module
 * runs the two scheduler phases, and
 * assembles the :class:`EnumerationResult` (counts, embeddings, stats).
 
+On the card (``sim`` and ``gather``) the stages run as CUDA graphs from
+the runner's stage-executable cache (:class:`StageRunner`): before each
+phase the driver starts a background pre-warm of that phase's stage
+ladder, and it joins it before reading the compile accounting.
+``runner_cache`` keeps runners across calls, so a repeat call captures
+nothing.
+
 The stats dict has the reference's keys and, for the same inputs, the
-same values, except wall-clock timings and the compile group: the port
-runs eagerly, so ``compiles=0``, ``compile_s=0.0``,
-``compile_cache_hits=0.0`` and ``exec_cache_enabled=False``.  Under
-``dist`` every rank returns the whole result (the finalize is
-replicated); :func:`merge_process_stats` merges the ranks' stats dicts.
+same values, except wall-clock timings and the compile group:
+``compiles``/``compile_s`` count this call's captures made without the
+store, ``compile_cache_hits`` its store hits, ``exec_cache`` the store's
+counter deltas, and ``exec_cache_enabled`` is true where a store is
+consulted.  On the CPU and under ``spmd``/``dist`` the stages run
+eagerly: ``compiles=0``, ``compile_s=0.0``, ``compile_cache_hits=0.0``
+and ``exec_cache_enabled=False``.  Under ``dist`` every rank returns the
+whole result (the finalize is replicated); :func:`merge_process_stats`
+merges the ranks' stats dicts.
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ from repro_torch.core.region import iter_region_groups
 from repro_torch.core.scheduler import (GroupQueue, PipelineScheduler,
                                         StageRunner)
 from repro_torch.core.wire import register_wire_metrics, resolve_wire_format
+from repro_torch.device import resolve_device
 from repro_torch.graph.storage import PartitionedGraph, device_graph
 from repro_torch.obs import NULL_TRACER, build_driver_registry
 
@@ -70,6 +82,7 @@ def rads_enumerate(pg: PartitionedGraph, pattern: Pattern,
                    cfg: EngineConfig = DEFAULT_ENGINE,
                    mode: str = "sim", plan: Plan | None = None,
                    return_embeddings: bool = True,
+                   runner_cache: dict | None = None,
                    tracer=None, device=None) -> EnumerationResult:
     """Enumerate every embedding of ``pattern`` in ``pg``.
 
@@ -83,9 +96,16 @@ def rads_enumerate(pg: PartitionedGraph, pattern: Pattern,
     its own machine).  Every mode runs both storage formats (``dense``,
     ``bucketed``) and both wire formats (``raw``, ``varint``).
 
+    ``runner_cache``: optional dict the caller owns.  Repeat calls with
+    the same (graph, pattern, mode, cfg, plan, device) reuse the
+    :class:`StageRunner` and its stage executables, so only the first
+    call captures (and its adjacency cache stays warm, as in the
+    reference).
+
     ``tracer``: optional :class:`repro_torch.obs.trace.TraceRecorder` —
     wave / stage / scheduler spans land in it for Chrome-trace export."""
     tracer = tracer if tracer is not None else NULL_TRACER
+    explicit_plan = plan
     plan = plan or best_plan(pattern, cfg.plan_rho)
     pd = build_plan_data(plan)
     exch = Exchange(mode=mode, wire_format="raw")   # validates the mode
@@ -114,11 +134,31 @@ def rads_enumerate(pg: PartitionedGraph, pattern: Pattern,
             fetch_cap=max(cfg.fetch_cap, int(caps.get("fetch", 0))),
             verify_cap=max(cfg.verify_cap, int(caps.get("verify", 0))))
 
-    exch = Exchange(mode=mode, wire_format=cfg.wire_format,
-                    comm_chunks=cfg.comm_chunks if cfg.comm_pipeline else 1)
-    g = device_graph(pg, cfg.storage_format, device, exch.block(pg.ndev))
-    runner = StageRunner(g, pd, cfg, exch, cache=build_cache(cfg, g),
-                         tracer=tracer)
+    ck = runner = None
+    if runner_cache is not None:
+        # the cached entry pins pg (and the plan), so their id()s cannot be
+        # recycled onto another graph while the cache is alive
+        ck = (mode, id(pg), pattern, cfg,
+              id(explicit_plan) if explicit_plan is not None else None,
+              str(resolve_device(device)))
+        hit = runner_cache.get(ck)
+        runner = hit[-1] if hit is not None else None
+    if runner is None:
+        exch = Exchange(mode=mode, wire_format=cfg.wire_format,
+                        comm_chunks=(cfg.comm_chunks if cfg.comm_pipeline
+                                     else 1))
+        g = device_graph(pg, cfg.storage_format, device, exch.block(pg.ndev))
+        runner = StageRunner(g, pd, cfg, exch, cache=build_cache(cfg, g),
+                             tracer=tracer)
+        if ck is not None:
+            runner_cache[ck] = (pg, explicit_plan, runner)
+    runner.tracer = tracer     # a cached runner adopts this call's recorder
+    # compile accounting is this call's delta (a cached runner's counters
+    # are cumulative)
+    compiles0, compile_s0 = runner.compiles, runner.compile_s
+    exec_stats0 = (dict(runner.exec_cache.stats)
+                   if runner.exec_cache is not None else None)
+    exch = runner.exch
 
     # ---- candidate seeds per device: deg(v) >= deg(u_start) --------------- #
     ndev, stride = pg.ndev, pg.stride
@@ -157,11 +197,12 @@ def rads_enumerate(pg: PartitionedGraph, pattern: Pattern,
     else:
         stats["cache_enabled"] = False
         stats["cache_bytes"] = 0
-    stats["exec_cache_enabled"] = False     # eager stages: nothing to store
+    stats["exec_cache_enabled"] = bool(runner.exec_cache is not None
+                                       and runner.exec_cache.enabled)
     stats["plan_rounds"] = plan.n_rounds
     stats["pipeline_depth"] = cfg.pipeline_depth
     stats["storage_format"] = cfg.storage_format
-    stats["peak_adj_bytes"] = int(g.adj_bytes)
+    stats["peak_adj_bytes"] = int(runner.g.adj_bytes)
     stats["priors_preloaded"] = bool(prior)
     total = 0
     embs: set[tuple[int, ...]] = set()
@@ -206,6 +247,12 @@ def rads_enumerate(pg: PartitionedGraph, pattern: Pattern,
     max_sme = max((len(s) for s in sme_seeds), default=0)
     if max_sme > 0:
         scap = 1 << (min(max_sme, 4096) - 1).bit_length()
+        if cfg.prewarm:
+            # capture the SM-E ladder on a background thread while the
+            # queues are set up; with preloaded priors the caps are
+            # trustworthy, so the escalation rung above them too
+            runner.prewarm_async(scap, local_only=True,
+                                 escalation_rungs=1 if prior else 0)
         queues = [[np.asarray(s, dtype=np.int64)] if len(s) else []
                   for s in sme_seeds]
         c = sched.run(queues, scap, local_only=True, phase="sme",
@@ -243,14 +290,29 @@ def rads_enumerate(pg: PartitionedGraph, pattern: Pattern,
         max_g = int(float(cfg.region_group_budget) // size_cost)
         max_g = max(1, min(max_g + 1, max(len(s) for s in dist_seeds)))
         scap = 1 << (max_g - 1).bit_length()
+        if cfg.prewarm:
+            # the distributed ladder captures while Algorithm-3 grouping
+            # forms the first waves (and the rung above, with priors)
+            runner.prewarm_async(scap, local_only=False,
+                                 escalation_rungs=1 if prior else 0)
         c = sched.run(queues, scap, local_only=False, phase="dist",
                       auto_start=auto_start)
         if c is not None:
             per_seed_cost = max(c, 1.0)
         stats["n_groups"] = max(q.n_formed for q in queues)
 
+    # settle the background pre-warm before reading the compile counters,
+    # then drain the store hits of pre-warm-only resolutions (the waves
+    # took theirs through finalize_wave's exec_hits)
+    runner.join_prewarm()
     stats["wall_us"] = (stats.get("sme_wall_us", 0.0)
                         + stats.get("dist_wall_us", 0.0))
+    stats["compile_cache_hits"] += runner.take_hits()
+    stats["compiles"] = runner.compiles - compiles0
+    stats["compile_s"] = runner.compile_s - compile_s0
+    if exec_stats0 is not None:
+        stats["exec_cache"] = {k: runner.exec_cache.stats[k] - exec_stats0[k]
+                               for k in exec_stats0}
     stats["final_caps"] = dict(frontier=runner.cfg.frontier_cap,
                                fetch=runner.cfg.fetch_cap,
                                verify=runner.cfg.verify_cap)

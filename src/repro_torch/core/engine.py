@@ -724,12 +724,18 @@ def verify_stage(g: DeviceGraph, pd: PlanData, cfg: EngineConfig,
                    pend_a=None, pend_b=None, pend_m=None)
 
 
-def finalize_wave(state: WaveState):
+def finalize_wave(state: WaveState, exec_hits=0.0):
     """Drain point: WaveState -> the ``(rows, alive, counts, complete,
-    stats)`` tuple the driver consumes.  ``compile_cache_hits`` is always
-    0: the port runs its stages eagerly and resolves no executables."""
+    stats)`` tuple the driver consumes.  ``exec_hits``, the stage
+    executables this wave's dispatches resolved from the persistent
+    store (a float, or a 0-d f32 tensor as a stage graph takes it),
+    rides along as ``stats["compile_cache_hits"]`` to the single retire
+    copy."""
     counts = state.alive.sum(dim=-1)
-    zero = torch.zeros((), dtype=torch.float32, device=counts.device)
+    if not isinstance(exec_hits, torch.Tensor):
+        # a fill, not a copy of a host value: nothing waits on the host
+        exec_hits = torch.full((), float(exec_hits), dtype=torch.float32,
+                               device=counts.device)
     stats = dict(bytes_fetch=state.bytes_fetch,
                  bytes_verify=state.bytes_verify,
                  bytes_wire_fetch=state.bytes_wire_fetch,
@@ -740,7 +746,7 @@ def finalize_wave(state: WaveState):
                  bytes_saved_cache=state.bytes_saved_cache,
                  cache_hits=state.cache_hits,
                  cache_probes=state.cache_probes,
-                 compile_cache_hits=zero,
+                 compile_cache_hits=exec_hits,
                  rows_per_round=torch.stack(state.rounds_alive),
                  node_counts=state.node_counts)
     return (state.rows, state.alive, counts,

@@ -9,9 +9,12 @@ and of the flags, so an edited
 kernel or header is rebuilt and an unchanged one is reused.
 The libraries are loaded with :mod:`ctypes`: no PyTorch headers are
 compiled, which keeps a build to seconds.  Nothing here runs at import.
+:func:`record_loads` tells which libraries a piece of code launched
+from (the stage-executable store keeps those of each stage).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -31,7 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _loaded: dict[Path, ctypes.CDLL] = {}
+_paths: dict[Path, Path] = {}     # source -> the library loaded for it
 _lock = threading.Lock()
+_tl = threading.local()
 
 
 def nvcc_path() -> str:
@@ -107,5 +112,21 @@ def load(source: Path) -> ctypes.CDLL:
         lib = _loaded.get(source)
         if lib is None:
             build([source])
-            lib = _loaded[source] = ctypes.CDLL(str(library_path(source)))
+            _paths[source] = library_path(source)
+            lib = _loaded[source] = ctypes.CDLL(str(_paths[source]))
+        seen = getattr(_tl, "seen", None)
+        if seen is not None:
+            seen.add(_paths[source])
         return lib
+
+
+@contextlib.contextmanager
+def record_loads():
+    """Collect, into the yielded set, the path of every library that
+    :func:`load` hands out in this thread while the context is open."""
+    prev = getattr(_tl, "seen", None)
+    _tl.seen = seen = set()
+    try:
+        yield seen
+    finally:
+        _tl.seen = prev

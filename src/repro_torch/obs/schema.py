@@ -8,9 +8,11 @@ the reference report the same stats.
 
 Group tuples mirror which subsystem *owns* the instrument — scheduler,
 exchange/wire, AdjCache, compile pipeline — matching who registers or
-writes it at runtime.  The port runs its stages eagerly, so the compile
-group reports zeros (``compiles``, ``compile_s``, ``compile_cache_hits``)
-and ``exec_cache_enabled`` is always False.
+writes it at runtime.  The compile group counts the stage executables
+(CUDA graphs) of :class:`~repro_torch.core.scheduler.StageRunner` and the
+per-host store of :mod:`repro_torch.runtime.compile_cache`; where the
+stages run eagerly (the CPU, ``spmd``/``dist``) it reports zeros and
+``exec_cache_enabled`` is False.
 """
 from __future__ import annotations
 
@@ -100,10 +102,11 @@ CACHE_SCHEMA = (
     counter("bytes_saved_cache", "bytes", "wire bytes avoided by cache hits"),
 )
 
-# -- compile pipeline (the reference's; the port reports zeros) --------------- #
+# -- compile pipeline: stage graphs + persistent executable store ------------- #
 COMPILE_SCHEMA = (
-    counter("compiles", "", "stage traces compiled this call"),
-    counter("compile_s", "s", "wall spent in .lower().compile()"),
+    counter("compiles", "", "stage graphs captured this call without "
+            "the store"),
+    counter("compile_s", "s", "wall spent in their warm-up and capture"),
     counter("compile_cache_hits", "", "StageRunner slot/store hits"),
     gauge("exec_cache_enabled", "", "persistent executable store active"),
     gauge("exec_cache", "", "StageExecCache counter deltas for this call"),

@@ -29,8 +29,8 @@ Track (``tid``) layout:
                       steal / overflow-split / cap-escalation instants
 ``TRACK_RETIRE`` (2)  retire: the single blocking device-to-host copy
                       per wave, carrying the flow-arrow *end* per wave
-``TRACK_PREWARM`` (3) kept for the reference's track numbering; the
-                      port runs its stages eagerly and has no prewarm
+``TRACK_PREWARM`` (3) the background stage pre-warm and the stage
+                      resolutions it makes (``resolve:<stage>``)
 ``TRACK_WAVE0+k``     one lane per *in-flight* wave slot: init /
                       fetch:uN / expand:uN / verify:uN / finalize
                       dispatch spans plus a whole-life ``wave`` span,

@@ -22,7 +22,7 @@ CAPS = dict(frontier_cap=1 << 12, fetch_cap=256, verify_cap=1024,
             region_group_budget=1 << 11)
 PG_FIELDS = ("n", "n_real", "ndev", "stride", "max_degree", "adj", "deg",
              "n_local", "border", "border_dist", "old2new", "new2old")
-# wall-clock and compile accounting: the port runs eagerly (compiles=0)
+# wall-clock and compile accounting: the CPU runs eagerly (compiles=0)
 TIMING_KEYS = {"compiles", "compile_s", "compile_cache_hits", "wave_s_total",
                "sme_wall_us", "dist_wall_us", "wall_us", "sme_pipeline_s",
                "dist_pipeline_s"}

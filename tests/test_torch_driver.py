@@ -104,7 +104,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.kernels.segment_spmm.ops, "
             "repro_torch.kernels.segment_spmm.kernel, "
             "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
-            "repro_torch.runtime, repro_torch.distributed.compression, "
+            "repro_torch.runtime, repro_torch.runtime.compile_cache, "
+            "repro_torch.distributed.compression, "
             "repro_torch.launch.train, repro_torch.launch.dist_worker, "
             "repro_torch.core.exchange, repro_torch.graph.partition; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

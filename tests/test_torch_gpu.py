@@ -11,6 +11,11 @@ They skip without a CUDA card, and import no JAX, so they run where
 only PyTorch is installed:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``."""
 import dataclasses
+import json
+import os
+import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -58,8 +63,11 @@ from repro_torch.models import (decode_step, gnn_forward, init_gnn,
 
 CAPS = dict(frontier_cap=1 << 12, fetch_cap=256, verify_cap=1024,
             region_group_budget=1 << 11)
+# wall-clock timings, and the compile group: the card captures its stages
+# as CUDA graphs where the CPU and ``dist`` run them eagerly
 TIMING_KEYS = {"wave_s_total", "sme_wall_us", "dist_wall_us", "wall_us",
-               "sme_pipeline_s", "dist_pipeline_s"}
+               "sme_pipeline_s", "dist_pipeline_s", "compiles", "compile_s",
+               "compile_cache_hits", "exec_cache_enabled", "exec_cache"}
 
 
 @pytest.fixture
@@ -963,3 +971,217 @@ def test_din_training_step_on_card_matches_cpu(cuda, dtype, tol):
     for (name, _), g, w in zip(cpu.named_parameters(), grads, want_grads):
         err = (g.cpu().float() - w.float()).abs().max()
         assert err <= tol * w.float().abs().max().clamp_min(1e-30), name
+
+
+def _eager_runner_cache(pg, pat, cfg, device, mode="sim") -> dict:
+    """A ``runner_cache`` holding, under the driver's key for the call, a
+    StageRunner built as the driver builds it with ``eager=True``."""
+    from repro_torch.core.cache import build_cache
+    from repro_torch.core.engine import build_plan_data
+    from repro_torch.core.exchange import Exchange
+    from repro_torch.core.plan import best_plan
+    from repro_torch.core.scheduler import StageRunner
+    from repro_torch.graph.storage import device_graph
+    exch = Exchange(mode, wire_format=cfg.wire_format)
+    g = device_graph(pg, cfg.storage_format, device)
+    runner = StageRunner(g, build_plan_data(best_plan(pat, cfg.plan_rho)),
+                         cfg, exch, cache=build_cache(cfg, g), eager=True)
+    return {(mode, id(pg), pat, cfg, None, str(torch.device(device))):
+            (pg, None, runner)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,fmt,wire", [("sim", "dense", "raw"),
+                                           ("sim", "bucketed", "varint"),
+                                           ("gather", "dense", "raw")])
+@pytest.mark.parametrize("q", ["q1", "q3", "q6"])
+def test_stage_graphs_match_eager_on_card(cuda, q, mode, fmt, wire):
+    """The stages captured as CUDA graphs give the eager stages' results
+    bit for bit; a second call through ``runner_cache`` captures
+    nothing and launches what an eager second call launches."""
+    pg = partition(erdos_graph(120, 5.0, seed=5), 8, method="bfs")
+    pat = Pattern.from_edges(QUERIES[q])
+    cfg = EngineConfig(**CAPS, storage_format=fmt, wire_format=wire)
+    rc, erc = {}, _eager_runner_cache(pg, pat, cfg, cuda, mode)
+    for call in range(2):
+        before = _launch_counts()
+        got = rads_enumerate(pg, pat, cfg, mode=mode, device=cuda,
+                             runner_cache=rc)
+        mid = _launch_counts()
+        want = rads_enumerate(pg, pat, cfg, mode=mode, device=cuda,
+                              runner_cache=erc)
+        after = _launch_counts()
+        assert len(erc) == 1 and want.stats["compiles"] == 0
+        assert (got.stats["compiles"] > 0) == (call == 0)
+        assert got.count == want.count and got.embeddings == want.embeddings
+        for k in set(want.stats) - TIMING_KEYS:
+            assert got.stats[k] == want.stats[k], (call, k)
+    assert got.stats["compile_s"] == 0.0
+    assert [m - b for m, b in zip(mid, before)] == [
+        a - m for a, m in zip(after, mid)]
+
+
+_STORE_CHILD = """
+import json, sys
+from pathlib import Path
+from repro_torch.configs.rads import QUERIES, EngineConfig
+from repro_torch.core import Pattern, rads_enumerate
+from repro_torch.graph import erdos_graph, partition
+from repro_torch.kernels import build
+build.BUILD_DIR = Path(sys.argv[2])
+built, real = [], build.build
+build.build = lambda sources: built.extend(real(sources)) or {}
+pg = partition(erdos_graph(120, 5.0, seed=5), 8, method="bfs")
+rc = {}
+res = rads_enumerate(pg, Pattern.from_edges(QUERIES["q1"]),
+                     EngineConfig(**json.loads(sys.argv[3]),
+                                  compile_cache_dir=sys.argv[1]),
+                     device="cuda", runner_cache=rc)
+print(json.dumps(dict(count=res.count, compiles=res.stats["compiles"],
+                      hits=res.stats["compile_cache_hits"],
+                      enabled=res.stats["exec_cache_enabled"],
+                      stages=len(next(iter(rc.values()))[-1]._slots),
+                      built=[str(s) for s in built],
+                      libs=sorted(p.name for p in build.BUILD_DIR.iterdir()
+                                  if p.suffix == ".so"))))
+"""
+
+
+@pytest.mark.gpu
+def test_warm_store_in_fresh_process_captures_nothing(cuda, tmp_path):
+    """A store filled here serves a fresh process whose kernel directory
+    is empty: no stage counted as a compile, every stage a store hit, the
+    libraries written back from the store and no nvcc run."""
+    pg = partition(erdos_graph(120, 5.0, seed=5), 8, method="bfs")
+    store = str(tmp_path / "store")
+    cold = rads_enumerate(pg, Pattern.from_edges(QUERIES["q1"]),
+                          EngineConfig(**CAPS, compile_cache_dir=store),
+                          device=cuda)
+    assert cold.stats["compiles"] > 0 and cold.stats["exec_cache_enabled"]
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    out = subprocess.run(
+        [sys.executable, "-c", _STORE_CHILD, store, str(tmp_path / "kernels"),
+         json.dumps(CAPS)], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=os.path.abspath(src)))
+    assert out.returncode == 0, out.stdout + out.stderr
+    warm = json.loads(out.stdout.strip().splitlines()[-1])
+    assert warm["count"] == cold.count and warm["enabled"]
+    assert warm["compiles"] == 0 and warm["built"] == []
+    assert warm["hits"] == warm["stages"] > 0
+    assert warm["libs"] and all(n.startswith("libmembership")
+                                for n in warm["libs"])
+
+
+_FAILING_CAPTURE = """
+from repro_torch.configs.rads import QUERIES, EngineConfig
+from repro_torch.core import Pattern, rads_enumerate
+from repro_torch.core.engine import verify_stage
+from repro_torch.core.scheduler import StageRunner
+from repro_torch.graph import erdos_graph, partition
+
+
+def make_verify(self, ui, local_only, cfg):
+    def verify(gg, s):
+        s.alive.sum().item()          # a host sync: no graph can hold it
+        return verify_stage(gg, self.pd, cfg, self.exch, ui, s, local_only)
+    return verify
+
+
+StageRunner._make_verify = make_verify
+pg = partition(erdos_graph(120, 5.0, seed=5), 8, method="bfs")
+try:
+    rads_enumerate(pg, Pattern.from_edges(QUERIES["q1"]),
+                   EngineConfig(frontier_cap=1 << 12, fetch_cap=256,
+                                verify_cap=1024, region_group_budget=1 << 11,
+                                prewarm=False), device="cuda")
+except RuntimeError as e:
+    print("RAISED", e)
+else:
+    print("NO ERROR")
+# the failed capture left no capture open in the allocator: emptying a
+# pool (a MemPool's destructor) aborts the process while one is open
+import torch
+pool = torch.cuda.MemPool()
+with torch.cuda.use_mem_pool(pool):
+    x = torch.ones(1 << 20, device="cuda")
+del x, pool
+torch.cuda.synchronize()
+print("ALLOCATOR CLEAN")
+"""
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_with_the_stage(cuda):
+    """A stage that cannot be captured (here one that syncs with the
+    host) raises with its key and capacities; nothing runs it eagerly
+    instead.  In a fresh process: a failed capture may leave the
+    allocator's capture state behind."""
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    out = subprocess.run([sys.executable, "-c", _FAILING_CAPTURE],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=os.path.abspath(src)))
+    assert re.search(r"RAISED capturing stage \('verify', 0, (True|False)\) "
+                     r"at capacities \(4096, 256, 1024\) failed",
+                     out.stdout), out.stdout + out.stderr
+    assert out.returncode == 0 and "ALLOCATOR CLEAN" in out.stdout, (
+        out.stdout + out.stderr)
+
+
+_DROP_DURING_CAPTURE = """
+import threading
+import torch
+from repro_torch.configs.rads import QUERIES, EngineConfig
+from repro_torch.core import Pattern, rads_enumerate
+from repro_torch.graph import erdos_graph, partition
+
+pg = partition(erdos_graph(120, 5.0, seed=5), 8, method="bfs")
+rc = {}
+res = rads_enumerate(pg, Pattern.from_edges(QUERIES["q1"]),
+                     EngineConfig(frontier_cap=1 << 12, fetch_cap=256,
+                                  verify_cap=1024,
+                                  region_group_budget=1 << 11),
+                     runner_cache=rc, device="cuda")
+assert res.stats["compiles"] > 0
+opened, dropped = threading.Event(), threading.Event()
+x = torch.ones(1024, device="cuda")
+
+
+def capture():
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        y = x * 2
+        opened.set()
+        dropped.wait()
+        graph.capture_end()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float(y.sum()) == 2048.0
+
+
+th = threading.Thread(target=capture)
+th.start()
+opened.wait()
+rc.clear()          # the runner and its graphs go while the capture is open
+dropped.set()
+th.join()
+torch.cuda.empty_cache()
+torch.cuda.synchronize()
+print("DROPPED", res.count)
+"""
+
+
+@pytest.mark.gpu
+def test_runner_dropped_during_another_capture(cuda):
+    """A graphed runner (its graphs and their memory pool) may be dropped
+    while another thread holds a capture open: nothing it does on the way
+    out synchronises, so the process neither aborts nor breaks the other
+    capture.  In a fresh process, since an abort would end it."""
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    out = subprocess.run([sys.executable, "-c", _DROP_DURING_CAPTURE],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=os.path.abspath(src)))
+    assert out.returncode == 0 and "DROPPED" in out.stdout, (
+        out.stdout + out.stderr)
