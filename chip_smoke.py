@@ -168,7 +168,8 @@ every phase holds:
               logical stat against ``sim`` of the same partition on the
               card, each rank's wall time, peak memory, resident adjacency
               bytes and membership launches, ``wall_skew``, ``bytes_wire_*``
-              and ``sim``'s wall time beside them (n: ``DIST_N``).
+              and ``sim``'s wall time beside them (n: ``DIST_N``).  The
+              same ranks then run phase 23's ``compressed_psum`` calls.
 
 19. mla_serve — the serve_dsv3 cell: DeepSeek-V3 at its published
               widths in bfloat16 with seeded random weights, cut to 4
@@ -244,9 +245,22 @@ every phase holds:
               against an eager run of the same cell (every stat; wall
               time, peak memory, captures, ``compile_s``).
 
+23. mesh_plan — the production mesh plan and ``compressed_psum``: on
+              phase 18's two gloo ranks sharing the card,
+              ``compressed_psum`` of CUDA tensors (``PSUM_CASES``: a
+              gradient-sized 64 MiB float32 tensor, a small one, all
+              zeros, bfloat16), each equal bit for bit to the same call
+              on CPU copies of the inputs and within 5% of the float64
+              sum, each call's ms; then the argument plan of all 40 cells
+              on both production meshes (fake 256 / 512-rank worlds, no
+              device), one line a cell with the per-device bytes beside
+              the card's memory; then the step check of DeepSeek-V3's
+              decode_32k at 61 layers on the meta device, with its
+              seconds.
+
 ``--lm-train-only`` runs phases 1, 2 and 12-14 and prints no result;
 ``--gnn-train-only`` runs phases 1, 2 and 15-17 and prints no result;
-``--dist-only`` runs phases 1, 2 and 18 and prints no result;
+``--dist-only`` runs phases 1, 2, 18 and 23 and prints no result;
 ``--mla-only`` runs phases 1, 2 and 19 and prints no result;
 ``--mla-train-only`` runs phases 1, 2 and 20 and prints no result;
 ``--din-only`` runs phases 1, 2 and 21 and prints no result;
@@ -340,6 +354,14 @@ SMOKE_N = 310_000
 SMOKE_MAX_DEGREE = 1780       # max degree of powerlaw_graph(SMOKE_N, 6, 1)
 # phase 18 (dist) runs the full cell's recipe split 2 ways at this size
 DIST_N = SMOKE_N
+# phase 23: compressed_psum on phase 18's ranks, name -> (shape, dtype,
+# scale of the seeded normal values): a gradient-sized tensor (64 MiB of
+# float32), a small one, all zeros (the scale's 1e-12 floor), bfloat16
+PSUM_CASES = {"grad_64mib_f32": ((1 << 24,), "float32", 1e-3),
+              "small_f32": ((4, 1000), "float32", 3.0),
+              "zeros_f32": ((4096,), "float32", 0.0),
+              "bf16": ((1 << 20,), "bfloat16", 1.0)}
+PSUM_TOL = 0.05          # tests/test_multidevice.py's compressed_psum bound
 CUT_REASON = ("at n=317,080 the fourth capacity escalation (28 GiB fetch "
               "buffers held through 2^20-row leaf steps) runs out of device "
               "memory; 310,000 needs three escalations")
@@ -4192,11 +4214,47 @@ def _dist_full_rank(rank: int, port: int, src: str, pg_dir: str,
             rank=rank, count=res.count, wall_s=wall,
             max_memory_allocated=torch.cuda.max_memory_allocated(),
             membership_launches=memb.launches, stats=res.stats,
-            **resident)
+            psum=_psum_rank(rank), **resident)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(payload, f, default=float)
+
+
+def _psum_rank(rank: int) -> dict:
+    """Phase 23's part on a phase 18 rank: ``compressed_psum`` of each of
+    ``PSUM_CASES`` (this rank's values seeded by its rank) on the card,
+    against the same call on CPU copies and the float64 sum (both over
+    the same gloo group); each call timed once warm."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.compression import compressed_psum
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((DIST_RANKS,), ("pod",), device_type="cuda")
+    group = mesh.get_group("pod")
+    out = {}
+    for i, (name, (shape, dtype, scale)) in enumerate(PSUM_CASES.items()):
+        gen = torch.Generator(device="cuda").manual_seed(1000 * i + rank)
+        x = (torch.randn(shape, generator=gen, device="cuda") * scale).to(
+            getattr(torch, dtype))
+        compressed_psum(x, "pod", mesh)                     # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = compressed_psum(x, "pod", mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = compressed_psum(x.cpu(), "pod", mesh)
+        exact = x.cpu().double()
+        dist.all_reduce(exact, group=group)
+        got = got.cpu()
+        err = float((got.double() - exact).abs().max())
+        out[name] = dict(
+            shape=list(shape), dtype=dtype, bytes=x.numel() * x.element_size(),
+            device=str(x.device), ms=ms,
+            equal_cpu=bool(torch.equal(got.view(torch.uint8),
+                                       want.contiguous().view(torch.uint8))),
+            rel_err_vs_exact=err / max(float(exact.abs().max()), 1e-30))
+    return out
 
 
 def _dist_spawn(pg, tmp: str) -> list:
@@ -4251,7 +4309,8 @@ def phase_dist(n: int, g=None, expect: int | None = None):
     on the card, each rank's wall time, peak memory, resident adjacency
     and membership launches beside ``sim``'s.  ``g`` and ``expect`` are
     the recipe's graph at ``n`` and its triangle count, when phase 5 has
-    them."""
+    them.  Returns each rank's ``compressed_psum`` results, which phase
+    23 checks."""
     import tempfile
 
     import torch
@@ -4330,6 +4389,67 @@ def phase_dist(n: int, g=None, expect: int | None = None):
          peak_adj_bytes=st["peak_adj_bytes"],
          sim=dict(wall_s=sim_wall, max_memory_allocated=sim_peak,
                   membership_launches=sim_launches))
+    return [r["psum"] for r in ranks]
+
+
+# --------------------------------------------------------------------------- #
+# phase 23: the production mesh plan and compressed_psum
+# --------------------------------------------------------------------------- #
+def phase_mesh_plan(psum: list) -> None:
+    """Phase 23: phase 18's ranks' ``compressed_psum`` results held to
+    the CPU call bit for bit and to the float64 sum within 5%; the
+    argument plan of every cell on both production meshes (device-free,
+    beside the card's memory); DeepSeek-V3 decode_32k's step at 61 layers
+    checked on the meta device."""
+    import torch
+    from repro_torch.configs import all_cells
+    from repro_torch.launch.dryrun import MESH_RANKS, plan_cell, step_check
+    from repro_torch.launch.mesh import make_production_mesh, plan_world
+    from repro_torch.launch.specs import arg_bytes, build_cell
+    t_phase = time.perf_counter()
+    for name in PSUM_CASES:
+        for rank, res in enumerate(psum):
+            r = res[name]
+            check(r["device"].startswith("cuda"),
+                  f"compressed_psum {name}: ran on {r['device']}")
+            check(r["equal_cpu"], f"compressed_psum {name} rank {rank}: the "
+                                  f"card's result differs from the CPU's")
+            check(r["rel_err_vs_exact"] <= PSUM_TOL,
+                  f"compressed_psum {name} rank {rank}: "
+                  f"{r['rel_err_vs_exact']:.4f} of the exact sum's max")
+        emit(phase="mesh_plan", part="compressed_psum", case=name,
+             ranks=DIST_RANKS, backend="gloo", **{
+                 k: psum[0][name][k] for k in ("shape", "dtype", "bytes")},
+             ms=[res[name]["ms"] for res in psum],
+             equal_cpu=[res[name]["equal_cpu"] for res in psum],
+             rel_err_vs_exact=[res[name]["rel_err_vs_exact"]
+                               for res in psum])
+    card = torch.cuda.get_device_properties(0).total_memory
+    t0 = time.perf_counter()
+    per_cell = {cell: {} for cell in all_cells()}
+    # every cell on one mesh of each fake world
+    for mk, ranks in MESH_RANKS.items():
+        with plan_world(ranks):
+            mesh = make_production_mesh(multi_pod=mk == "multi",
+                                        device_type="cpu")
+            for (arch, shape), per_mesh in per_cell.items():
+                per_mesh[mk] = arg_bytes(build_cell(arch, shape, mesh))
+    plan_s = time.perf_counter() - t0
+    for (arch, shape), per_mesh in per_cell.items():
+        emit(phase="mesh_plan", part="plan", arch=arch, shape=shape,
+             arg_bytes_per_device=per_mesh, card_bytes=card,
+             share_of_card={mk: b["total"] / card
+                            for mk, b in per_mesh.items()})
+    t0 = time.perf_counter()
+    cell, _ = plan_cell("deepseek-v3-671b", "decode_32k", "single")
+    res = step_check(cell)
+    n_layers = len(cell.arg_specs[0].blocks)
+    check(res["step_check"] == "ok" and res["flops_global_step"] > 0,
+          f"deepseek-v3-671b decode_32k step check: {res}")
+    emit(phase="mesh_plan", part="step_check", arch="deepseek-v3-671b",
+         shape="decode_32k", n_layers=n_layers, plan_s=plan_s,
+         check_s=time.perf_counter() - t0, **res,
+         phase_s=time.perf_counter() - t_phase)
 
 
 # --------------------------------------------------------------------------- #
@@ -5708,7 +5828,8 @@ def main():
                          "GNN training phases (15-17), printing no result")
     ap.add_argument("--dist-only", action="store_true",
                     help="run the device and build phases, then only the "
-                         "dist phase (18), printing no result")
+                         "dist and mesh-plan phases (18, 23), printing no "
+                         "result")
     ap.add_argument("--mla-only", action="store_true",
                     help="run the device and build phases, then only the "
                          "DeepSeek-V3 serving phase (19), printing no "
@@ -5763,7 +5884,7 @@ def main():
         phase_gnn_train(products)
         return
     if args.dist_only:
-        phase_dist(args.dist_n)
+        phase_mesh_plan(phase_dist(args.dist_n))
         return
     if args.mla_only:
         phase_mla_serve()
@@ -5865,9 +5986,11 @@ def main():
     # the dist exchange: two ranks sharing the card, on phase 5's graph
     torch.cuda.empty_cache()
     if args.dist_n == args.full_n:
-        phase_dist(args.dist_n, g, expect)
+        psum = phase_dist(args.dist_n, g, expect)
     else:
-        phase_dist(args.dist_n)
+        psum = phase_dist(args.dist_n)
+    # the mesh plan (device-free) and compressed_psum of phase 18's ranks
+    phase_mesh_plan(psum)
 
     # DeepSeek-V3 serving: MLA's (192, 128) flash_attn and moe_gemm at
     # DeepSeek's widths, each launch count read around run (b)

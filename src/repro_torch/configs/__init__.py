@@ -1,7 +1,7 @@
 """Configuration of the port: the RADS engine config (:mod:`.rads`) and
 the registry of the LM, GNN and recsys architectures,
-``get_config(arch_id)`` / ``get_reduced(arch_id)``, with the same ids
-and configs as the reference's registry.
+``get_config(arch_id)`` / ``get_reduced(arch_id)`` / ``all_cells()``,
+with the same ids, configs and cells as the reference's registry.
 """
 from __future__ import annotations
 
@@ -50,9 +50,15 @@ def get_reduced(arch_id: str) -> TransformerConfig | GNNConfig | RecsysConfig:
     return _module(arch_id).reduced()
 
 
+def all_cells() -> list[tuple[str, str]]:
+    """Every (arch_id, shape_name) cell, 40 in all, in the reference's
+    order."""
+    return [(a, s.name) for a in ARCH_IDS for s in get_config(a).shapes]
+
+
 __all__ = [
     "ArchConfig", "TransformerConfig", "MoEConfig", "MLAConfig", "GNNConfig",
     "RecsysConfig", "ShapeSpec", "LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES",
     "ARCH_IDS", "get_config",
-    "get_reduced", "scaled_transformer",
+    "get_reduced", "all_cells", "scaled_transformer",
 ]

@@ -103,6 +103,43 @@ class TransformerConfig:
     def head_dim(self) -> int:
         return self.d_head or self.d_model // self.n_heads
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks), used for roofline."""
+        d, L, V = self.d_model, self.n_layers, self.vocab
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.mla is not None:
+            m = self.mla
+            qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+            attn = (d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk_head
+                    + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    + m.kv_lora_rank * self.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
+                    + self.n_heads * m.v_head_dim * d)
+        else:
+            hd = self.head_dim
+            attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+                + (self.n_heads * hd) * d
+        if self.moe is not None:
+            mo = self.moe
+            moe_ffn = 3 * d * mo.d_expert * (mo.n_experts + mo.n_shared) \
+                + d * mo.n_experts
+            dense_ffn = 3 * d * (mo.d_ff_dense or self.d_ff)
+            ffn_total = (mo.first_k_dense * dense_ffn
+                         + (L - mo.first_k_dense) * moe_ffn)
+        else:
+            ffn_total = L * 3 * d * self.d_ff
+        return emb + L * attn + ffn_total + L * 2 * d
+
+    def active_param_count(self) -> int:
+        """Per-token active params (MoE: only routed top-k + shared)."""
+        if self.moe is None:
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        mo = self.moe
+        full = self.param_count()
+        all_experts = (L - mo.first_k_dense) * 3 * d * mo.d_expert * mo.n_experts
+        active_experts = (L - mo.first_k_dense) * 3 * d * mo.d_expert * mo.top_k
+        return full - all_experts + active_experts
+
 
 @dataclass(frozen=True)
 class GNNConfig:

@@ -10,6 +10,10 @@ from __future__ import annotations
 
 import torch
 
+# devices whose tensors run a kernel wrapper's plain version: the CPU, and
+# the meta device, where it computes shapes alone (the dry-run's step check)
+PLAIN_DEVICES = ("cpu", "meta")
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> CUDA; raise if the requested CUDA device is missing."""

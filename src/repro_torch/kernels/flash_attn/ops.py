@@ -28,7 +28,9 @@ each, counted in :data:`bwd_launches`; dkdv and dq through the variant
 :data:`bwd_launches_by_variant`) and on the CPU runs
 :func:`flash_attention_bwd_ref`.  Both functions are looked up when the
 Function runs, so a caller that swaps them for their plain versions
-(``chip_smoke.py``'s plain path) swaps the training path too.  The
+(``chip_smoke.py``'s plain path) swaps the training path too.  A tensor
+on the ``meta`` device (a shape check, no data) runs the plain versions
+too, and launches nothing.  The
 backward kernels take the forward's widths: D <= 192
 (:data:`BWD_MAX_HEAD_DIM`) and Dv <= 128 (:data:`BWD_MAX_V_DIM`).
 """
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
 from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
                                                 flash_attention_ref)
 
@@ -140,7 +143,7 @@ def flash_attention_k(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, q_offset)
     B, Sq, H, D = q.shape
     Hk, Dv = k.shape[2], v.shape[-1]
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal, q_offset, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_k runs on cuda or cpu, not "
@@ -187,7 +190,7 @@ def flash_attention_bwd_k(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{o.dtype}, do {tuple(do.shape)} {do.dtype}, lse "
                          f"{tuple(lse.shape)} {lse.dtype} do not fit q "
                          f"{tuple(q.shape)} {q.dtype}")
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
                                        q_offset)
     if q.device.type != "cuda":

@@ -9,7 +9,8 @@ launch by :func:`route`, from dtype, shape and alignment alone, and
 counted in :data:`launches_by_variant`: "wgmma" (bf16 prefill on the
 tensor cores, TMA-fed), "stream" (bf16 decode, C <= 8, streaming the
 weights once) or "simt" (f32 on the CUDA cores, and every other shape).
-A CPU tensor runs :func:`moe_gemm_ref`.
+A CPU tensor runs :func:`moe_gemm_ref`, and so does a tensor on the
+``meta`` device (a shape check, no data), which launches nothing.
 
 Training goes through :class:`MoeGemm`, a ``torch.autograd.Function``
 (:func:`moe_gemm_ad` applies it when an input needs a gradient): its
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_bwd_ref, moe_gemm_ref
 
 launches = 0    # kernel launches since the count was last set to 0
@@ -80,8 +82,9 @@ def _check(x, wg, wu, wd):
                         f"got {x.dtype}, {wg.dtype}, {wu.dtype}, {wd.dtype}")
     if any(w.device != x.device for w in (wg, wu, wd)):
         raise ValueError("moe_gemm wants all tensors on one device")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"moe_gemm runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cuda", *PLAIN_DEVICES):
+        raise ValueError(f"moe_gemm runs on cuda, cpu or meta, not "
+                         f"{x.device}")
     if x.device.type == "cuda" and x.shape[0] > 65535:
         raise ValueError(f"moe_gemm kernels take E <= 65535, got "
                          f"{x.shape[0]}")
@@ -96,7 +99,7 @@ def moe_gemm(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     _check(x, wg, wu, wd)
     E, C, d = x.shape
     f = wg.shape[-1]
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return moe_gemm_ref(x, wg, wu, wd)
     from repro_torch.kernels.moe_gemm.kernel import moe_gemm_cuda
 
@@ -124,7 +127,7 @@ def moe_gemm_bwd_k(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"moe_gemm_bwd_k: dy {tuple(dy.shape)} {dy.dtype} "
                          f"does not fit x {tuple(x.shape)} {x.dtype}")
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return moe_gemm_bwd_ref(x, wg, wu, wd, dy)
     from repro_torch.kernels.moe_gemm.kernel import moe_gemm_bwd_cuda
 

@@ -19,7 +19,9 @@ kernel or raises — there is no fallback — and each launch adds one to
 :data:`launches` and to its variant's count in
 :data:`launches_by_variant`, so a run can show that its main path went
 through the kernel.  A CPU tensor runs the plain version
-(:func:`segment_spmm_plain`, :func:`gat_aggregate_plain`).
+(:func:`segment_spmm_plain`, :func:`gat_aggregate_plain`), and
+:func:`segment_spmm` runs it on a ``meta`` tensor too (a shape check, no
+data), which launches nothing.
 
 Training differentiates both through :func:`segment_spmm_ad` and
 :func:`gat_aggregate_ad`.  On the card they go through the
@@ -43,6 +45,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
 from repro_torch.kernels.segment_spmm import kernel
 from repro_torch.kernels.segment_spmm.ref import segment_max, segment_sum_dense
 
@@ -238,7 +241,7 @@ def segment_spmm(msgs: torch.Tensor, dst: torch.Tensor, n: int,
     ``out[v] = sum of msgs[e] over the edges e with dst[e] == v``, summed
     in float32; a node with no edge gets 0.  ``plan`` is
     ``segment_plan(dst, n)``, built here when it is not given."""
-    if msgs.device.type == "cpu":
+    if msgs.device.type in PLAIN_DEVICES:
         return segment_spmm_plain(msgs, dst, n, plan, out_dtype)
     _check(msgs, dst, n, plan, out_dtype)
     if msgs.device.type != "cuda":
@@ -506,7 +509,7 @@ def segment_spmm_ad(msgs: torch.Tensor, dst: torch.Tensor, n: int,
     :class:`SegmentSpmm` when gradients are on and ``msgs`` requires one,
     else the plain call (on the CPU autograd differentiates the plain
     version)."""
-    if (msgs.device.type != "cpu" and torch.is_grad_enabled()
+    if (msgs.device.type not in PLAIN_DEVICES and torch.is_grad_enabled()
             and msgs.requires_grad):
         return SegmentSpmm.apply(msgs, dst, n, plan, out_dtype)
     return segment_spmm(msgs, dst, n, plan, out_dtype)

@@ -328,9 +328,10 @@ def init_gnn(gen: torch.Generator, cfg: GNNConfig, d_feat: int, n_out: int,
     """Random parameters, initialised as the reference's ``init_gnn``
     does (normal weights scaled by ``1/sqrt(shape[0])``, biases 0), drawn
     from ``gen`` — a :class:`torch.Generator` on ``device`` (default: the
-    card)."""
+    card); on ``device="meta"`` the shapes alone, and ``gen`` may be
+    None."""
     device = resolve_device(device)
-    if gen.device.type != device.type:
+    if device.type != "meta" and gen.device.type != device.type:
         raise ValueError(f"generator on {gen.device}, model on {device}")
     if cfg.kind == "graphcast":
         return init_graphcast(gen, cfg, d_feat, device)

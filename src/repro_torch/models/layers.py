@@ -28,7 +28,11 @@ from repro_torch.kernels.moe_gemm import ops as moe_ops
 def _init(gen: torch.Generator, shape, scale=None, dtype=torch.float32,
           device=None) -> torch.Tensor:
     """Normal(0, 1) in float32 times ``scale`` (default
-    ``1/sqrt(shape[0])``, the reference's rule), cast to ``dtype``."""
+    ``1/sqrt(shape[0])``, the reference's rule), cast to ``dtype``.  On
+    the ``meta`` device (a shape-only build: names, shapes and dtypes,
+    no storage) an empty tensor, and ``gen`` may be None."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = scale if scale is not None else (1.0 / max(shape[0], 1)) ** 0.5
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return x.mul_(scale).to(dtype)
@@ -397,8 +401,12 @@ def moe_block(p, cfg: TransformerConfig, x: torch.Tensor):
     y_tok = torch.where(keep[:, None], y_tok, 0) * flat_g[:, None].to(x.dtype)
     y = y_tok.view(T, k, d).sum(dim=1)
     # load-balance aux (Switch-style); for aux-free routing it is only
-    # reported
-    frac_tok = torch.bincount(flat_e, minlength=E).float() / (T * k)
+    # reported.  Tokens are counted into a fixed (E,) buffer, so no shape
+    # depends on the data (bincount's does, which the meta device cannot
+    # trace)
+    counts = torch.zeros(E, dtype=torch.int64, device=flat_e.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    frac_tok = counts.float() / (T * k)
     aux = E * torch.sum(frac_tok * probs_mean)
     if mo.n_shared:
         y = y + swiglu(xt, p["shared_wg"], p["shared_wu"], p["shared_wd"])

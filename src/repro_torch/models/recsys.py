@@ -132,7 +132,8 @@ class DINBatch:
 
 def init_din(gen: torch.Generator, cfg: RecsysConfig, device=None) -> dict:
     """Seeded parameters: the tables N(0, 0.01²), the MLPs' weights
-    N(0, 1/fan_in) and zero biases, drawn from ``gen`` on ``device``."""
+    N(0, 1/fan_in) and zero biases, drawn from ``gen`` on ``device``; on
+    ``device="meta"`` the shapes alone, and ``gen`` may be None."""
     device = resolve_device(device)
     dt, d = DTYPES[cfg.dtype], cfg.embed_dim
     de = 2 * d                         # item+cate concat

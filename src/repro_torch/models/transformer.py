@@ -164,9 +164,11 @@ def init_lm_params(gen: torch.Generator, cfg: TransformerConfig,
     does (normal weights scaled by ``1/sqrt(shape[0])``, the embedding and
     head by 0.02, norms 1, biases 0), drawn from ``gen`` — a
     :class:`torch.Generator` on ``device`` (default: the card); with
-    ``cfg.mtp_depth`` also the MTP head's dense block and projection."""
+    ``cfg.mtp_depth`` also the MTP head's dense block and projection.
+    ``device="meta"`` builds the shapes alone (no storage, ``gen`` may
+    be None): the mesh plan's and the dry-run's model."""
     device = resolve_device(device)
-    if gen.device.type != device.type:
+    if device.type != "meta" and gen.device.type != device.type:
         raise ValueError(f"generator on {gen.device}, model on {device}")
     dtype = _dt(cfg)
     n_dense = cfg.moe.first_k_dense if cfg.moe else cfg.n_layers

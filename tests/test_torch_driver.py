@@ -107,7 +107,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.runtime, repro_torch.runtime.compile_cache, "
             "repro_torch.distributed.compression, "
             "repro_torch.launch.train, repro_torch.launch.dist_worker, "
-            "repro_torch.core.exchange, repro_torch.graph.partition; "
+            "repro_torch.core.exchange, repro_torch.graph.partition, "
+            "repro_torch.launch.mesh, repro_torch.launch.specs, "
+            "repro_torch.launch.dryrun, repro_torch.distributed.sharding; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
