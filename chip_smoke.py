@@ -277,6 +277,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -1631,17 +1632,20 @@ def phase_lm_kernels():
 # phases 7-8: the LM serving path
 # --------------------------------------------------------------------------- #
 @contextlib.contextmanager
-def _plain_kernels(active: bool):
+def _plain_kernels(active: bool, q_chunk: int = 1024):
     """While active, the kernel wrappers the models call (flash_attn,
     moe_gemm, segment_spmm and gat_aggregate) are swapped for their plain
     versions, so the models run the port's plain path on the card; the
     training path's backward wrappers too, and the differentiable
     segment_spmm entries (the GNNs', DIN's bag) for autograd through the
     plain versions; DIN's table gradients then sum by id with the plain
-    "sum".  Only the parity checks (phases 7, 10, 13, 16, 19-21) and
-    serve_bulk's check of its first rows turn it on."""
+    "sum".  flash_attn's plain forward and backward take ``q_chunk``
+    queries at a time (the plain versions' default).  Only the parity
+    checks (phases 7, 10, 13, 16, 19-21) and serve_bulk's check of its
+    first rows turn it on here; ``tools/dsv3_lr_sweep.py`` trains through
+    it."""
     from repro_torch.kernels.flash_attn import ops as flash
-    from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attn import ref as flash_ref
     from repro_torch.kernels.moe_gemm import ops as moe
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_bwd_ref, moe_gemm_ref
     from repro_torch.kernels.segment_spmm import ops as spmm
@@ -1649,10 +1653,14 @@ def _plain_kernels(active: bool):
         yield
         return
     saved = (flash.flash_attention_k, flash.flash_attention_bwd_k,
-             moe.moe_gemm, moe.moe_gemm_bwd_k, spmm.segment_spmm,
-             spmm.gat_aggregate, spmm.segment_spmm_ad, spmm.gat_aggregate_ad)
+             flash.flash_attention_ref, moe.moe_gemm, moe.moe_gemm_bwd_k,
+             spmm.segment_spmm, spmm.gat_aggregate, spmm.segment_spmm_ad,
+             spmm.gat_aggregate_ad)
     flash.flash_attention_k = flash.flash_attention_plain
-    flash.flash_attention_bwd_k = flash_attention_bwd_ref
+    flash.flash_attention_ref = functools.partial(
+        flash_ref.flash_attention_ref, q_chunk=q_chunk)
+    flash.flash_attention_bwd_k = functools.partial(
+        flash_ref.flash_attention_bwd_ref, q_chunk=q_chunk)
     moe.moe_gemm = moe_gemm_ref
     moe.moe_gemm_bwd_k = moe_gemm_bwd_ref
     spmm.segment_spmm = spmm.segment_spmm_plain
@@ -1665,9 +1673,10 @@ def _plain_kernels(active: bool):
     try:
         yield
     finally:
-        (flash.flash_attention_k, flash.flash_attention_bwd_k, moe.moe_gemm,
-         moe.moe_gemm_bwd_k, spmm.segment_spmm, spmm.gat_aggregate,
-         spmm.segment_spmm_ad, spmm.gat_aggregate_ad) = saved
+        (flash.flash_attention_k, flash.flash_attention_bwd_k,
+         flash.flash_attention_ref, moe.moe_gemm, moe.moe_gemm_bwd_k,
+         spmm.segment_spmm, spmm.gat_aggregate, spmm.segment_spmm_ad,
+         spmm.gat_aggregate_ad) = saved
 
 
 def _lm_launches() -> dict:

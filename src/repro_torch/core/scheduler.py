@@ -60,7 +60,10 @@ leaves nothing to build (``stats["compiles"] == 0``).  A wave's stages
 read each other's graph outputs where they are; only ``init`` (host
 seeds) stays eager, and the packed finalize result is copied out of its
 graph at once, since younger waves replay that graph before the wave
-retires.  On the CPU and under ``spmd``/``dist`` the stages run eagerly.
+retires.  A capture's warm-up may run on arguments that replays of other
+graphs have overwritten, so the stages must not fault on any argument
+values (:meth:`StageRunner._capture`).  On the CPU and under
+``spmd``/``dist`` the stages run eagerly.
 """
 from __future__ import annotations
 
@@ -585,7 +588,15 @@ class StageRunner:
         kernels), the capture, and one replay, so that the outputs hold a
         real call's values before any other stage reads them.  All of it
         in the runner's memory pool, on its own stream.  Returns the
-        executable and the kernel libraries the stage launched from."""
+        executable and the kernel libraries the stage launched from.
+
+        The warm-up and the replay compute on the arguments as they stand.
+        A pre-warm takes them from other graphs' outputs, which between a
+        wave's replays hold whatever a replay of a graph sharing the pool
+        last wrote there.  So every stage runs without a fault on any
+        argument values (its data-dependent indices are clamped or
+        masked), and no wave reads what such a call computes: a wave
+        replays each graph before it reads the graph's outputs."""
         dev = self.g.device
         with _GRAPH_LOCK, torch.cuda.device(dev):
             if self._pool is None:

@@ -153,7 +153,10 @@ def _decode_ids(stream, length, raw, m_out: int, sentinel: int):
 def _encode_pairs(a, b, universe: int, a_cap: int, b_cap: int):
     L, m = a.shape
     idx = vref.arange(m, a)
-    valid = a < universe
+    # only ids in [0, universe) are coded: a stage must run without a
+    # fault on any argument values (see repro_torch.core.scheduler), and
+    # a negative a would set a bit at a negative scatter index below
+    valid = (a >= 0) & (a < universe)
     count = valid.sum(-1, dtype=_I32)
     l = _ef_lowbits(universe, count)[:, None]
 

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core
 // kernels (flash_attn and moe_gemm, forward and backward): TMA tensor maps
-// and tile loads, mbarriers, the 128-byte-swizzle shared-memory descriptor
-// of wgmma, the wgmma fences, and thin wrappers around wgmma.mma_async for
-// m64nNk16.f32.bf16.bf16 (N = 64 or 128) with both operands in shared
-// memory or with A in registers (there also N = 192).
+// and tile loads, mbarriers, named barriers, an acquire-release counter
+// and the async-proxy fence, the 128-byte-swizzle shared-memory
+// descriptor of wgmma, the wgmma fences, and thin wrappers around
+// wgmma.mma_async for m64nNk16.f32.bf16.bf16 (N = 64 or 128) with both
+// operands in shared memory or with A in registers (there also N = 192).
 //
 // Tensor maps are encoded on the host with the driver's
 // cuTensorMapEncodeTiled, fetched through the runtime's
@@ -253,6 +254,40 @@ __device__ __forceinline__ void regs_dealloc() {
 template <int R>
 __device__ __forceinline__ void regs_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// A named barrier (ids 1-15; __syncthreads uses 0) for part of a CTA:
+// waits until kCount threads, whole warps, have reached barrier `id`.
+template <int kCount>
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kCount) : "memory");
+}
+
+// Adds v to a shared-memory counter at CTA scope and returns the old
+// value, as a release of this thread's earlier accesses (after a barrier,
+// those of the threads that met it there) and an acquire of the accesses
+// released by the adds before it.
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "r"(smem_u32(p)), "r"(v)
+               : "memory");
+  return old;
+}
+
+// Orders this thread's shared-memory accesses through the generic proxy
+// (plain loads and stores), and those it has acquired, before its later
+// ones through the async proxy (a TMA write).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats as one bf16x2 register (lo in the low half): an A-operand

@@ -48,11 +48,7 @@
 // K are staged at D, V and dO at Dv: 194 KB at (192, 128), where four
 // tiles at D would take 231 KB, over the 227 KB a block may have.
 // "wgmma" (bf16, D and Dv multiples of 16, D <= 192, Dv <= 128, 16-byte
-// aligned): every product on the tensor cores, fed by TMA, on the forward
-// "wgmma" variant's skeleton: a CTA of three warpgroups, the first issuing
-// TMA loads from one thread into a 4-stage mbarrier ring (3 stages at
-// (192, 128): a stage of five 8 KB panels), the other two each owning 64
-// rows of the CTA's 128.  Nothing is transposed through shared memory.  dkdv works in
+// aligned): every product on the tensor cores, fed by TMA.  dkdv works in
 // the transposed form: its rows are keys, so S^T = K Q^T and dP^T = V dO^T
 // come from 128-byte-swizzled shared memory with both operands K-major
 // over D, P^T and dS^T sit in registers in the A layout (rows = keys,
@@ -66,15 +62,46 @@
 // place through 4-D (D or Dv, H, S, B) maps; rows and columns past S, D
 // and Dv arrive as zeros and stores are guarded.  (D, Dv) is padded to
 // 64-column panels, one of three instantiations: (64, 64), (128, 128) or
-// (192, 128); a panel wholly past D or Dv arrives as zeros too.  At (192,
-// 128) the resident tiles take 80 KB and three stages 120 KB: 203 KB with
-// the lse/delta slots, barriers and alignment.  A dkdv consumer holds dK
-// (96 f32 a thread), dV (64), S^T (32) and dP^T (32); ptxas gives each
-// consumer 240 registers after setmaxnreg and spills 44 bytes there (dq:
-// dQ 96 + S 32 + dP 32, no spill).  dkdv runs the low key tiles
-// (the most queries under the causal mask) first, dq the high query tiles.
-// The rounding points are the first tensor-core version's: P and dS are
-// rounded to bf16 as A operands, dK and dQ scaled once at the end.
+// (192, 128); a panel wholly past D or Dv arrives as zeros too.
+//
+// The design, chosen by timing variants on the H100 at (192, 128) and at
+// D = 128 (PERF.md §6):
+// - Tile: a CTA of two consumer warpgroups and nothing else, each owning
+//   64 rows (wgmma's M) of the CTA's 128 keys (dkdv) or queries (dq); the
+//   streamed tiles are 64 wide.  A wider S or dP tile (N = 128) would
+//   double those accumulators, and a third consumer would leave each 168
+//   registers: a dkdv consumer holds dK and dV (96 + 64 f32 a thread at
+//   (192, 128)) beside S^T and dP^T (32 + 32).
+// - No producer warpgroup: with 256 threads each consumer may hold 255
+//   registers, and the (192, 128) dkdv spills nothing (with a producer
+//   warpgroup and setmaxnreg a consumer gets 240 and spilled 44 bytes).
+//   Thread 0 issues the resident tiles and the first stages; after that a
+//   consumer done with a stage meets its own four warps on a named barrier
+//   and counts itself in with an atomic add, and the second to count
+//   issues the stage's refill (`release`), so neither consumer waits for
+//   the other (a refill that did, from consumer 1's first thread after
+//   an empty barrier, was slower in trial builds).
+// - No ping-pong: the two consumers issue their products whenever they
+//   are ready.  FA3's turns (named barriers ordering the consumers' S/dP
+//   and dK/dV phases) made dkdv 9.5 ms against 7.8 at (192, 128): the S
+//   and dP chains are m64n64 products, 12 and 8 deep, each step depending
+//   on the last, and one consumer's chains alone do not keep the tensor
+//   cores busy; two consumers' concurrent chains do.  Issuing the next
+//   tile's S under this tile's elementwise pass, or the next tile's
+//   products behind this tile's dK/dV or dQ, was slower too.
+// - Ring: 4 stages, 3 at (192, 128) (a stage of five 8 KB panels; the
+//   resident tiles take 80 KB, three stages 120 KB: 203 KB with the
+//   lse/delta slots, barriers and alignment).
+// - Elementwise pass: exp2 on the special-function unit (ex2.approx.ftz),
+//   the scale and lse folded into one FMA, P and dS packed into A
+//   registers column group by column group, a column's lse and delta read
+//   once for both of the thread's rows; masks only on tiles that a ragged
+//   edge or the diagonal crosses.  The S and dP chains are issued
+//   interleaved, dV's before dK's.
+// dkdv runs the low key tiles (the most queries under the causal mask)
+// first, dq the high query tiles.  The rounding points are the first
+// tensor-core version's: P and dS are rounded to bf16 as A operands, dK
+// and dQ scaled once at the end.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -495,17 +522,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // ---------------------------------------------------------------------------
-// "wgmma": dkdv and dq in bf16 on the tensor cores, TMA-fed,
-// warp-specialised (one producer warpgroup, two consumers)
+// "wgmma": dkdv and dq in bf16 on the tensor cores, TMA-fed, two
+// consumer warpgroups that refill the ring themselves
 // ---------------------------------------------------------------------------
 namespace warpgroup {
 
 using bf16 = __nv_bfloat16;
 constexpr int kT = 64;            // rows of a streamed tile, and of a consumer
-constexpr int kThreads = 384;     // producer warpgroup + 2 consumers
+constexpr int kThreads = 256;     // two consumer warpgroups, no producer's
 constexpr int kPanel = kT * 64;   // elements of a 64-row, 64-column panel
 constexpr int kPanelBytes = kPanel * 2;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBarDone = 1;       // named barriers 1 and 2: a consumer's own
 
 // lse and delta of a 64-query tile come through a flat f32 map of
 // (B, H, Sq) in boxes of kRowsBox rows that start at the 16-byte boundary
@@ -524,6 +552,7 @@ constexpr int stages() {
 // dkdv: the CTA's 128 keys of K and V (two 64-row blocks per panel), a
 // ring of 64-query tiles of Q and dO, and each tile's lse and delta.  kD,
 // kDv: the q/k and the v head widths padded to 64-column panels.
+// `done` counts, per stage, the consumers that have finished with it.
 template <int kD, int kDv>
 struct SmemKV {
   static constexpr int kStages = stages<kD, kDv>();
@@ -532,7 +561,8 @@ struct SmemKV {
   bf16 q[kStages][kD / 64][kPanel];
   bf16 o[kStages][kDv / 64][kPanel];   // dO
   float lse[kStages][kRowsSlot], delta[kStages][kRowsSlot];
-  uint64_t kv_full, full[kStages], empty[kStages];
+  uint64_t kv_full, full[kStages];
+  int done[kStages];
 };
 
 // dq: the CTA's 128 queries of Q and dO, a ring of 64-key tiles of K and V.
@@ -543,24 +573,52 @@ struct SmemQ {
   bf16 o[kDv / 64][2][kPanel];
   bf16 k[kStages][kD / 64][kPanel];
   bf16 v[kStages][kDv / 64][kPanel];
-  uint64_t q_full, full[kStages], empty[kStages];
+  uint64_t q_full, full[kStages];
+  int done[kStages];
 };
 
-// Sixteen bf16x2 A-operand registers (four k16 steps over 64 columns) from
-// a 64 x 64 f32 accumulator: the m64n64 accumulator layout is the A layout.
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4],
-                                     const float (&acc)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kk][r] =
-          hopper::pack_bf16(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
+// Consumer c (thread `tid` of it) is done with tile `it`'s stage: its
+// four warps meet on its own named barrier (every wgmma of theirs that
+// read the stage has been waited for), then its first thread counts it
+// in, and the second consumer to count refills the stage with tile it +
+// kStages through `load`.  Neither consumer waits for the other.
+// The invariant that makes the refill safe: every read of the stage, by
+// wgmma or by a plain load (lse, delta), is complete before the reading
+// consumer's barrier.  The count is an acquire-release add, so the first
+// consumer's reads happen before the second's add, and the proxy fence
+// orders them before the TMA write that refills the stage.
+template <int kStages, typename Load>
+__device__ __forceinline__ void release(int* done, int it, int n, int c,
+                                        int tid, Load load) {
+  hopper::named_sync<128>(kBarDone + c);
+  if (tid == 0 && (hopper::atom_add_acq_rel(&done[it % kStages], 1) & 1) &&
+      it + kStages < n) {
+    hopper::fence_proxy_async();
+    load(it + kStages);
+  }
+  __syncwarp();   // the loading thread's warp converges before its wgmma
 }
 
-__device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
+// S (or S^T) = A B^T over kD and dP (dP^T) over kDv, both operands
+// K-major in shared memory, 64 columns a panel: `a`/`av` the resident
+// rows (panels `a_panel` elements apart), `b`/`bv` a stage's (`b_panel`
+// apart).  The two accumulation chains are issued interleaved.
+template <int kD, int kDv>
+__device__ __forceinline__ void issue_s_dp(float (&s)[32], float (&dp)[32],
+                                           const bf16* a, const bf16* av,
+                                           int a_panel, const bf16* b,
+                                           const bf16* bv, int b_panel) {
+  using namespace hopper;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(a[kk]);
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const int at = (kk / 4) * a_panel + (kk % 4) * 16;
+    const int bt = (kk / 4) * b_panel + (kk % 4) * 16;
+    wgmma_ss<0>(s, desc_sw128(a + at, 16, 1024),
+                desc_sw128(b + bt, 16, 1024), kk > 0);
+    if (kk < kDv / 16)
+      wgmma_ss<0>(dp, desc_sw128(av + at, 16, 1024),
+                  desc_sw128(bv + bt, 16, 1024), kk > 0);
+  }
 }
 
 // Store a consumer's 64 rows of an accumulator of width kW (kW / 2 floats
@@ -585,6 +643,19 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out,
                                   acc[4 * i + 2 * hh + 1] * scale);
     }
   }
+}
+
+__device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(a[kk]);
+}
+
+// The A-operand register of column group i (8 columns), row half hh, of a
+// 64 x 64 accumulator: the m64n64 accumulator layout is the A layout, a
+// k16 step spanning two groups.
+__device__ __forceinline__ uint32_t& a_reg(uint32_t (&a)[4][4], int i,
+                                           int hh) {
+  return a[i / 2][2 * (i % 2) + hh];
 }
 
 // dK, dV: one CTA per (128-key tile, b, kv head), keys k0 + 64c .. + 63 to
@@ -623,140 +694,139 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     mbar_init(&sm.kv_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], 2 * 128);
+      sm.done[s] = 0;
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  const int wgi = threadIdx.x / 128;
-  if (wgi == 0) {  // producer
-    regs_dealloc<24>();
-    if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(&sm.kv_full, 2 * (kP + kPv) * kPanelBytes);
-      for (int r = 0; r < 2; ++r) {
-        for (int p = 0; p < kP; ++p)
-          tma_load_4d(sm.k[p][r], &tk, &sm.kv_full, 64 * p, hk, k0 + kT * r,
-                      b);
-        for (int p = 0; p < kPv; ++p)
-          tma_load_4d(sm.v[p][r], &tv, &sm.kv_full, 64 * p, hk, k0 + kT * r,
-                      b);
-      }
-      for (int it = 0; it < n_it; ++it) {
-        const int s = it % kStages;
-        if (it >= kStages) mbar_wait(&sm.empty[s], ((it / kStages) - 1) & 1);
-        mbar_arrive_expect_tx(&sm.full[s],
-                              (kP + kPv) * kPanelBytes + 2 * kRowsBox * 4);
-        const int h = hk * rep + it / nt;
-        const int q0 = (t_first + it % nt) * kT;
-        for (int p = 0; p < kP; ++p)
-          tma_load_4d(sm.q[s][p], &tq, &sm.full[s], 64 * p, h, q0, b);
-        for (int p = 0; p < kPv; ++p)
-          tma_load_4d(sm.o[s][p], &tdo, &sm.full[s], 64 * p, h, q0, b);
-        // rows past Sq (the next head's, or zeros) are masked below
-        const int row = ((b * H + h) * Sq + q0) & ~3;
-        tma_load_1d(sm.lse[s], &tlse, &sm.full[s], row);
-        tma_load_1d(sm.delta[s], &tdelta, &sm.full[s], row);
-      }
+  // query tile `it` (head it / nt) into its stage, from one thread
+  const auto load = [&](int it) {
+    const int s = it % kStages;
+    mbar_arrive_expect_tx(&sm.full[s],
+                          (kP + kPv) * kPanelBytes + 2 * kRowsBox * 4);
+    const int h = hk * rep + it / nt;
+    const int q0 = (t_first + it % nt) * kT;
+    for (int p = 0; p < kP; ++p)
+      tma_load_4d(sm.q[s][p], &tq, &sm.full[s], 64 * p, h, q0, b);
+    for (int p = 0; p < kPv; ++p)
+      tma_load_4d(sm.o[s][p], &tdo, &sm.full[s], 64 * p, h, q0, b);
+    // rows past Sq (the next head's, or zeros) are masked below
+    const int row = ((b * H + h) * Sq + q0) & ~3;
+    tma_load_1d(sm.lse[s], &tlse, &sm.full[s], row);
+    tma_load_1d(sm.delta[s], &tdelta, &sm.full[s], row);
+  };
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&sm.kv_full, 2 * (kP + kPv) * kPanelBytes);
+    for (int r = 0; r < 2; ++r) {
+      for (int p = 0; p < kP; ++p)
+        tma_load_4d(sm.k[p][r], &tk, &sm.kv_full, 64 * p, hk, k0 + kT * r,
+                    b);
+      for (int p = 0; p < kPv; ++p)
+        tma_load_4d(sm.v[p][r], &tv, &sm.kv_full, 64 * p, hk, k0 + kT * r,
+                    b);
     }
-  } else {  // consumers
-    regs_alloc<240>();
-    const int c = wgi - 1;
-    const int tid = threadIdx.x - 128 * wgi;
-    const int lane = tid & 31, quad = lane & 3;
-    const int key_first = k0 + kT * c;               // the WG's first key
-    const int key0 = key_first + 16 * (tid >> 5) + (lane >> 2);  // and + 8
+    for (int it = 0; it < min(n_it, kStages); ++it) load(it);
+  }
+  __syncwarp();
 
-    float adk[kD / 2], adv[kDv / 2];
-#pragma unroll
-    for (int i = 0; i < kD / 2; ++i) adk[i] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kDv / 2; ++i) adv[i] = 0.f;
+  const int c = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid & 31, quad = lane & 3;
+  const int key_first = k0 + kT * c;                 // the WG's first key
+  const int key0 = key_first + 16 * (tid >> 5) + (lane >> 2);   // and + 8
 
-    mbar_wait(&sm.kv_full, 0);
-    for (int it = 0; it < n_it; ++it) {
-      const int s = it % kStages;
-      const int q0 = (t_first + it % nt) * kT;
-      // where the tile's first row sits in its lse and delta box
-      const int r0 = ((b * H + hk * rep + it / nt) * Sq + q0) & 3;
-      mbar_wait(&sm.full[s], (it / kStages) & 1);
-      // every query of the tile precedes the WG's first key, or the WG has
-      // no key: nothing to add
-      const bool skip = key_first >= Skv ||
-                        (causal && q0 + kT - 1 + q_offset < key_first);
-      if (!skip) {
-        float st[32], dpt[32];
-        wgmma_fence();
+  float adk[kD / 2], adv[kDv / 2];
 #pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk)
-          wgmma_ss<0>(st, desc_sw128(&sm.k[kk / 4][c][(kk % 4) * 16], 16,
-                                     1024),
-                      desc_sw128(&sm.q[s][kk / 4][(kk % 4) * 16], 16, 1024),
-                      kk > 0);
+  for (int i = 0; i < kD / 2; ++i) adk[i] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < kDv / 16; ++kk)
-          wgmma_ss<0>(dpt, desc_sw128(&sm.v[kk / 4][c][(kk % 4) * 16], 16,
-                                      1024),
-                      desc_sw128(&sm.o[s][kk / 4][(kk % 4) * 16], 16, 1024),
-                      kk > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(st);
-        fence_regs(dpt);
+  for (int i = 0; i < kDv / 2; ++i) adv[i] = 0.f;
 
-        // mask only tiles a ragged edge or the diagonal crosses
-        const bool edge = q0 + kT > Sq || key_first + kT > Skv ||
-                          (causal && q0 + q_offset < key_first + kT - 1);
+  mbar_wait(&sm.kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    const int q0 = (t_first + it % nt) * kT;
+    // where the tile's first row sits in its lse and delta box
+    const int r0 = ((b * H + hk * rep + it / nt) * Sq + q0) & 3;
+    mbar_wait(&sm.full[s], (it / kStages) & 1);
+    // every query of the tile precedes the WG's first key, or the WG has
+    // no key: nothing to add
+    const bool skip = key_first >= Skv ||
+                      (causal && q0 + kT - 1 + q_offset < key_first);
+    if (!skip) {
+      float st[32], dpt[32];
+      wgmma_fence();
+      issue_s_dp<kD, kDv>(st, dpt, &sm.k[0][c][0], &sm.v[0][c][0],
+                          2 * kPanel, &sm.q[s][0][0], &sm.o[s][0][0],
+                          kPanel);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T and dS^T, packed into A registers column group by column
+      // group; a column's lse and delta are read once for both of the
+      // thread's rows.  Only tiles a ragged edge or the diagonal crosses
+      // are masked.
+      const bool edge = q0 + kT > Sq || key_first + kT > Skv ||
+                        (causal && q0 + q_offset < key_first + kT - 1);
+      uint32_t pa[4][4], sa[4][4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = 8 * i + 2 * quad + (e & 1);
-            const int query = q0 + col, key = key0 + 8 * (e >> 1);
-            float p = exp2f(st[4 * i + e] * scale_log2 -
-                            sm.lse[s][r0 + col] * kLog2e);
+        for (int j = 0; j < 2; ++j) {
+          const int col = 8 * i + 2 * quad + j;
+          const int query = q0 + col;
+          const float l2 = sm.lse[s][r0 + col] * kLog2e;
+          const float dl = sm.delta[s][r0 + col];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int e = 4 * i + 2 * hh + j, key = key0 + 8 * hh;
+            float p = exp2_approx(fmaf(st[e], scale_log2, -l2));
             if (edge && (key >= Skv || query >= Sq ||
                          (causal && key > query + q_offset)))
               p = 0.f;
-            dpt[4 * i + e] = p * (dpt[4 * i + e] - sm.delta[s][r0 + col]);
-            st[4 * i + e] = p;
+            dpt[e] = p * (dpt[e] - dl);
+            st[e] = p;
           }
-        uint32_t pa[4][4], sa[4][4];
-        to_a(pa, st);
-        to_a(sa, dpt);
-        fence_a(pa);
-        fence_a(sa);
-        wgmma_fence();
+        }
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<1>(adv, pa[kk],
-                      desc_sw128(&sm.o[s][0][kk * 16 * 64], kPanelBytes,
-                                 1024),
-                      1);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<1>(adk, sa[kk],
-                      desc_sw128(&sm.q[s][0][kk * 16 * 64], kPanelBytes,
-                                 1024),
-                      1);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_a(pa);
-        fence_a(sa);
-        fence_regs(adv);
-        fence_regs(adk);
+        for (int hh = 0; hh < 2; ++hh) {
+          const int e = 4 * i + 2 * hh;
+          a_reg(pa, i, hh) = pack_bf16(st[e], st[e + 1]);
+          a_reg(sa, i, hh) = pack_bf16(dpt[e], dpt[e + 1]);
+        }
       }
-      mbar_arrive(&sm.empty[s]);
+      fence_a(pa);
+      fence_a(sa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(adv, pa[kk],
+                    desc_sw128(&sm.o[s][0][kk * 16 * 64], kPanelBytes, 1024),
+                    1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(adk, sa[kk],
+                    desc_sw128(&sm.q[s][0][kk * 16 * 64], kPanelBytes, 1024),
+                    1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_a(pa);
+      fence_a(sa);
+      fence_regs(adv);
+      fence_regs(adk);
     }
-
-    const auto at = [&](int W) {
-      return [=](int key) {
-        return (((long long)b * Skv + key) * Hk + hk) * W;
-      };
-    };
-    store_rows<kD>(dk, adk, key0, Skv, D, quad, scale, at(D));
-    store_rows<kDv>(dv, adv, key0, Skv, Dv, quad, 1.f, at(Dv));
+    release<kStages>(sm.done, it, n_it, c, tid, load);
   }
+
+  const auto at = [&](int W) {
+    return [=](int key) {
+      return (((long long)b * Skv + key) * Hk + hk) * W;
+    };
+  };
+  store_rows<kD>(dk, adk, key0, Skv, D, quad, scale, at(D));
+  store_rows<kDv>(dv, adv, key0, Skv, Dv, quad, 1.f, at(Dv));
 }
 
 // dQ: one CTA per (128-query tile, b, h), queries q0 + 64c .. + 63 to
@@ -792,119 +862,110 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     mbar_init(&sm.q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], 2 * 128);
+      sm.done[s] = 0;
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  const int wgi = threadIdx.x / 128;
-  if (wgi == 0) {  // producer
-    regs_dealloc<24>();
-    if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(&sm.q_full, 2 * (kP + kPv) * kPanelBytes);
-      for (int r = 0; r < 2; ++r) {
-        for (int p = 0; p < kP; ++p)
-          tma_load_4d(sm.q[p][r], &tq, &sm.q_full, 64 * p, h, q0 + kT * r, b);
-        for (int p = 0; p < kPv; ++p)
-          tma_load_4d(sm.o[p][r], &tdo, &sm.q_full, 64 * p, h, q0 + kT * r,
-                      b);
-      }
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        if (t >= kStages) mbar_wait(&sm.empty[s], ((t / kStages) - 1) & 1);
-        mbar_arrive_expect_tx(&sm.full[s], (kP + kPv) * kPanelBytes);
-        for (int p = 0; p < kP; ++p)
-          tma_load_4d(sm.k[s][p], &tk, &sm.full[s], 64 * p, hk, t * kT, b);
-        for (int p = 0; p < kPv; ++p)
-          tma_load_4d(sm.v[s][p], &tv, &sm.full[s], 64 * p, hk, t * kT, b);
-      }
+  // key tile t into its stage, from one thread
+  const auto load = [&](int t) {
+    const int s = t % kStages;
+    mbar_arrive_expect_tx(&sm.full[s], (kP + kPv) * kPanelBytes);
+    for (int p = 0; p < kP; ++p)
+      tma_load_4d(sm.k[s][p], &tk, &sm.full[s], 64 * p, hk, t * kT, b);
+    for (int p = 0; p < kPv; ++p)
+      tma_load_4d(sm.v[s][p], &tv, &sm.full[s], 64 * p, hk, t * kT, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&sm.q_full, 2 * (kP + kPv) * kPanelBytes);
+    for (int r = 0; r < 2; ++r) {
+      for (int p = 0; p < kP; ++p)
+        tma_load_4d(sm.q[p][r], &tq, &sm.q_full, 64 * p, h, q0 + kT * r, b);
+      for (int p = 0; p < kPv; ++p)
+        tma_load_4d(sm.o[p][r], &tdo, &sm.q_full, 64 * p, h, q0 + kT * r,
+                    b);
     }
-  } else {  // consumers
-    regs_alloc<240>();
-    const int c = wgi - 1;
-    const int tid = threadIdx.x - 128 * wgi;
-    const int lane = tid & 31, quad = lane & 3;
-    const int q_first = q0 + kT * c;                  // the WG's first query
-    const int row0 = q_first + 16 * (tid >> 5) + (lane >> 2);   // and + 8
-    // the WG's last query position (none when q_first >= Sq)
-    const int last_pos = min(q_first + kT, Sq) - 1 + q_offset;
-    float lse2[2], dl[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = row0 + 8 * hh;
-      const long long at = ((long long)b * H + h) * Sq + row;
-      lse2[hh] = row < Sq ? lse[at] * kLog2e : 0.f;
-      dl[hh] = row < Sq ? delta[at] : 0.f;
-    }
-
-    float adq[kD / 2];
-#pragma unroll
-    for (int i = 0; i < kD / 2; ++i) adq[i] = 0.f;
-
-    mbar_wait(&sm.q_full, 0);
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % kStages;
-      const int k0 = t * kT;
-      mbar_wait(&sm.full[s], (t / kStages) & 1);
-      const bool skip = q_first >= Sq || (causal && k0 > last_pos);
-      if (!skip) {
-        float sc[32], dp[32];
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk)
-          wgmma_ss<0>(sc, desc_sw128(&sm.q[kk / 4][c][(kk % 4) * 16], 16,
-                                     1024),
-                      desc_sw128(&sm.k[s][kk / 4][(kk % 4) * 16], 16, 1024),
-                      kk > 0);
-#pragma unroll
-        for (int kk = 0; kk < kDv / 16; ++kk)
-          wgmma_ss<0>(dp, desc_sw128(&sm.o[kk / 4][c][(kk % 4) * 16], 16,
-                                     1024),
-                      desc_sw128(&sm.v[s][kk / 4][(kk % 4) * 16], 16, 1024),
-                      kk > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(sc);
-        fence_regs(dp);
-
-        const bool edge = k0 + kT > Skv || q_first + kT > Sq ||
-                          (causal && k0 + kT - 1 > q_first + q_offset);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int hh = e >> 1;
-            const int key = k0 + 8 * i + 2 * quad + (e & 1);
-            const int row = row0 + 8 * hh;
-            float p = exp2f(sc[4 * i + e] * scale_log2 - lse2[hh]);
-            if (edge && (key >= Skv || row >= Sq ||
-                         (causal && key > row + q_offset)))
-              p = 0.f;
-            sc[4 * i + e] = p * (dp[4 * i + e] - dl[hh]);
-          }
-        uint32_t sa[4][4];
-        to_a(sa, sc);
-        fence_a(sa);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<1>(adq, sa[kk],
-                      desc_sw128(&sm.k[s][0][kk * 16 * 64], kPanelBytes,
-                                 1024),
-                      1);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_a(sa);
-        fence_regs(adq);
-      }
-      mbar_arrive(&sm.empty[s]);
-    }
-
-    store_rows<kD>(dq, adq, row0, Sq, D, quad, scale, [=](int row) {
-      return (((long long)b * Sq + row) * H + h) * D;
-    });
+    for (int t = 0; t < min(n_tiles, kStages); ++t) load(t);
   }
+  __syncwarp();
+
+  const int c = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid & 31, quad = lane & 3;
+  const int q_first = q0 + kT * c;                   // the WG's first query
+  const int row0 = q_first + 16 * (tid >> 5) + (lane >> 2);   // and + 8
+  // the WG's last query position (none when q_first >= Sq)
+  const int last_pos = min(q_first + kT, Sq) - 1 + q_offset;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    const long long at = ((long long)b * H + h) * Sq + row;
+    lse2[hh] = row < Sq ? lse[at] * kLog2e : 0.f;
+    dl[hh] = row < Sq ? delta[at] : 0.f;
+  }
+
+  float adq[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) adq[i] = 0.f;
+
+  mbar_wait(&sm.q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const int k0 = t * kT;
+    mbar_wait(&sm.full[s], (t / kStages) & 1);
+    const bool skip = q_first >= Sq || (causal && k0 > last_pos);
+    if (!skip) {
+      float sc[32], dp[32];
+      wgmma_fence();
+      issue_s_dp<kD, kDv>(sc, dp, &sm.q[0][c][0], &sm.o[0][c][0],
+                          2 * kPanel, &sm.k[s][0][0], &sm.v[s][0][0],
+                          kPanel);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      const bool edge = k0 + kT > Skv || q_first + kT > Sq ||
+                        (causal && k0 + kT - 1 > q_first + q_offset);
+      uint32_t sa[4][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1, x = 4 * i + e;
+          const int key = k0 + 8 * i + 2 * quad + (e & 1);
+          const int row = row0 + 8 * hh;
+          float p = exp2_approx(fmaf(sc[x], scale_log2, -lse2[hh]));
+          if (edge && (key >= Skv || row >= Sq ||
+                       (causal && key > row + q_offset)))
+            p = 0.f;
+          sc[x] = p * (dp[x] - dl[hh]);
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          a_reg(sa, i, hh) =
+              pack_bf16(sc[4 * i + 2 * hh], sc[4 * i + 2 * hh + 1]);
+      }
+      fence_a(sa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(adq, sa[kk],
+                    desc_sw128(&sm.k[s][0][kk * 16 * 64], kPanelBytes, 1024),
+                    1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_a(sa);
+      fence_regs(adq);
+    }
+    release<kStages>(sm.done, t, n_tiles, c, tid, load);
+  }
+
+  store_rows<kD>(dq, adq, row0, Sq, D, quad, scale, [=](int row) {
+    return (((long long)b * Sq + row) * H + h) * D;
+  });
 }
 
 // The flat map of a float32 (B, H, Sq) tensor, boxes of kRowsBox rows.

@@ -216,6 +216,17 @@ MLA_BWD_CASES = [
     (1, 200, 400, 4, 2, 192, 128, True, 130),   # q_offset past a key tile
     (1, 100, 150, 4, 1, 192, 128, False, 0),    # non-causal, GQA 4/1
     (1, 255, 257, 4, 4, 176, 96, True, 2),      # padded to (192, 128)
+    # the "wgmma" schedule's edges: the last CTA's second consumer has no
+    # keys (dkdv) and no queries (dq); the diagonal inside a tile; H/Hk =
+    # 4; Sq != Skv, causal with the queries at the end, and not causal
+    (1, 320, 320, 4, 4, 192, 128, True, 0),
+    (1, 160, 256, 4, 4, 192, 128, True, 96),
+    (1, 192, 192, 8, 2, 192, 128, True, 0),
+    (1, 100, 356, 4, 4, 192, 128, True, 256),
+    (1, 130, 390, 4, 2, 192, 128, False, 0),
+    # the other two instantiations share it
+    (1, 320, 200, 8, 2, 128, 128, True, 64),
+    (2, 130, 130, 4, 4, 64, 64, True, 0),
 ]
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of max |plain|
 
